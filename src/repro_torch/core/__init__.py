@@ -1,0 +1,19 @@
+"""Core library: the paper's Hybrid LSH r-NN reporting data structure.
+
+Public surface:
+  * ``HybridLSHIndex``  — single-device build/query (Algorithms 1 + 2)
+  * ``core.engine``     — the segment engine: ``QueryEngine`` + the
+                          ``TableSegment`` of the static index
+  * ``core.lsh``        — LSH families + CSR tables
+  * ``core.hll``        — HyperLogLog sketches
+  * ``core.cost_model`` — Eq. (1)/(2)
+"""
+from repro_torch.core.cost_model import CostModel, PAPER_PRESETS
+from repro_torch.core.engine import (QueryEngine, RouteEstimate,
+                                     SegmentEstimate, TableSegment,
+                                     finalize_route)
+from repro_torch.core.index import HybridLSHIndex, QueryResult
+
+__all__ = ["CostModel", "PAPER_PRESETS", "HybridLSHIndex", "QueryResult",
+           "RouteEstimate", "QueryEngine", "SegmentEstimate", "TableSegment",
+           "finalize_route"]

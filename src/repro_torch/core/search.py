@@ -1,0 +1,131 @@
+"""The two search strategies the hybrid router chooses between.
+
+Both run through the fused scan kernels behind the ``ops`` dispatch:
+
+  * ``linear_search`` — fused brute-force scan (Eq. 2 cost): distance +
+                        threshold + report mask + ids in one kernel pass
+                        over (Q, N).
+  * ``lsh_search``    — fixed-capacity bucket gather, an int32 sort, then
+                        the fused verification kernel: sorted-run dedup +
+                        row gather + rowwise distance + threshold over
+                        (Q, C) candidates (Eq. 1 cost).
+
+Reporting semantics: every function returns ``(ids, dists, mask)`` where
+``mask[q, i]`` marks a reported r-near neighbor of query q.  Buffers are
+sentinel-padded; ``mask`` already excludes padding.
+
+Query batches are processed in fixed ``q_chunk`` slices so the per-chunk
+working set stays bounded; a batch that is not a chunk multiple is
+padded up and the results sliced back (a 33-query batch runs as two
+32-query chunks).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.lsh.tables import LSHTables, gather_candidates
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as _ref
+
+__all__ = ["linear_search", "lsh_search", "lsh_candidate_counts",
+           "dedupe_sorted", "rowwise_dist"]
+
+
+def rowwise_dist(rows: torch.Tensor, q: torch.Tensor,
+                 metric: str) -> torch.Tensor:
+    """rows: (..., C, d) candidates vs q: (..., d) -> (..., C) distances
+    (squared for L2).  Delegates to ``kernels.ref.rowwise_dist``."""
+    return _ref.rowwise_dist(rows, q, metric)
+
+
+def dedupe_sorted(cands: torch.Tensor,
+                  sentinel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort (Q, C) candidate ids and mask duplicates / sentinels.
+
+    Returns (sorted_ids, first_occurrence_mask): the sort-based stand-in
+    for the paper's hash-set duplicate removal, whose cost is the
+    alpha-term of Eq. (1).
+    """
+    s = torch.sort(cands, dim=-1).values
+    first = torch.cat([torch.ones(s.shape[:-1] + (1,), dtype=torch.bool,
+                                  device=s.device),
+                       s[..., 1:] != s[..., :-1]], dim=-1)
+    return s, first & (s < sentinel)
+
+
+def _chunked(chunk_fn, args, nq: int, q_chunk: int, pad_values):
+    """Run ``chunk_fn`` over fixed q_chunk slices of per-query arrays.
+
+    Pads every array in ``args`` up to the next chunk multiple (with its
+    entry in ``pad_values``), runs the chunks in order and concatenates
+    the (nq, ...) results.
+    """
+    padded = tuple(ops.pad_to(a, q_chunk, 0, value=v)
+                   for a, v in zip(args, pad_values))
+    outs = [chunk_fn(tuple(a[lo:lo + q_chunk] for a in padded))
+            for lo in range(0, padded[0].shape[0], q_chunk)]
+    return tuple(torch.cat([o[i] for o in outs], dim=0)[:nq]
+                 for i in range(3))
+
+
+def linear_search(x: torch.Tensor, q: torch.Tensor, r: float, metric: str,
+                  impl: str | None = None, q_chunk: int = 32,
+                  x_unit: torch.Tensor | None = None):
+    """Brute-force scan.  Returns (ids (Q,n), dists (Q,n), mask (Q,n)).
+
+    One fused kernel per chunk of ``q_chunk`` queries: distances,
+    threshold compare, report mask and candidate ids leave the kernel
+    together (``ops.fused_linear_scan``).  For cosine, ``x_unit`` (x's
+    unit rows, made once per corpus) spares the kernel route from
+    normalising the corpus for every chunk.
+    """
+    def chunk_fn(args):
+        return ops.fused_linear_scan(args[0], x, r, metric, impl=impl,
+                                     x_unit=x_unit)
+
+    nq = q.shape[0]
+    if q_chunk and nq > q_chunk:
+        return _chunked(chunk_fn, (q,), nq, q_chunk, (0,))
+    return chunk_fn((q,))
+
+
+def lsh_candidate_counts(tables: LSHTables, qbuckets: torch.Tensor, cap: int,
+                         tidx: torch.Tensor | None = None) -> torch.Tensor:
+    """(Q,) distinct candidates ``lsh_search`` would gather per query:
+    the same cap-truncated gather + sort-dedup, counting instead of
+    verifying."""
+    sentinel = tables.n
+    cands = gather_candidates(tables, qbuckets, cap, sentinel, tidx=tidx)
+    _, uniq = dedupe_sorted(cands, sentinel)
+    return torch.sum(uniq, dim=-1, dtype=torch.int32)
+
+
+def lsh_search(x: torch.Tensor, tables: LSHTables, qbuckets: torch.Tensor,
+               q: torch.Tensor, r: float, metric: str, cap: int,
+               q_chunk: int = 32, tidx: torch.Tensor | None = None,
+               impl: str | None = None):
+    """LSH-based search (steps S2+S3).
+
+    x: (n, d) database rows (or (n, W) packed codes for hamming);
+    qbuckets: (Q, V) bucket of each query per probed table (V = L, or
+    L*T with ``tidx`` mapping probe columns to physical tables);
+    q: (Q, d) queries.  Returns (ids (Q, V*cap), dists, mask) — deduped,
+    verified.  Per chunk the candidate ids are sorted (int32) and handed
+    to ``ops.fused_lsh_scan``; pad rows of a partial chunk carry
+    all-sentinel candidates, so they mask themselves.
+    """
+    sentinel = x.shape[0]
+    cands = gather_candidates(tables, qbuckets, cap, sentinel,
+                              tidx=tidx)                        # (Q, C)
+
+    def chunk_fn(args):
+        c, qq = args                                   # (qc, C), (qc, d)
+        ids = torch.sort(c, dim=-1).values
+        return ops.fused_lsh_scan(x, ids, qq, r, metric, impl=impl)
+
+    nq = q.shape[0]
+    if q_chunk and nq > q_chunk:
+        return _chunked(chunk_fn, (cands, q), nq, q_chunk, (sentinel, 0))
+    return chunk_fn((cands, q))
