@@ -105,6 +105,11 @@ class SimHash:
         bits = (proj > 0).reshape(x.shape[0], self.L, self.k)
         return _pack_bits(bits)
 
+    def margins(self, params, x: torch.Tensor) -> torch.Tensor:
+        """|projection| per bit — used by query-directed multiprobe."""
+        proj = x.to(torch.float32) @ params["R"]
+        return torch.abs(proj).reshape(x.shape[0], self.L, self.k)
+
     def bucket_ids(self, params, x: torch.Tensor,
                    num_buckets: int) -> torch.Tensor:
         return _mix_words_to_bucket(self.codes(params, x), num_buckets)

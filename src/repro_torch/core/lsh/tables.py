@@ -54,7 +54,11 @@ def build_tables(ids: torch.Tensor, bucket_ids: torch.Tensor,
 
     The sort must be stable: equal bucket ids keep their input order, as
     ``jnp.argsort`` keeps it, because that order decides which ids
-    survive the ``cap`` cut in ``gather_candidates``.
+    survive the ``cap`` cut in ``gather_candidates``.  Rows hashed out
+    of the bucket space (bucket ``num_buckets``: the pad rows of a
+    frozen segment) sort to the end of ``perm`` and are dropped from the
+    counts and the registers, as ``segment_sum``/``segment_max`` drop
+    them in the reference.
     """
     b = bucket_ids.to(torch.int64).T.contiguous()          # (L, n)
     L, n = b.shape
@@ -63,12 +67,16 @@ def build_tables(ids: torch.Tensor, bucket_ids: torch.Tensor,
     offs = torch.arange(L, dtype=torch.int64, device=b.device)[:, None] \
         * num_buckets                                       # (L, 1)
     flat = (b + offs).reshape(-1)                           # table-major keys
+    ids_l = ids.repeat(L)
+    inside = ((b >= 0) & (b < num_buckets)).reshape(-1)
+    if not bool(inside.all()):
+        flat, ids_l = flat[inside], ids_l[inside]
     counts = torch.bincount(flat, minlength=L * num_buckets)
     counts = counts.reshape(L, num_buckets)
     starts = torch.cat([torch.zeros((L, 1), dtype=torch.int64,
                                     device=b.device),
                         torch.cumsum(counts, dim=1)], dim=1).to(torch.int32)
-    regs = hll_lib.build_bucket_hlls(ids.repeat(L), flat, L * num_buckets, m)
+    regs = hll_lib.build_bucket_hlls(ids_l, flat, L * num_buckets, m)
     return LSHTables(perm, starts,
                      regs.reshape(L, num_buckets, m).to(torch.uint8))
 

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core.lsh.tables import LSHTables
 
-__all__ = ["params_from_numpy", "tables_from_numpy"]
+__all__ = ["params_from_numpy", "tables_from_numpy", "dynamic_index_from_state"]
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -45,3 +45,13 @@ def tables_from_numpy(perm, starts, registers, device) -> LSHTables:
     return LSHTables(_tensor(perm, torch.int32, device),
                      _tensor(starts, torch.int32, device),
                      _tensor(registers, torch.uint8, device))
+
+
+def dynamic_index_from_state(family, state, device, **kwargs):
+    """A port ``DynamicHybridIndex`` holding a reference index's
+    ``state_dict()`` (its params included); ``kwargs`` as the
+    constructor's (``num_buckets``, ``m``, ``cap``, ...)."""
+    from repro_torch.streaming.index import DynamicHybridIndex
+    return DynamicHybridIndex(family, params=params_from_numpy(
+        {k: np.asarray(v) for k, v in state["params"].items()}, device),
+        device=device, **kwargs).load_state_dict(state)

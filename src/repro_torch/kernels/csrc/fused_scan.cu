@@ -1,5 +1,5 @@
-// The two query-route scans: the fused linear scan (dot form) and the
-// fused LSH-route candidate verification.
+// The query-route scans: the fused linear scans (dot form, L1, Hamming)
+// and the fused LSH-route candidate verification.
 //
 // ---------------------------------------------------------------------------
 // linear_scan_dot
@@ -23,6 +23,40 @@
 // and accumulates with FMAs in IEEE float32 (no TF32, so distances near the
 // radius do not move).  The epilogue writes all three outputs coalesced.
 // No tensor cores, TMA or pipelining yet.
+//
+// ---------------------------------------------------------------------------
+// linear_scan_l1
+// Replaces: repro/kernels/fused_scan.py, linear_scan_l1_pallas (body
+// _linear_l1_kernel).  sum_d |q - x| in float32 for a (Q, d) query chunk
+// against the (N, d) corpus, then the threshold, the mask and the ids, as
+// linear_scan_dot writes them.
+//
+// Bound on an H100 SXM: device memory.  At the CoverType shape (one chunk
+// of Q = 32 queries, N = 524,288, d = 54) it reads x once (113.2 MB) and
+// writes 9 B per pair (151.0 MB): 0.079 ms at 3.35 TB/s, against 2.7 GFLOP
+// (a subtract, an absolute value and an add per term), 0.041 ms at
+// 67 TFLOP/s.  The sum has no matmul form, so it runs on the CUDA cores.
+// Design: the tile of linear_scan_dot (32 queries x 128 rows per block, d
+// through shared memory in chunks of 32, a 4 x 4 register tile of sums per
+// thread), with |a - b| summed in place of the FMA.  A d that is not a
+// multiple of the chunk (54, 37) is masked on load: the tail loads zeros on
+// both sides, which add |0 - 0| = 0.
+//
+// ---------------------------------------------------------------------------
+// linear_scan_hamming
+// Replaces: repro/kernels/fused_scan.py, linear_scan_hamming_pallas (body
+// _linear_hamming_kernel).  XOR and __popc over the W packed 32-bit words
+// of each (query, row) pair, summed as int32, written as float32 (exact
+// for distances up to 2^24); the mask is float(d) <= thresh, as the
+// reference casts it; the ids as above.
+//
+// Bound on an H100 SXM: device memory, and in practice launch latency.  At
+// the MNIST shape (Q = 32, N = 59,900, W = 2) it reads 0.5 MB of codes and
+// writes 17.3 MB: about 5 us at 3.35 TB/s.  Design: one corpus row per
+// thread, its W words held in registers (W <= 8); the block's 32 query
+// codes sit in shared memory, read as broadcasts; a thread walks the 32
+// queries and writes one (q, n) entry each, so a warp's writes are
+// consecutive in n and coalesce.
 //
 // ---------------------------------------------------------------------------
 // lsh_scan
@@ -51,12 +85,15 @@ constexpr int kBN = 128;   // corpus rows per block
 constexpr int kBK = 32;    // d-chunk staged per step
 constexpr int kThreads = 256;
 
+enum LinearMode { kDotL2 = 0, kDotCosine = 1, kAbsL1 = 2 };
+
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-linear_scan_dot_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                       const float* __restrict__ qn,
-                       const float* __restrict__ xn, float thresh, int mode,
-                       float* __restrict__ dist, uint8_t* __restrict__ mask,
-                       int32_t* __restrict__ ids, int Q, int N, int d) {
+linear_scan_tile_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                        const float* __restrict__ qn,
+                        const float* __restrict__ xn, float thresh,
+                        float* __restrict__ dist, uint8_t* __restrict__ mask,
+                        int32_t* __restrict__ ids, int Q, int N, int d) {
   __shared__ float qs[kBK][kBQ + 1];
   __shared__ float xs[kBK][kBN + 1];
   const int tid = threadIdx.x;
@@ -102,7 +139,13 @@ linear_scan_dot_kernel(const float* __restrict__ q, const float* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          if (MODE == kAbsL1) {
+            acc[i][j] += fabsf(a[i] - b[j]);
+          } else {
+            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          }
+        }
     }
     __syncthreads();
   }
@@ -116,16 +159,52 @@ linear_scan_dot_kernel(const float* __restrict__ q, const float* __restrict__ x,
       const int gn = n0 + tx + 32 * j;
       if (gn >= N) continue;
       float v;
-      if (mode == 0) {   // l2: norms - 2 q.x, clamped at 0
+      if (MODE == kDotL2) {          // norms - 2 q.x, clamped at 0
         v = fmaxf((qn[gq] + xn[gn]) - 2.f * acc[i][j], 0.f);
-      } else {           // cosine on pre-normalised rows
+      } else if (MODE == kDotCosine) {  // on pre-normalised rows
         v = 1.f - acc[i][j];
+      } else {                       // sum |q - x|
+        v = acc[i][j];
       }
       const int64_t o = static_cast<int64_t>(gq) * N + gn;
       dist[o] = v;
       mask[o] = v <= thresh ? 1 : 0;
       ids[o] = gn;
     }
+  }
+}
+
+constexpr int kHamRows = 256;   // corpus rows per block, one per thread
+constexpr int kHamQ = 32;       // queries per block
+constexpr int kMaxWords = 8;    // packed words per code held in registers
+
+__global__ void __launch_bounds__(kHamRows)
+linear_scan_hamming_kernel(const uint32_t* __restrict__ q,
+                           const uint32_t* __restrict__ x, float thresh,
+                           float* __restrict__ dist, uint8_t* __restrict__ mask,
+                           int32_t* __restrict__ ids, int Q, int N, int W) {
+  __shared__ uint32_t qs[kHamQ * kMaxWords];
+  const int n = blockIdx.x * kHamRows + threadIdx.x;
+  const int q0 = blockIdx.y * kHamQ;
+  const int nq = min(kHamQ, Q - q0);
+  for (int i = threadIdx.x; i < nq * W; i += kHamRows)
+    qs[i] = q[static_cast<int64_t>(q0) * W + i];
+  __syncthreads();
+  if (n >= N) return;
+  uint32_t xr[kMaxWords];
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w)
+    xr[w] = w < W ? x[static_cast<int64_t>(n) * W + w] : 0u;
+  for (int i = 0; i < nq; ++i) {
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < kMaxWords; ++w)
+      if (w < W) c += __popc(xr[w] ^ qs[i * W + w]);
+    const float v = static_cast<float>(c);
+    const int64_t o = static_cast<int64_t>(q0 + i) * N + n;
+    dist[o] = v;
+    mask[o] = v <= thresh ? 1 : 0;
+    ids[o] = n;
   }
 }
 
@@ -215,11 +294,54 @@ extern "C" int linear_scan_dot(const void* q, const void* x, const void* qn,
                                int d, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
   const dim3 grid((N + kBN - 1) / kBN, (Q + kBQ - 1) / kBQ);
-  linear_scan_dot_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(x),
-      static_cast<const float*>(qn), static_cast<const float*>(xn), thresh, mode,
-      static_cast<float*>(dist), static_cast<uint8_t*>(mask),
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* qf = static_cast<const float*>(q);
+  auto* xf = static_cast<const float*>(x);
+  auto* qnf = static_cast<const float*>(qn);
+  auto* xnf = static_cast<const float*>(xn);
+  auto* dd = static_cast<float*>(dist);
+  auto* mm = static_cast<uint8_t*>(mask);
+  auto* ii = static_cast<int32_t*>(ids);
+  switch (mode) {
+    case kDotL2:
+      linear_scan_tile_kernel<kDotL2><<<grid, kThreads, 0, s>>>(qf, xf, qnf, xnf, thresh, dd, mm, ii, Q, N, d);
+      break;
+    case kDotCosine:
+      linear_scan_tile_kernel<kDotCosine><<<grid, kThreads, 0, s>>>(qf, xf, qnf, xnf, thresh, dd, mm, ii, Q, N, d);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: (Q, d), x: (N, d) float32, contiguous.  Outputs dist (Q, N) f32,
+// mask (Q, N) u8, ids (Q, N) i32.
+extern "C" int linear_scan_l1(const void* q, const void* x, float thresh,
+                              void* dist, void* mask, void* ids, int Q, int N,
+                              int d, void* stream) {
+  if (Q <= 0 || N <= 0) return 0;
+  const dim3 grid((N + kBN - 1) / kBN, (Q + kBQ - 1) / kBQ);
+  linear_scan_tile_kernel<kAbsL1><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(x), nullptr,
+      nullptr, thresh, static_cast<float*>(dist), static_cast<uint8_t*>(mask),
       static_cast<int32_t*>(ids), Q, N, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: (Q, W), x: (N, W) packed 32-bit codes (int32 bit views read as
+// unsigned), contiguous, 1 <= W <= 8.  Outputs dist (Q, N) f32, mask
+// (Q, N) u8, ids (Q, N) i32.
+extern "C" int linear_scan_hamming(const void* q, const void* x, float thresh,
+                                   void* dist, void* mask, void* ids, int Q,
+                                   int N, int W, void* stream) {
+  if (Q <= 0 || N <= 0) return 0;
+  if (W < 1 || W > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + kHamRows - 1) / kHamRows, (Q + kHamQ - 1) / kHamQ);
+  linear_scan_hamming_kernel<<<grid, kHamRows, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(x), thresh,
+      static_cast<float*>(dist), static_cast<uint8_t*>(mask),
+      static_cast<int32_t*>(ids), Q, N, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,6 +3,10 @@
   * ``linear_scan_dot`` — the linear route for l2 and cosine: distance,
     threshold, report mask and ids in one pass over (Q, N).  Replaces
     ``repro.kernels.fused_scan.linear_scan_dot_pallas``.
+  * ``linear_scan_l1`` — the same pass for L1 (sum of |q - x|, on the
+    CUDA cores).  Replaces ``linear_scan_l1_pallas``.
+  * ``linear_scan_hamming`` — the same pass over packed 32-bit codes
+    (XOR + popcount).  Replaces ``linear_scan_hamming_pallas``.
   * ``lsh_scan`` — the LSH route's verification: sorted-run dedup, row
     gather, rowwise l2/l1/cosine/Hamming distance and threshold over the
     (Q, C) candidates.  Replaces ``lsh_scan_pallas``.  The corpus is
@@ -21,11 +25,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_linear_scan as fused_linear_scan_ref
 from repro_torch.kernels.ref import fused_lsh_scan as fused_lsh_scan_ref
 
-__all__ = ["linear_scan_dot", "lsh_scan", "fused_linear_scan_ref",
-           "fused_lsh_scan_ref", "LSH_METRICS"]
+__all__ = ["linear_scan_dot", "linear_scan_l1", "linear_scan_hamming",
+           "lsh_scan", "fused_linear_scan_ref", "fused_lsh_scan_ref",
+           "LSH_METRICS", "MAX_HAMMING_WORDS"]
 
 LINEAR_MODES = {"l2": 0, "cosine": 1}
 LSH_METRICS = {"l2": 0, "l1": 1, "cosine": 2, "hamming": 3}
+MAX_HAMMING_WORDS = 8      # linear_scan_hamming holds a code in registers
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,10 +69,7 @@ def linear_scan_dot(thresh: float, q: torch.Tensor, x: torch.Tensor,
     _check(x, "x", torch.float32, (nn, d))
     _check(qn, "qn", torch.float32, (nq,))
     _check(xn, "xn", torch.float32, (nn,))
-    dev = q.device
-    dist = torch.empty((nq, nn), dtype=torch.float32, device=dev)
-    mask = torch.empty((nq, nn), dtype=torch.bool, device=dev)
-    ids = torch.empty((nq, nn), dtype=torch.int32, device=dev)
+    dist, mask, ids = _linear_outputs(nq, nn, q.device)
     if nq == 0 or nn == 0:
         return dist, mask, ids
     fn = _fn("linear_scan_dot", [_P, _P, _P, _P, _F, _I, _P, _P, _P, _I, _I,
@@ -74,10 +77,61 @@ def linear_scan_dot(thresh: float, q: torch.Tensor, x: torch.Tensor,
     err = fn(q.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(),
              float(thresh), LINEAR_MODES[mode], dist.data_ptr(),
              mask.data_ptr(), ids.data_ptr(), nq, nn, d,
-             torch.cuda.current_stream(dev).cuda_stream)
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"linear_scan_dot launch failed: cudaError {err}")
     linear_scan_dot.launches += 1
+    return dist, mask, ids
+
+
+def _linear_outputs(nq: int, nn: int, dev):
+    return (torch.empty((nq, nn), dtype=torch.float32, device=dev),
+            torch.empty((nq, nn), dtype=torch.bool, device=dev),
+            torch.empty((nq, nn), dtype=torch.int32, device=dev))
+
+
+def linear_scan_l1(thresh: float, q: torch.Tensor, x: torch.Tensor):
+    """(Q, d) x (N, d) float32 -> (dists f32, mask bool, ids i32), (Q, N):
+    sum |q - x|, the mask ``dist <= thresh``."""
+    nq, d = q.shape
+    nn = x.shape[0]
+    _check(q, "q", torch.float32, (nq, d))
+    _check(x, "x", torch.float32, (nn, d))
+    dist, mask, ids = _linear_outputs(nq, nn, q.device)
+    if nq == 0 or nn == 0:
+        return dist, mask, ids
+    fn = _fn("linear_scan_l1", [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P])
+    err = fn(q.data_ptr(), x.data_ptr(), float(thresh), dist.data_ptr(),
+             mask.data_ptr(), ids.data_ptr(), nq, nn, d,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"linear_scan_l1 launch failed: cudaError {err}")
+    linear_scan_l1.launches += 1
+    return dist, mask, ids
+
+
+def linear_scan_hamming(thresh: float, q: torch.Tensor, x: torch.Tensor):
+    """(Q, W) x (N, W) int32 bit views of packed uint32 codes -> (dists
+    f32, mask bool, ids i32), (Q, N): the Hamming distance (exact in
+    float32), the mask ``float(dist) <= thresh``.  1 <= W <= 8."""
+    nq, w = q.shape
+    nn = x.shape[0]
+    _check(q, "q", torch.int32, (nq, w))
+    _check(x, "x", torch.int32, (nn, w))
+    if not 1 <= w <= MAX_HAMMING_WORDS:
+        raise ValueError(f"linear_scan_hamming takes 1..{MAX_HAMMING_WORDS} "
+                         f"words per code, got {w}")
+    dist, mask, ids = _linear_outputs(nq, nn, q.device)
+    if nq == 0 or nn == 0:
+        return dist, mask, ids
+    fn = _fn("linear_scan_hamming", [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P])
+    err = fn(q.data_ptr(), x.data_ptr(), float(thresh), dist.data_ptr(),
+             mask.data_ptr(), ids.data_ptr(), nq, nn, w,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"linear_scan_hamming launch failed: cudaError {err}")
+    linear_scan_hamming.launches += 1
     return dist, mask, ids
 
 
@@ -113,4 +167,6 @@ def lsh_scan(thresh: float, x: torch.Tensor, q: torch.Tensor,
 
 
 linear_scan_dot.launches = 0
+linear_scan_l1.launches = 0
+linear_scan_hamming.launches = 0
 lsh_scan.launches = 0

@@ -64,10 +64,11 @@ def fused_linear_scan(q: torch.Tensor, x: torch.Tensor, r, metric: str,
     """Fused linear-route scan: distance + threshold + report mask +
     candidate ids in one kernel pass over (Q, N).
 
-    q: (Q, d) queries; x: (N, d) corpus; r: report radius.  Returns
-    (ids (Q, N) i32, dists (Q, N) f32, mask (Q, N) bool).  On CUDA the
-    l2 and cosine metrics run the kernel; l1 and Hamming raise until
-    their kernels are ported.  ``x_unit``: for cosine, x's rows already
+    q: (Q, d) queries ((Q, W) packed codes for hamming); x: (N, d)
+    corpus ((N, W) for hamming); r: report radius.  Returns (ids (Q, N)
+    i32, dists (Q, N) f32, mask (Q, N) bool).  On CUDA, l2 and cosine
+    run ``linear_scan_dot``, l1 ``linear_scan_l1`` and hamming
+    ``linear_scan_hamming``.  ``x_unit``: for cosine, x's rows already
     scaled to unit length (contiguous float32), which the kernel route
     reads instead of normalising x on every call; the plain version
     ignores it.
@@ -76,10 +77,17 @@ def fused_linear_scan(q: torch.Tensor, x: torch.Tensor, r, metric: str,
     thresh = metric_radius_transform(metric, r)
     if impl == "ref":
         return _ref.fused_linear_scan(q, x, thresh, metric)
+    if metric == "hamming":
+        dists, mask, ids = _fs.linear_scan_hamming(
+            thresh, as_i32(q).contiguous(), as_i32(x).contiguous())
+        return ids, dists, mask
+    if metric == "l1":
+        dists, mask, ids = _fs.linear_scan_l1(
+            thresh, q.to(torch.float32).contiguous(),
+            x.to(torch.float32).contiguous())
+        return ids, dists, mask
     if metric not in _fs.LINEAR_MODES:
-        raise NotImplementedError(
-            f"no CUDA linear scan for metric {metric!r} yet: ROADMAP.md "
-            "Queue 2 #4 (linear_scan_l1) / #5 (linear_scan_hamming)")
+        raise ValueError(metric)
     q = q.to(torch.float32)
     x = x.to(torch.float32)
     if metric == "cosine":        # normalised rows; the norms go unread

@@ -36,10 +36,26 @@ def pairwise_sql2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d, min=0.0)
 
 
+L1_BLOCK_ELEMS = 1 << 24   # floats in one block of pairwise_l1's difference
+
+
 def pairwise_l1(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """L1 distances, (Q, d) x (N, d) -> (Q, N) float32."""
-    return torch.sum(torch.abs(q.to(torch.float32)[:, None, :]
-                               - x.to(torch.float32)[None, :, :]), dim=-1)
+    """L1 distances, (Q, d) x (N, d) -> (Q, N) float32.
+
+    Works over N in blocks so the (Q, rows, d) difference it sums holds
+    at most about ``L1_BLOCK_ELEMS`` floats (64 MB), not Q x N x d of
+    them (3.6 GB for 32 queries over 524,288 rows of 54); each distance
+    is the same sum over d either way.
+    """
+    q = q.to(torch.float32)
+    x = x.to(torch.float32)
+    nq, d = q.shape
+    out = torch.empty((nq, x.shape[0]), dtype=torch.float32, device=q.device)
+    step = max(1, L1_BLOCK_ELEMS // max(nq * d, 1))
+    for lo in range(0, x.shape[0], step):
+        out[:, lo:lo + step] = torch.sum(
+            torch.abs(q[:, None, :] - x[None, lo:lo + step, :]), dim=-1)
+    return out
 
 
 def unit_rows(v: torch.Tensor) -> torch.Tensor:

@@ -26,16 +26,21 @@ def cuda():
     return torch.device("cuda")
 
 
+LINEAR_KERNEL = {"l2": "linear_scan_dot", "cosine": "linear_scan_dot",
+                 "l1": "linear_scan_l1", "hamming": "linear_scan_hamming"}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("metric", ["l2", "cosine", "l1", "hamming"])
 @pytest.mark.parametrize("q,n", [(8, 100), (33, 257), (65, 1000)])
 def test_cuda_linear_scan_matches_plain(cuda, metric, q, n):
     qa, xa = pair(metric, q, n, RNG)
     qt, xt = as_tensor(qa).to(cuda), as_tensor(xa).to(cuda)
-    before = fused_scan.linear_scan_dot.launches
+    kernel = getattr(fused_scan, LINEAR_KERNEL[metric])
+    before = kernel.launches
     a = ops.fused_linear_scan(qt, xt, RADII[metric], metric, impl="cuda")
     b = ops.fused_linear_scan(qt, xt, RADII[metric], metric, impl="ref")
-    assert fused_scan.linear_scan_dot.launches == before + 1
+    assert kernel.launches == before + 1
     np.testing.assert_array_equal(a[0].cpu().numpy(), b[0].cpu().numpy())
     np.testing.assert_array_equal(a[2].cpu().numpy(), b[2].cpu().numpy())
     np.testing.assert_allclose(a[1].cpu().numpy(), b[1].cpu().numpy(), **TOL)
@@ -46,12 +51,23 @@ def test_cuda_linear_scan_matches_plain(cuda, metric, q, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("metric", ["l1", "hamming"])
-def test_cuda_linear_scan_waits_for_its_kernel(cuda, metric):
-    qa, xa = pair(metric, 4, 20, RNG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.fused_linear_scan(as_tensor(qa).to(cuda), as_tensor(xa).to(cuda),
-                              RADII[metric], metric)
+@pytest.mark.parametrize("w", [1, 2, 3, 8])
+def test_cuda_hamming_scan_words_zero_codes_and_ties(cuda, w):
+    """W = 1..8 words, all-zero codes, and a threshold equal to an
+    attained distance: the kernel reports exactly what the plain version
+    does (Hamming distances are exact)."""
+    qa = RNG.integers(0, 2**32, (33, w), dtype=np.uint32)
+    xa = RNG.integers(0, 2**32, (257, w), dtype=np.uint32)
+    qa[0] = 0
+    xa[:3] = 0
+    r = float(np.unpackbits((qa[1] ^ xa[17]).view(np.uint8)).sum())
+    qt = torch.from_numpy(qa.view(np.int32)).to(cuda)
+    xt = torch.from_numpy(xa.view(np.int32)).to(cuda)
+    a = ops.fused_linear_scan(qt, xt, r, "hamming", impl="cuda")
+    b = ops.fused_linear_scan(qt, xt, r, "hamming", impl="ref")
+    for u, v in zip(a, b):
+        assert torch.equal(u, v.contiguous())
+    assert bool(a[2][1, 17])
 
 
 @pytest.mark.gpu
@@ -99,3 +115,35 @@ def test_cuda_index_default_device(cuda):
     assert hll_merge.hll_merge_estimate.launches == before + 1
     for i in range(20):
         assert i in res.neighbors(i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l1", "hamming"])
+def test_cuda_churned_dynamic_index_matches_plain(cuda, metric):
+    """A small churned DynamicHybridIndex (freezes, a merge, deletes in
+    segments and the delta) through the kernels and through the plain
+    versions reports the same sets on every route."""
+    from repro_torch.core.lsh import make_family
+    from repro_torch.streaming import CompactionPolicy, DynamicHybridIndex
+    if metric == "hamming":
+        x = RNG.integers(0, 2**32, (900, 2), dtype=np.uint32)
+        fam, r = make_family("hamming", d=64, L=6, r=16.0), 24.0
+    else:
+        x = RNG.normal(size=(900, 16)).astype(np.float32)
+        fam, r = make_family("l1", d=16, L=6, r=4.0), 9.0
+    kw = dict(num_buckets=128, m=32, cap=512, delta_capacity=128,
+              policy=CompactionPolicy(fanout=2))
+    idx = DynamicHybridIndex(fam, seed=0, device=cuda, **kw).build(x[:500])
+    idx.insert(x[500:])
+    idx.delete(list(range(0, 500, 7)) + list(range(880, 900)))
+    plain = DynamicHybridIndex(fam, params=idx.params, impl="ref",
+                               device=cuda, **kw)
+    plain.load_state_dict(idx.state_dict())
+    kernel = getattr(fused_scan, LINEAR_KERNEL[metric])
+    q = x[::45]
+    for force in (None, "lsh", "linear"):
+        before = kernel.launches
+        a = idx.query(q, r, force=force)
+        assert kernel.launches > before       # the delta scan, at least
+        b = plain.query(q, r, force=force)
+        assert a.neighbor_sets() == b.neighbor_sets(), force

@@ -215,3 +215,72 @@ def test_dispatch_rules():
     assert tops.metric_radius_transform("cosine", 0.5) == 0.5
     padded = tops.pad_to(torch.ones(5, 2), 4, 0, value=7)
     assert tuple(padded.shape) == (8, 2) and float(padded[-1, 0]) == 7
+
+
+# ---------------------------------------------------------------------------
+# The shapes of the L1 and Hamming linear scans (K4, K5): their plain
+# versions, which the CUDA kernels are held against on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("jimpl", JAX_IMPLS)
+@pytest.mark.parametrize("q,n,d", [(1, 1, 54), (33, 257, 54), (33, 257, 37),
+                                   (5, 130, 1)])
+def test_l1_linear_scan_odd_shapes_match_repro(jimpl, q, n, d):
+    """d = 54 (CoverType) and 37 are not multiples of the kernels' chunk;
+    odd Q and N leave partial tiles."""
+    qa = RNG.normal(size=(q, d)).astype(np.float32)
+    xa = RNG.normal(size=(n, d)).astype(np.float32)
+    r = 0.9 * float(np.median(np.abs(qa[:, None] - xa[None]).sum(-1)))
+    ia, da, ma = tops.fused_linear_scan(_t(qa), _t(xa), r, "l1")
+    ib, db, mb = jops.fused_linear_scan(_j(qa), _j(xa), r, "l1", impl=jimpl)
+    np.testing.assert_array_equal(ia.numpy(), np.asarray(ib))
+    np.testing.assert_array_equal(ma.numpy(), np.asarray(mb))
+    np.testing.assert_allclose(da.numpy(), np.asarray(db), **TOL)
+
+
+@pytest.mark.parametrize("jimpl", JAX_IMPLS)
+@pytest.mark.parametrize("w", [1, 2, 3, 8])
+def test_hamming_linear_scan_words_and_ties_match_repro(jimpl, w):
+    """W = 1..8 packed words, an all-zero code, and a threshold equal to
+    an attained distance (equality reports)."""
+    qa = RNG.integers(0, 2**32, (7, w), dtype=np.uint32)
+    xa = RNG.integers(0, 2**32, (300, w), dtype=np.uint32)
+    qa[0] = 0
+    xa[5] = 0
+    r = float(np.unpackbits((qa[1] ^ xa[17]).view(np.uint8)).sum())
+    ia, da, ma = tops.fused_linear_scan(_t(qa), _t(xa), r, "hamming")
+    ib, db, mb = jops.fused_linear_scan(_j(qa), _j(xa), r, "hamming",
+                                        impl=jimpl)
+    np.testing.assert_array_equal(ia.numpy(), np.asarray(ib))
+    np.testing.assert_array_equal(ma.numpy(), np.asarray(mb))
+    np.testing.assert_array_equal(da.numpy(), np.asarray(db))
+    assert bool(ma[1, 17]) and float(da[1, 17]) == r
+    assert float(da[0, 5]) == 0.0 and bool(ma[0, 5])
+
+
+@pytest.mark.parametrize("block_elems", [1, 37 * 9 * 10, 1 << 24])
+def test_pairwise_l1_blocks_give_the_same_sums(block_elems, monkeypatch):
+    """The plain L1 works over N in blocks; every block size gives the
+    bitwise-same distances (each is one sum over d)."""
+    monkeypatch.setattr(tref, "L1_BLOCK_ELEMS", block_elems)
+    qa = RNG.normal(size=(9, 37)).astype(np.float32)
+    xa = RNG.normal(size=(101, 37)).astype(np.float32)
+    whole = torch.sum(torch.abs(_t(qa)[:, None] - _t(xa)[None]), dim=-1)
+    assert torch.equal(tref.pairwise_l1(_t(qa), _t(xa)), whole)
+
+
+@pytest.mark.parametrize("metric", ["l1", "hamming"])
+def test_l1_and_hamming_wrappers_launch_on_cuda_only(metric):
+    from repro_torch.kernels import fused_scan
+    qa, xa = _pair(metric, 4, 20)
+    if metric == "hamming":
+        q, x = (torch.from_numpy(a.view(np.int32)) for a in (qa, xa))
+        fn = fused_scan.linear_scan_hamming
+    else:
+        q, x = _t(qa), _t(xa)
+        fn = fused_scan.linear_scan_l1
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(1.0, q, x)
+    with pytest.raises(ValueError):
+        tops.fused_linear_scan(q, x, 1.0, metric, impl="cuda")
+    assert fn.launches == before
