@@ -6,16 +6,26 @@
 Phases (each raises on failure, so any failure exits non-zero):
   1. card, torch and CUDA versions; build the CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
-  2. each kernel (K1-K5) against its plain PyTorch version on hand-made
+  2. each kernel (K1-K9) against its plain PyTorch version on hand-made
      edge cases;
-  3. the static index at full scale on the Webspam analogue (N = 349,900,
+  3. ``calibrate`` on the card for cosine (d = 254), l2 (d = 32) and l1
+     (d = 54): beta/alpha beside the paper's presets, the distance
+     kernel's launches inside each call (K6 or K7, a warm-up and 5);
+  4. the static index at full scale on the Webspam analogue (N = 349,900,
      d = 254, cosine, L = 20), built and queried through the kernels at
      four radii with force None / "lsh" / "linear", and again through the
      plain versions: neighbor sets, route containment, each path's own
      kernel launch counts (set to 0 before the path, read after it),
-     query and kernel times;
-  4. the same path in l2 on the Corel analogue at one radius;
-  5. the streaming ``DynamicHybridIndex`` at full scale on the CoverType
+     query and kernel times; the route mix of the calibrated cost model
+     at each radius beside the preset's, and one radius driven again
+     through an index built with the calibrated model; K6 (cosine) on the
+     100 queries x the corpus and K9 on the corpus with the index's own
+     SimHash projections, held against the bucket codes too;
+  5. the same in l2 on the Corel analogue (the preset at one radius, the
+     calibrated model's mixes and query; K6 in l2); then the CoverType
+     analogue as a static index on all 580,912 rows (L1: the calibrated
+     model's mixes and query, K7);
+  6. the streaming ``DynamicHybridIndex`` at full scale on the CoverType
      analogue (N = 580,912, d = 54, L1): built on 524,288 rows, 56,624
      rows inserted in batches of 4,096 through an 8,192-row delta (six
      level-0 freezes, a level merge staged by the ``CompactionDriver``
@@ -23,16 +33,19 @@ Phases (each raises on failure, so any failure exits non-zero):
      then queried through the kernels and the plain versions, held
      against a fresh static index on the surviving rows, fully
      compacted and checked again;
-  6. the MNIST analogue (59,900 64-bit codes, Hamming): the static index
-     at its mixing radius, and a churned streaming index;
-  7. a ``{"kernels": [...]}`` JSON line with each kernel's launches, times,
+  7. the MNIST analogue (59,900 64-bit codes, Hamming): the static index
+     at its mixing radius, K8 on the 100 queries x the codes, and a
+     churned streaming index;
+  8. a ``{"kernels": [...]}`` JSON line with each kernel's launches, times,
      plain and library times and bound; then the last line
      ``{"ok": true, "device": {...}}``.
 
 Neighbor sets may differ only in rows whose float64 distance lies within
 1e-5 * max(1, |t|) of the threshold t: the kernel and the plain version
 round float32 sums in different orders, and the absolute size of that
-rounding follows the magnitude of the terms (about 1), not of t.
+rounding follows the magnitude of the terms (about 1), not of t.  SimHash
+bits may differ only where the float64 projection lies within
+1e-5 * sum_i |x_i r_i| of 0, for the same reason.
 """
 from __future__ import annotations
 
@@ -52,13 +65,6 @@ HLL_RTOL = 1e-5
 # Published H100 peaks (NVIDIA data sheet): memory bytes/s, fp32 FLOP/s
 # on the CUDA cores.  SXM unless the card names itself PCIe.
 PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
-
-NOT_PORTED = [
-    ("pairwise_dot", "src/repro/kernels/distances.py:62"),
-    ("pairwise_l1", "src/repro/kernels/distances.py:93"),
-    ("hamming", "src/repro/kernels/hamming.py:33"),
-    ("simhash", "src/repro/kernels/simhash.py:34"),
-]
 
 
 def log(*a):
@@ -89,14 +95,19 @@ class Smoke:
     def __init__(self):
         import numpy as np
         import torch
-        from repro_torch.kernels import fused_scan, hll_merge
+        from repro_torch.kernels import (distances, fused_scan, hll_merge,
+                                         simhash)
         self.np, self.torch = np, torch
         self.dev = torch.device("cuda")
         self.counters = {"linear_scan_dot": fused_scan.linear_scan_dot,
                          "linear_scan_l1": fused_scan.linear_scan_l1,
                          "linear_scan_hamming": fused_scan.linear_scan_hamming,
                          "lsh_scan": fused_scan.lsh_scan,
-                         "hll_merge_estimate": hll_merge.hll_merge_estimate}
+                         "hll_merge_estimate": hll_merge.hll_merge_estimate,
+                         "pairwise_dot": distances.pairwise_dot,
+                         "pairwise_l1": distances.pairwise_l1,
+                         "hamming": distances.hamming,
+                         "simhash": simhash.simhash}
         name = torch.cuda.get_device_name(0)
         self.bw, self.fp32 = PEAKS["pcie" if "PCIe" in name else "sxm"]
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8,
@@ -109,6 +120,14 @@ class Smoke:
 
     def read(self):
         return {k: fn.launches for k, fn in self.counters.items()}
+
+    def path(self, fn):
+        """Run ``fn()`` with every count set to 0 just before it; returns
+        its result and the counts read just after it."""
+        self.reset()
+        out = fn()
+        self.torch.cuda.synchronize()
+        return out, self.read()
 
     # -- timing -------------------------------------------------------
     def cuda_ms(self, fn, iters=10):
@@ -160,6 +179,15 @@ class Smoke:
                                1e-12)
         return 1.0 - rn @ qn
 
+    def simhash_flips(self, a, b, x, r_padded, what):
+        """Count the bits where packed fingerprints ``a`` and ``b``
+        ((N, L, words)) differ; fail unless each such bit's float64
+        projection lies within ref.SIMHASH_EPS * sum_i |x_i r_i| of 0."""
+        from repro_torch.kernels.ref import simhash_bits_differing
+        differ, far = simhash_bits_differing(a, b, x, r_padded)
+        assert far == 0, f"{what}: {far} bits differ away from 0"
+        return differ
+
     def off_threshold(self, ids, metric, xq, x, r):
         """Count of ``ids`` away from the threshold (must be 0)."""
         np = self.np
@@ -185,24 +213,27 @@ class Smoke:
 
 
 # ---------------------------------------------------------------------------
+SOURCES = ("hll_merge", "fused_scan", "simhash")
+
+
 def phase_build(s: Smoke):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build(["hll_merge", "fused_scan"])
+    built = _build.build(SOURCES)
     log(f"[build] nvcc wall {time.perf_counter() - t0:.1f} s, per source "
         + ", ".join(f"{k} {sec:.1f} s" for k, (sec, _) in built.items()))
     for name, (_, text) in built.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    for name in ("hll_merge", "fused_scan"):
+    for name in SOURCES:
         _build.load(name)
 
 
 def phase_edge_cases(s: Smoke):
     """Kernels vs plain versions on hand-made cases (small, odd shapes)."""
     np, torch, dev = s.np, s.torch, s.dev
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(0)
     radii = {"l2": 7.0, "l1": 55.0, "cosine": 0.9, "hamming": 300.0}
 
@@ -266,10 +297,10 @@ def phase_edge_cases(s: Smoke):
         assert torch.equal(a[0], b[0].contiguous())
         torch.testing.assert_close(a[1], b[1], **TOL)
         s.masks_agree(a[2], b[2], b[1], r, f"K4 {q}x{n} d={d}")
-    # K5: W = 1, 2, 3 words, all-zero codes, odd Q and N, and a threshold
-    # equal to an attained distance (equality must report)
+    # K5: W = 1, 2, 3, 8, 9, 16 words, all-zero codes, odd Q and N, and a
+    # threshold equal to an attained distance (equality must report)
     for q, n, w in ((1, 1, 2), (33, 257, 1), (33, 257, 2), (33, 257, 3),
-                    (65, 1000, 2), (7, 300, 8)):
+                    (65, 1000, 2), (7, 300, 8), (33, 257, 9), (5, 129, 16)):
         qa = torch.from_numpy(rng.integers(-2**31, 2**31, (q, w),
                                            dtype=np.int64).astype(np.int32)).to(dev)
         xa = torch.from_numpy(rng.integers(-2**31, 2**31, (n, w),
@@ -283,10 +314,94 @@ def phase_edge_cases(s: Smoke):
         for u, v in zip(a, b):
             assert torch.equal(u, v.contiguous()), ("K5", q, n, w)
         assert bool(a[2][-1, n // 2]) and float(a[1][0, 0]) == 0.0
+    # K6 / K7: Q or N = 1, d = 37 and 254, an all-zero row on each side
+    # (cosine's 1e-12 norm clamp), f16 inputs (cast to float32 first)
+    for metric in ("l2", "cosine", "l1"):
+        for q, n, d, dt in ((1, 129, 37, np.float32), (65, 1, 254, np.float32),
+                            (33, 257, 254, np.float32),
+                            (100, 1000, 37, np.float32),
+                            (16, 64, 32, np.float16)):
+            qa = torch.from_numpy(rng.normal(size=(q, d)).astype(dt)).to(dev)
+            xa = torch.from_numpy(rng.normal(size=(n, d)).astype(dt)).to(dev)
+            qa[0] = 0
+            xa[-1] = 0
+            a = ops.pairwise_dist(qa, xa, metric, impl="cuda")
+            b = ops.pairwise_dist(qa, xa, metric, impl="ref")
+            assert a.dtype == torch.float32 and a.shape == (q, n)
+            torch.testing.assert_close(a, b, **TOL)
+    # K8: W = 1, 2, 3, 8, 9, 16 words (chunks of 8 and a partial chunk),
+    # Q or N = 1, a pair of equal codes
+    for q, n, w in ((1, 1, 1), (33, 257, 2), (7, 300, 3), (65, 1000, 8),
+                    (100, 513, 9), (3, 129, 16), (1, 700, 16)):
+        qa = torch.from_numpy(rng.integers(-2**31, 2**31, (q, w),
+                                           dtype=np.int64).astype(np.int32)).to(dev)
+        xa = torch.from_numpy(rng.integers(-2**31, 2**31, (n, w),
+                                           dtype=np.int64).astype(np.int32)).to(dev)
+        xa[0] = qa[0]
+        a = ops.hamming_dist(qa, xa, impl="cuda")
+        b = ops.hamming_dist(qa, xa, impl="ref")
+        assert a.dtype == torch.int32 and torch.equal(a, b), ("K8", q, n, w)
+        assert int(a[0, 0]) == 0
+    # K9: k = 1, 4, 8, 16 (1, 4, 8, 16 lane columns a word), 21, 31, 32,
+    # 40, 64 (padded and whole words, two words), d = 37 and 254, N = 1, a
+    # zero row (every projection 0.0: bit 0)
+    flips = 0
+    for n, d, L, k in ((1, 37, 3, 8), (130, 37, 5, 31), (257, 254, 2, 32),
+                       (1000, 254, 4, 40), (65, 48, 1, 64), (999, 254, 20, 21),
+                       (97, 37, 7, 1), (1000, 254, 20, 4), (64, 37, 3, 16)):
+        xa = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+        ra = torch.from_numpy(rng.normal(size=(d, L * k)).astype(np.float32)).to(dev)
+        xa[0] = 0
+        a = ops.simhash_fingerprint(xa, ra, L, k, impl="cuda")
+        b = ops.simhash_fingerprint(xa, ra, L, k, impl="ref")
+        assert a.dtype == torch.int64 and a.shape == (n, L, (k + 31) // 32)
+        assert not bool(a[0].any())
+        flips += s.simhash_flips(a, b, xa, ops.pad_projection(ra, L, k),
+                                 f"K9 n={n} d={d} L={L} k={k}")
     torch.cuda.synchronize()
     log("[edge] K1 (l2, cosine), K2 (l2, l1, cosine, hamming), K3, K4 (d = "
-        "1, 37, 54) and K5 (W = 1, 2, 3, 8; ties; zero codes) match their "
-        "plain versions on the hand-made cases")
+        "1, 37, 54), K5 (W = 1, 2, 3, 8, 9, 16; ties; zero codes), K6 / K7 "
+        "(Q or N = 1, d = 37 and 254, zero rows, f16), K8 (W = 1, 2, 3, 8, "
+        "9, 16) and K9 (k = 1, 4, 8, 16, 21, 31, 32, 40, 64) match their "
+        "plain versions on "
+        f"the hand-made cases; K9 bits within {ref.SIMHASH_EPS:g} of 0 that "
+        f"differ: {flips}")
+
+
+CALIBRATE = (("cosine", 254, "webspam"), ("l2", 32, "corel"),
+             ("l1", 54, "covertype"))
+
+
+def phase_calibrate(s: Smoke, by_path):
+    """``calibrate`` on the card for each metric's dimension: beta/alpha
+    beside the paper's preset, and the distance kernel launched a warm-up
+    and 5 times inside each call (counts set to 0 just before it and read
+    just after).  Then the kernel against its plain version, timed, at
+    the shape calibrate gives it.  Returns the calibrated models and the
+    kernel times at that shape."""
+    torch = s.torch
+    from repro_torch.core import PAPER_PRESETS, calibrate
+    models, at_probe = {}, {}
+    for metric, d, data in CALIBRATE:
+        kernel = "pairwise_l1" if metric == "l1" else "pairwise_dot"
+        t0 = time.perf_counter()
+        cm, launches = s.path(lambda: calibrate(d, metric))
+        sec = time.perf_counter() - t0
+        want = {k: 6 if k == kernel else 0 for k in launches}
+        assert launches == want, f"calibrate {metric}: launches {launches}"
+        by_path[f"calibrate {metric}"] = {"calibrate": launches}
+        models[data] = cm
+        preset = PAPER_PRESETS[data]
+        log(f"[calibrate] {metric} d={d}: beta/alpha {cm.beta / cm.alpha:.6g} "
+            f"(the paper's {data} preset {preset.beta / preset.alpha:g}); "
+            f"{kernel} launches {launches[kernel]}; {sec:.3f} s")
+        gen = torch.Generator(device=s.dev).manual_seed(1)
+        q = torch.randn((64, d), generator=gen, device=s.dev)
+        x = torch.randn((4096, d), generator=gen, device=s.dev)
+        at_probe[metric] = pairwise_times(s, q, x, metric)
+    log_kernel_times("calibrate", {f"{m} at calibrate's shape": v
+                                   for m, v in at_probe.items()})
+    return models, at_probe
 
 
 PATHS = {None: "hybrid", "lsh": "lsh", "linear": "linear"}
@@ -569,6 +684,153 @@ def linear_kernel_times(s: Smoke, x, q_np, r, metric):
         shape=f"Q=32 N={n} {'W' if metric == 'hamming' else 'd'}={d} {metric}")
 
 
+def pairwise_times(s: Smoke, q, x, metric):
+    """K6 (l2, cosine) / K7 (l1) ms, ms through ``ops``, plain ms, library
+    ms and bound for the queries ``q`` against the rows ``x`` (both on
+    the card), a shape a caller of ``ops.pairwise_dist`` gives them."""
+    torch = s.torch
+    from repro_torch.kernels import distances, ops, ref
+    n, d = x.shape
+    nq = q.shape[0]
+    if metric == "cosine":          # the kernel alone, on normalised rows
+        qk, xk = ref.unit_rows(q).contiguous(), ref.unit_rows(x).contiguous()
+        kern = lambda: distances.pairwise_dot(qk, xk, None, None,  # noqa: E731
+                                              mode="cosine")
+        lib_in = torch.ones((1, 1), device=s.dev)
+        lib = lambda: torch.addmm(lib_in, qk, xk.T, alpha=-1)  # noqa: E731
+        in_bytes, nops = 4 * (qk.numel() + xk.numel()), 2 * nq * n * d
+    elif metric == "l2":
+        qn, xn = (q * q).sum(-1), (x * x).sum(-1)
+        kern = lambda: distances.pairwise_dot(q, x, qn, xn, mode="l2")  # noqa: E731
+        lib_in = qn[:, None] + xn[None, :]
+        lib = lambda: torch.addmm(lib_in, q, x.T, alpha=-2)  # noqa: E731
+        in_bytes = 4 * (q.numel() + x.numel() + nq + n)
+        nops = 2 * nq * n * d
+    else:                           # a subtract, an absolute value, an add
+        kern = lambda: distances.pairwise_l1(q, x)  # noqa: E731
+        lib = lambda: torch.cdist(q, x, p=1.0)  # noqa: E731
+        in_bytes, nops = 4 * (q.numel() + x.numel()), 3 * nq * n * d
+    through_ops = lambda: ops.pairwise_dist(q, x, metric, impl="cuda")  # noqa: E731
+    plain = lambda: ops.pairwise_dist(q, x, metric, impl="ref")  # noqa: E731
+    a, b, c = kern(), through_ops(), plain()
+    torch.testing.assert_close(a, c, **TOL)
+    torch.testing.assert_close(b, c, **TOL)
+    bound, by = s.bound_ms(in_bytes + 4 * nq * n, nops)
+    out = dict(ms=s.cuda_ms(kern), ops_ms=s.cuda_ms(through_ops),
+               plain_ms=s.cuda_ms(plain), library_ms=s.cuda_ms(lib),
+               bound_ms=bound, bound_by=by,
+               max_abs_err=float((b - c).abs().max()),
+               shape=f"Q={nq} N={n} d={d} {metric}")
+    del a, b, c
+    return out
+
+
+def hamming_times(s: Smoke, q_np, x_np, by_path, tag):
+    """K8 on all the queries' codes against the corpus codes through
+    ``ops.hamming_dist`` (its own path: counts set to 0 just before it,
+    read just after), exact against its plain version; ms, plain ms and
+    bound."""
+    np, torch = s.np, s.torch
+    from repro_torch.kernels import distances, ops
+    q = torch.from_numpy(np.ascontiguousarray(q_np).view(np.int32)).to(s.dev)
+    x = torch.from_numpy(np.ascontiguousarray(x_np).view(np.int32)).to(s.dev)
+    (nq, w), n = q.shape, x.shape[0]
+    a, launches = s.path(lambda: ops.hamming_dist(q, x))
+    assert launches == {k: int(k == "hamming") for k in launches}, launches
+    by_path[tag] = {"ops": launches}
+    b = ops.hamming_dist(q, x, impl="ref")
+    assert a.dtype == torch.int32 and torch.equal(a, b), tag
+    # the int ops (xor, popcount, add per word) at the fp32 CUDA-core rate
+    bound, by = s.bound_ms(4 * (q.numel() + x.numel()) + 4 * nq * n,
+                           3 * nq * n * w)
+    return dict(ms=s.cuda_ms(lambda: distances.hamming(q, x)),
+                plain_ms=s.cuda_ms(lambda: ops.hamming_dist(q, x, impl="ref")),
+                library_ms=None, bound_ms=bound, bound_by=by,
+                max_abs_err=float((a - b).abs().max()),
+                shape=f"Q={nq} N={n} W={w} hamming")
+
+
+def simhash_times(s: Smoke, idx, by_path, tag):
+    """K9 on the index's corpus with the index's own SimHash projections
+    through ``ops.simhash_fingerprint`` (its own path), held against its
+    plain version and against the index's bucket codes
+    (``family.codes``) bit for bit, up to near-zero projections; ms,
+    plain ms, the projection's matmul alone and the bound."""
+    torch = s.torch
+    from repro_torch.kernels import ops, ref, simhash
+    fam, x, R = idx.family, idx.x, idx.params["R"]
+    n, d = x.shape
+    L, k = fam.L, fam.k
+    words = (k + 31) // 32
+    rp = ops.pad_projection(R, L, k).contiguous()
+    a, launches = s.path(lambda: ops.simhash_fingerprint(x, R, L, k))
+    assert launches == {c: int(c == "simhash") for c in launches}, launches
+    by_path[tag] = {"ops": launches}
+    flips = s.simhash_flips(a, ops.simhash_fingerprint(x, R, L, k, impl="ref"),
+                            x, rp, f"{tag} K9=plain")
+    flips_codes = s.simhash_flips(a, fam.codes(idx.params, x), x, rp,
+                                  f"{tag} K9=family.codes")
+    del a
+    # the work of the family's L k real columns: x, R and the words moved
+    bound, by = s.bound_ms(4 * (n * d + d * L * k + n * L * words),
+                           2 * n * d * L * k)
+    R = R.contiguous()
+    out = dict(ms=s.cuda_ms(lambda: simhash.simhash(x, rp, L, k)),
+               ops_ms=s.cuda_ms(lambda: ops.simhash_fingerprint(x, R, L, k)),
+               plain_ms=s.cuda_ms(lambda: ops.simhash_fingerprint(
+                   x, R, L, k, impl="ref")),
+               library_ms=None,
+               matmul_ms=s.cuda_ms(lambda: torch.matmul(x, R)),
+               matmul_padded_ms=s.cuda_ms(lambda: torch.matmul(x, rp)),
+               bound_ms=bound, bound_by=by, max_abs_err=flips,
+               max_abs_err_unit="bits that differ from the plain version",
+               bits_differing_from_codes=flips_codes,
+               lanes_per_word=simhash.lanes_per_word(k),
+               shape=f"N={n} d={d} L={L} k={k} words={words}")
+    log(f"[{tag}] K9 bits within {ref.SIMHASH_EPS:g} of 0 that differ: "
+        f"{flips} from the plain version, {flips_codes} from the index's "
+        f"bucket codes; {out['lanes_per_word']} lane columns a word; the "
+        f"projection only: torch.matmul(x, R) {out['matmul_ms']:.4f} ms, "
+        f"torch.matmul(x, r_padded) {out['matmul_padded_ms']:.4f} ms")
+    return out
+
+
+def route_mixes(s: Smoke, idx, q_np, r, models, tag):
+    """Queries routed to LSH under each cost model, from the index's
+    ``estimate()`` and ``CostModel.use_lsh`` (Algorithm 2 line 4 with each
+    model's beta/alpha).  The index itself is built with ``models['preset']``."""
+    torch = s.torch
+    est = idx.estimate(q_np)
+    coll = est.collisions.to(torch.float32)
+    mix = {name: int(cm.use_lsh(coll, est.cand_est, idx.n).sum())
+           for name, cm in models.items()}
+    assert mix["preset"] == int(est.use_lsh.sum()), (tag, mix)
+    nq = len(q_np)
+    log(f"[{tag}] r={r:.6g} route mix lsh / linear: " + "; ".join(
+        f"{name} (beta/alpha {cm.beta / cm.alpha:.6g}) {mix[name]} / "
+        f"{nq - mix[name]}" for name, cm in models.items()))
+    return mix
+
+
+def drive_calibrated(s: Smoke, x_np, q_np, metric, make_fam, kw, radii, mixes,
+                     cm, tag, by_path):
+    """Drive one radius through an index built with the calibrated cost
+    model: the largest radius where that model mixes routes, else q3."""
+    nq = len(q_np)
+    mixed = [i for i, m in enumerate(mixes) if 0 < m["calibrated"] < nq]
+    i = mixed[-1] if mixed else len(radii) - 1
+    if not mixed:
+        log(f"[{tag}] the calibrated model mixes routes at no radius: "
+            f"driving q{i}")
+    r = radii[i]
+    idx, launches, (n_lsh, _) = drive(s, x_np, q_np, metric, make_fam(r),
+                                      dict(kw, cost_model=cm), r,
+                                      f"{tag} calibrated q{i}")
+    assert n_lsh == mixes[i]["calibrated"], (tag, n_lsh, mixes[i])
+    by_path[f"{tag} calibrated q{i}"] = launches
+    return idx
+
+
 def log_memory(s: Smoke, idx, tag):
     """Per-segment device bytes of a streaming index, and the total."""
     parts = []
@@ -720,8 +982,8 @@ def log_kernel_times(tag, kt):
             f"library {lib}, bound {v['bound_ms']:.3g} ({v['bound_by']}), "
             f"max abs err {v['max_abs_err']:.3g}; {v['shape']}")
         if "ops_ms" in v:
-            log(f"[{tag}] {k} through ops (normalisation, norms, kernel): "
-                f"{v['ops_ms']:.4f} ms")
+            log(f"[{tag}] {k} through ops (the wrapper's own preparation "
+                f"and the kernel): {v['ops_ms']:.4f} ms")
 
 
 def main() -> int:
@@ -746,8 +1008,13 @@ def main() -> int:
     s = Smoke()
     phase_build(s)
     phase_edge_cases(s)
+    by_path = {}
+    calibrated, at_probe = phase_calibrate(s, by_path)
 
-    # -- 3. Webspam analogue, full scale --------------------------------
+    def models(data):
+        return {"preset": PAPER_PRESETS[data], "calibrated": calibrated[data]}
+
+    # -- 4. Webspam analogue, full scale --------------------------------
     t0 = time.perf_counter()
     x, metric = paper_dataset("webspam", scale=1.0, seed=0)
     x, q = query_split(x, n_queries=100, seed=0)
@@ -756,14 +1023,17 @@ def main() -> int:
     radii = pick_radii(x, metric)
     kw = dict(num_buckets=65536, m=64, cap=256,
               cost_model=PAPER_PRESETS["webspam"], device="cuda")
-    by_path, mixed = {}, None
+
+    def webspam_fam(r):
+        return make_family("cosine", d=254, L=20, r=r, delta=0.1)
+
+    mixed, mixes, main_idx = None, [], None
     for i, r in enumerate(radii):
-        fam = make_family("cosine", d=254, L=20, r=r, delta=0.1)
-        idx, launches, (n_lsh, n_lin) = drive(s, x, q, metric, fam, kw, r,
-                                              f"webspam q{i}")
+        idx, launches, (n_lsh, n_lin) = drive(s, x, q, metric, webspam_fam(r),
+                                              kw, r, f"webspam q{i}")
         by_path[f"webspam q{i}"] = launches
-        if n_lsh and n_lin:
-            mixed = i
+        mixes.append(route_mixes(s, idx, q, r, models("webspam"),
+                                 f"webspam q{i}"))
         if i == 0:
             mem = idx.memory_stats()
             log(f"[webspam] device memory: corpus {idx.x.numel() * 4 / 1e6:.1f}"
@@ -772,8 +1042,8 @@ def main() -> int:
                 f"{mem['starts_bytes'] / 1e6:.1f} MB")
         kt = kernel_times(s, idx, q, r, metric)
         log_kernel_times(f"webspam q{i}", kt)
-        if mixed == i:
-            timings = kt
+        if n_lsh and n_lin:
+            mixed, timings, main_idx = i, kt, idx
         del idx
         torch.cuda.empty_cache()
     assert mixed is not None, "webspam: the hybrid mixed routes at no radius"
@@ -782,41 +1052,91 @@ def main() -> int:
     main_launches = by_path[f"webspam q{mixed}"]["hybrid"]
     for k in ("linear_scan_dot", "lsh_scan", "hll_merge_estimate"):
         assert main_launches[k] > 0, f"webspam q{mixed}: kernel {k} was not launched"
+    timings["simhash"] = simhash_times(s, main_idx, by_path,
+                                       f"webspam q{mixed} simhash_fingerprint")
+    full_cosine = pairwise_times(s, torch.from_numpy(q).to(s.dev), main_idx.x,
+                                 metric)
+    log_kernel_times("webspam", {"pairwise_dot": full_cosine,
+                                 "simhash": timings["simhash"]})
+    del main_idx
+    torch.cuda.empty_cache()
+    idx = drive_calibrated(s, x, q, metric, webspam_fam, kw, radii, mixes,
+                           calibrated["webspam"], "webspam", by_path)
+    del idx, x
+    torch.cuda.empty_cache()
 
-    # -- 4. Corel analogue, l2, one mid radius --------------------------
+    # -- 5a. Corel analogue, l2: the preset at q2, the calibrated model --
     x2, metric2 = paper_dataset("corel", scale=1.0, seed=0)
     x2, q2 = query_split(x2, n_queries=100, seed=0)
-    r2 = pick_radii(x2, metric2)[2]
-    fam2 = make_family("l2", d=32, L=20, r=r2, delta=0.1)
+    radii2 = pick_radii(x2, metric2)
     kw2 = dict(num_buckets=32768, m=64, cap=256,
                cost_model=PAPER_PRESETS["corel"], device="cuda")
-    idx2, by_path["corel"], _ = drive(s, x2, q2, metric2, fam2, kw2, r2,
-                                      "corel")
-    log_kernel_times("corel", kernel_times(s, idx2, q2, r2, metric2))
 
+    def corel_fam(r):
+        return make_family("l2", d=32, L=20, r=r, delta=0.1)
+
+    mixes2 = []
+    for i, r in enumerate(radii2):
+        idx2 = HybridLSHIndex(corel_fam(r), seed=0, **kw2).build(x2)
+        mixes2.append(route_mixes(s, idx2, q2, r, models("corel"),
+                                  f"corel q{i}"))
+        del idx2
+    r2 = radii2[2]
+    idx2, by_path["corel"], _ = drive(s, x2, q2, metric2, corel_fam(r2), kw2,
+                                      r2, "corel")
+    log_kernel_times("corel", kernel_times(s, idx2, q2, r2, metric2))
+    corel_l2 = pairwise_times(s, torch.from_numpy(q2).to(s.dev), idx2.x,
+                              metric2)
+    log_kernel_times("corel", {"pairwise_dot": corel_l2})
+    del idx2
+    idx2 = drive_calibrated(s, x2, q2, metric2, corel_fam, kw2, radii2, mixes2,
+                            calibrated["corel"], "corel", by_path)
     del idx2
     torch.cuda.empty_cache()
 
-    # -- 5. CoverType analogue, streaming, full scale (K4's main path) ----
-    from repro_torch.streaming import CompactionPolicy, DynamicHybridIndex
+    # -- 5b. CoverType analogue, static on all rows, the calibrated model --
     t0 = time.perf_counter()
     x3, metric3 = paper_dataset("covertype", scale=1.0, seed=0)
     x3, q3 = query_split(x3, n_queries=100, seed=0)
-    n_build3 = 524288
     log(f"[covertype] N={x3.shape[0]} d={x3.shape[1]} {metric3}, 100 "
-        f"queries (data {time.perf_counter() - t0:.1f} s); build on "
-        f"{n_build3} rows, then insert {x3.shape[0] - n_build3}")
+        f"queries (data {time.perf_counter() - t0:.1f} s)")
+    radii3 = pick_radii(x3, metric3)
+    kw3s = dict(num_buckets=65536, m=64, cap=256,
+                cost_model=PAPER_PRESETS["covertype"], device="cuda")
+
+    def cover_fam(r):
+        return make_family("l1", d=54, L=20, r=r, delta=0.1)
+
+    mixes3 = []
+    for i, r in enumerate(radii3):
+        idx3 = HybridLSHIndex(cover_fam(r), seed=0, **kw3s).build(x3)
+        mixes3.append(route_mixes(s, idx3, q3, r, models("covertype"),
+                                  f"covertype static q{i}"))
+        del idx3
+    idx3 = drive_calibrated(s, x3, q3, metric3, cover_fam, kw3s, radii3,
+                            mixes3, calibrated["covertype"],
+                            "covertype static", by_path)
+    full_l1 = pairwise_times(s, torch.from_numpy(q3).to(s.dev), idx3.x,
+                             metric3)
+    log_kernel_times("covertype static", {"pairwise_l1": full_l1})
+    del idx3
+    torch.cuda.empty_cache()
+
+    # -- 6. CoverType analogue, streaming, full scale (K4's main path) ----
+    from repro_torch.streaming import CompactionPolicy, DynamicHybridIndex
+    n_build3 = 524288
+    log(f"[covertype] streaming: build on {n_build3} rows, then insert "
+        f"{x3.shape[0] - n_build3}")
     kw3 = dict(num_buckets=65536, m=64, cap=256, delta_capacity=8192,
                cost_model=PAPER_PRESETS["covertype"],
                policy=CompactionPolicy(step_rows=8192), device="cuda")
 
     def make_cover(r):
-        fam = make_family("l1", d=54, L=20, r=r, delta=0.1)
-        return DynamicHybridIndex(fam, seed=0, **kw3).build(x3[:n_build3])
+        return DynamicHybridIndex(cover_fam(r), seed=0, **kw3).build(
+            x3[:n_build3])
 
-    i3, r3, idx3 = pick_streaming_radius(s, x3, q3, metric3,
-                                         pick_radii(x3, metric3), make_cover,
-                                         "covertype")
+    i3, r3, idx3 = pick_streaming_radius(s, x3, q3, metric3, radii3,
+                                         make_cover, "covertype")
     name, k4 = linear_kernel_times(s, idx3.stack.segments[0].seg.x, q3, r3,
                                    metric3)
     timings[name] = k4
@@ -828,7 +1148,7 @@ def main() -> int:
     del idx3
     torch.cuda.empty_cache()
 
-    # -- 6. MNIST analogue, Hamming: static and streaming (K5) ------------
+    # -- 7. MNIST analogue, Hamming: static, K8 and streaming (K5) --------
     x4, metric4 = paper_dataset("mnist", scale=1.0, seed=0)
     x4, q4 = query_split(x4, n_queries=100, seed=0)
     log(f"[mnist] N={x4.shape[0]} W={x4.shape[1]} {metric4}, 100 queries")
@@ -855,6 +1175,9 @@ def main() -> int:
     timings[name] = k5
     log_kernel_times(f"mnist q{i4}", {name: k5})
     del idx4
+    timings["hamming"] = hamming_times(s, q4, x4, by_path,
+                                       "mnist hamming_dist")
+    log_kernel_times("mnist", {"hamming": timings["hamming"]})
     dyn4 = DynamicHybridIndex(fam4, seed=0, delta_capacity=4096,
                               policy=CompactionPolicy(step_rows=4096),
                               **kw4).build(x4[:32768])
@@ -864,7 +1187,14 @@ def main() -> int:
         by_path[f"mnist q{i4} streaming {state}"] = v["launches"]
     del dyn4
 
-    # -- 7. summary lines -----------------------------------------------
+    # -- 8. summary lines -----------------------------------------------
+    # K6 and K7 run on the calibrate paths: their rows' times are at
+    # calibrate's shape; the full-size times ride along under full_size
+    timings["pairwise_dot"] = dict(
+        at_probe["cosine"], calibrate_l2=at_probe["l2"],
+        full_size={"webspam cosine": full_cosine, "corel l2": corel_l2})
+    timings["pairwise_l1"] = dict(at_probe["l1"],
+                                  full_size={"covertype l1": full_l1})
     csrc = "src/repro_torch/kernels/csrc/"
     main_paths = {
         "linear_scan_dot": (f"webspam q{mixed}", "hybrid"),
@@ -874,6 +1204,10 @@ def main() -> int:
         "linear_scan_hamming": ((f"mnist q{mixed4}", "hybrid")
                                 if mixed4 is not None else
                                 (f"mnist q{i4} streaming churned", "hybrid")),
+        "pairwise_dot": ("calibrate cosine", "calibrate"),
+        "pairwise_l1": ("calibrate l1", "calibrate"),
+        "hamming": ("mnist hamming_dist", "ops"),
+        "simhash": (f"webspam q{mixed} simhash_fingerprint", "ops"),
     }
     src = {"linear_scan_dot": (csrc + "fused_scan.cu",
                                "src/repro/kernels/fused_scan.py:145"),
@@ -884,28 +1218,34 @@ def main() -> int:
            "linear_scan_l1": (csrc + "fused_scan.cu",
                               "src/repro/kernels/fused_scan.py:177"),
            "linear_scan_hamming": (csrc + "fused_scan.cu",
-                                   "src/repro/kernels/fused_scan.py:202")}
+                                   "src/repro/kernels/fused_scan.py:202"),
+           "pairwise_dot": (csrc + "fused_scan.cu",
+                            "src/repro/kernels/distances.py:62"),
+           "pairwise_l1": (csrc + "fused_scan.cu",
+                           "src/repro/kernels/distances.py:93"),
+           "hamming": (csrc + "fused_scan.cu",
+                       "src/repro/kernels/hamming.py:33"),
+           "simhash": (csrc + "simhash.cu", "src/repro/kernels/simhash.py:34")}
     kernels = []
     for name, (source, replaces) in src.items():
         t = timings[name]
         cell, path = main_paths[name]
         launches = by_path[cell][path][name]
         assert launches > 0, f"{cell} {path}: kernel {name} was not launched"
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches,
-                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"],
-                        "main_path": f"{cell} {path}", "shape": t["shape"],
-                        "launches_by_path": {
-                            c: {p: n[name] for p, n in paths.items()}
-                            for c, paths in by_path.items()}})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "main_path": f"{cell} {path}", "shape": t["shape"],
+               "launches_by_path": {
+                   c: {p: n[name] for p, n in paths.items()}
+                   for c, paths in by_path.items()}}
+        row.update({k: v for k, v in t.items() if k not in row})
+        kernels.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    log(json.dumps({"kernels": kernels,
-                    "not_ported": [{"name": n, "replaces": r}
-                                   for n, r in NOT_PORTED]}))
+    log(json.dumps({"kernels": kernels, "not_ported": []}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,14 +6,14 @@ Public surface:
                           ``TableSegment`` of the static index
   * ``core.lsh``        — LSH families + CSR tables
   * ``core.hll``        — HyperLogLog sketches
-  * ``core.cost_model`` — Eq. (1)/(2)
+  * ``core.cost_model`` — Eq. (1)/(2), and ``calibrate`` of beta/alpha
 """
-from repro_torch.core.cost_model import CostModel, PAPER_PRESETS
+from repro_torch.core.cost_model import PAPER_PRESETS, CostModel, calibrate
 from repro_torch.core.engine import (QueryEngine, RouteEstimate,
                                      SegmentEstimate, TableSegment,
                                      finalize_route)
 from repro_torch.core.index import HybridLSHIndex, QueryResult
 
-__all__ = ["CostModel", "PAPER_PRESETS", "HybridLSHIndex", "QueryResult",
-           "RouteEstimate", "QueryEngine", "SegmentEstimate", "TableSegment",
-           "finalize_route"]
+__all__ = ["CostModel", "PAPER_PRESETS", "calibrate", "HybridLSHIndex",
+           "QueryResult", "RouteEstimate", "QueryEngine", "SegmentEstimate",
+           "TableSegment", "finalize_route"]

@@ -17,7 +17,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -78,3 +80,32 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _libs[name] = lib
     return lib
+
+
+def launch(lib: str, name: str, argtypes: Sequence, *args) -> None:
+    """Call the entry point ``name`` of ``csrc/<lib>.cu`` with ``args``;
+    raise if it returns a CUDA error (a refused launch never runs, and
+    no later synchronise would report it)."""
+    fn = getattr(load(lib), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``: what every kernel's pointer arithmetic assumes."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {tuple(shape)} {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

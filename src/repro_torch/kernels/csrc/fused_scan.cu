@@ -1,5 +1,6 @@
 // The query-route scans: the fused linear scans (dot form, L1, Hamming)
-// and the fused LSH-route candidate verification.
+// and the fused LSH-route candidate verification; and the distance
+// matrices (dot form, L1, Hamming) that share the linear scans' kernels.
 //
 // ---------------------------------------------------------------------------
 // linear_scan_dot
@@ -43,20 +44,50 @@
 // both sides, which add |0 - 0| = 0.
 //
 // ---------------------------------------------------------------------------
-// linear_scan_hamming
-// Replaces: repro/kernels/fused_scan.py, linear_scan_hamming_pallas (body
-// _linear_hamming_kernel).  XOR and __popc over the W packed 32-bit words
-// of each (query, row) pair, summed as int32, written as float32 (exact
-// for distances up to 2^24); the mask is float(d) <= thresh, as the
-// reference casts it; the ids as above.
+// pairwise_dot and pairwise_l1
+// Replace: repro/kernels/distances.py, pairwise_dot_pallas (body _dot_kernel)
+// and pairwise_l1_pallas (body _l1_kernel).  The (Q, N) distance matrix
+// alone, with no threshold, mask or ids: ||q||^2 + ||x||^2 - 2 q.x clamped
+// at 0 (l2; repro's ops.pairwise_dist clamps the kernel's output, which
+// gives the same values), 1 - q.x on rows the caller normalised (cosine),
+// or sum |q - x| (l1).  They are the tile of linear_scan_dot and
+// linear_scan_l1 with a distances-only epilogue (template DIST_ONLY), so
+// each pair costs 4 B of output instead of 9.
+//
+// Bound on an H100 SXM, at the shapes cost_model.calibrate's callers give
+// (100 queries, the whole corpus): operations for cosine at Webspam
+// (N = 349,900, d = 254: 17.8 GFLOP, 0.265 ms at 67 TFLOP/s, against
+// 496 MB, 0.148 ms at 3.35 TB/s) and for l1 at CoverType (N = 580,912,
+// d = 54: 9.41 G operations, 0.140 ms, against 358 MB); bytes for l2 at
+// Corel (N = 67,940, d = 32: 35.9 MB, 0.011 ms).  A block computes 32
+// queries whatever Q is, so Q = 100 runs four query blocks, the last with
+// 4 real rows: 28 % more FMAs than the work needs.  The blocks of one row
+// tile are numbered consecutively (query block fastest), so they run
+// together and the corpus tile they share is read from device memory about
+// once, not once per query block (the 355 MB Webspam corpus does not fit
+// the 50 MB L2).
+//
+// ---------------------------------------------------------------------------
+// linear_scan_hamming and hamming
+// Replace: repro/kernels/fused_scan.py, linear_scan_hamming_pallas (body
+// _linear_hamming_kernel), and repro/kernels/hamming.py, hamming_pallas
+// (body _kernel).  XOR and __popc over the W packed 32-bit words of each
+// (query, row) pair, summed as int32.  linear_scan_hamming writes it as
+// float32 (exact for distances up to 2^24), the mask float(d) <= thresh,
+// as the reference casts it, and the ids as above; hamming writes the
+// (Q, N) int32 matrix alone (template DIST_ONLY).  Any W: the TPU kernels
+// put a whole code in VMEM whatever W is, and so take any W too.
 //
 // Bound on an H100 SXM: device memory, and in practice launch latency.  At
-// the MNIST shape (Q = 32, N = 59,900, W = 2) it reads 0.5 MB of codes and
-// writes 17.3 MB: about 5 us at 3.35 TB/s.  Design: one corpus row per
-// thread, its W words held in registers (W <= 8); the block's 32 query
-// codes sit in shared memory, read as broadcasts; a thread walks the 32
-// queries and writes one (q, n) entry each, so a warp's writes are
-// consecutive in n and coalesce.
+// the MNIST shape (W = 2, N = 59,900) the scan of one chunk of Q = 32
+// reads 0.5 MB of codes and writes 17.3 MB (about 5 us at 3.35 TB/s); the
+// matrix of Q = 100 writes 24.0 MB (about 7 us).  Design: one corpus row
+// per thread, the block's 32 query codes in shared memory, read as
+// broadcasts, the 32 per-query sums in registers, and a warp's writes
+// consecutive in n, so they coalesce.  The words are walked in chunks of
+// 8: each chunk of the 32 query codes is staged in shared memory and the
+// row's chunk is held in registers.  Words past W in the last chunk are
+// skipped (the chunk's word count is the same for every thread).
 //
 // ---------------------------------------------------------------------------
 // lsh_scan
@@ -87,7 +118,16 @@ constexpr int kThreads = 256;
 
 enum LinearMode { kDotL2 = 0, kDotCosine = 1, kAbsL1 = 2 };
 
-template <int MODE>
+// Blocks of the tile kernel for a (Q, N) output: one per 32 queries x 128
+// rows, on a 1-D grid.  0 if the count does not fit a launch.
+unsigned tile_blocks(int Q, int N) {
+  const int64_t b = static_cast<int64_t>((N + kBN - 1) / kBN) * ((Q + kBQ - 1) / kBQ);
+  return b > 0x7fffffff ? 0u : static_cast<unsigned>(b);
+}
+
+// DIST_ONLY: write the distances only (pairwise_dot / pairwise_l1); mask
+// and ids are then null and unwritten.
+template <int MODE, bool DIST_ONLY>
 __global__ void __launch_bounds__(kThreads)
 linear_scan_tile_kernel(const float* __restrict__ q, const float* __restrict__ x,
                         const float* __restrict__ qn,
@@ -99,8 +139,9 @@ linear_scan_tile_kernel(const float* __restrict__ q, const float* __restrict__ x
   const int tid = threadIdx.x;
   const int tx = tid & 31;   // corpus columns tx + 32 j
   const int ty = tid >> 5;   // query rows ty + 8 i
-  const int n0 = blockIdx.x * kBN;
-  const int q0 = blockIdx.y * kBQ;
+  const int qblocks = (Q + kBQ - 1) / kBQ;
+  const int n0 = (blockIdx.x / qblocks) * kBN;   // < N, so it fits an int
+  const int q0 = (blockIdx.x % qblocks) * kBQ;
 
   float acc[4][4];
 #pragma unroll
@@ -168,43 +209,65 @@ linear_scan_tile_kernel(const float* __restrict__ q, const float* __restrict__ x
       }
       const int64_t o = static_cast<int64_t>(gq) * N + gn;
       dist[o] = v;
-      mask[o] = v <= thresh ? 1 : 0;
-      ids[o] = gn;
+      if (!DIST_ONLY) {
+        mask[o] = v <= thresh ? 1 : 0;
+        ids[o] = gn;
+      }
     }
   }
 }
 
 constexpr int kHamRows = 256;   // corpus rows per block, one per thread
 constexpr int kHamQ = 32;       // queries per block
-constexpr int kMaxWords = 8;    // packed words per code held in registers
+constexpr int kHamWords = 8;    // words of each code staged per step
+static_assert(kHamQ * kHamWords == kHamRows, "one staged query word per thread");
 
+// DIST_ONLY: write the int32 distances only (hamming); mask and ids are
+// then null and unwritten.  Otherwise dist is float32 (linear_scan_hamming).
+template <bool DIST_ONLY>
 __global__ void __launch_bounds__(kHamRows)
 linear_scan_hamming_kernel(const uint32_t* __restrict__ q,
                            const uint32_t* __restrict__ x, float thresh,
-                           float* __restrict__ dist, uint8_t* __restrict__ mask,
+                           void* __restrict__ dist, uint8_t* __restrict__ mask,
                            int32_t* __restrict__ ids, int Q, int N, int W) {
-  __shared__ uint32_t qs[kHamQ * kMaxWords];
+  __shared__ uint32_t qs[kHamQ][kHamWords];
   const int n = blockIdx.x * kHamRows + threadIdx.x;
   const int q0 = blockIdx.y * kHamQ;
   const int nq = min(kHamQ, Q - q0);
-  for (int i = threadIdx.x; i < nq * W; i += kHamRows)
-    qs[i] = q[static_cast<int64_t>(q0) * W + i];
-  __syncthreads();
+  const int si = threadIdx.x / kHamWords;   // the query word this thread stages
+  const int sw = threadIdx.x % kHamWords;
+  int c[kHamQ];
+#pragma unroll
+  for (int i = 0; i < kHamQ; ++i) c[i] = 0;
+  for (int w0 = 0; w0 < W; w0 += kHamWords) {
+    const int nw = min(kHamWords, W - w0);
+    __syncthreads();   // every thread is done with the previous chunk
+    qs[si][sw] = (si < nq && sw < nw)
+                     ? q[static_cast<int64_t>(q0 + si) * W + w0 + sw] : 0u;
+    __syncthreads();
+    uint32_t xr[kHamWords];
+#pragma unroll
+    for (int w = 0; w < kHamWords; ++w)
+      xr[w] = (n < N && w < nw) ? x[static_cast<int64_t>(n) * W + w0 + w] : 0u;
+#pragma unroll
+    for (int i = 0; i < kHamQ; ++i)
+#pragma unroll
+      for (int w = 0; w < kHamWords; ++w)
+        if (w < nw) c[i] += __popc(xr[w] ^ qs[i][w]);
+  }
   if (n >= N) return;
-  uint32_t xr[kMaxWords];
 #pragma unroll
-  for (int w = 0; w < kMaxWords; ++w)
-    xr[w] = w < W ? x[static_cast<int64_t>(n) * W + w] : 0u;
-  for (int i = 0; i < nq; ++i) {
-    int c = 0;
-#pragma unroll
-    for (int w = 0; w < kMaxWords; ++w)
-      if (w < W) c += __popc(xr[w] ^ qs[i * W + w]);
-    const float v = static_cast<float>(c);
+  for (int i = 0; i < kHamQ; ++i) {
+    if (i >= nq) continue;
     const int64_t o = static_cast<int64_t>(q0 + i) * N + n;
-    dist[o] = v;
-    mask[o] = v <= thresh ? 1 : 0;
-    ids[o] = n;
+    if (DIST_ONLY) {
+      static_cast<int32_t*>(dist)[o] = c[i];
+    } else {
+      const float v = static_cast<float>(c[i]);
+      static_cast<float*>(dist)[o] = v;
+      mask[o] = v <= thresh ? 1 : 0;
+      ids[o] = n;
+    }
   }
 }
 
@@ -293,7 +356,8 @@ extern "C" int linear_scan_dot(const void* q, const void* x, const void* qn,
                                void* dist, void* mask, void* ids, int Q, int N,
                                int d, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  const dim3 grid((N + kBN - 1) / kBN, (Q + kBQ - 1) / kBQ);
+  const unsigned grid = tile_blocks(Q, N);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto* qf = static_cast<const float*>(q);
   auto* xf = static_cast<const float*>(x);
@@ -304,10 +368,10 @@ extern "C" int linear_scan_dot(const void* q, const void* x, const void* qn,
   auto* ii = static_cast<int32_t*>(ids);
   switch (mode) {
     case kDotL2:
-      linear_scan_tile_kernel<kDotL2><<<grid, kThreads, 0, s>>>(qf, xf, qnf, xnf, thresh, dd, mm, ii, Q, N, d);
+      linear_scan_tile_kernel<kDotL2, false><<<grid, kThreads, 0, s>>>(qf, xf, qnf, xnf, thresh, dd, mm, ii, Q, N, d);
       break;
     case kDotCosine:
-      linear_scan_tile_kernel<kDotCosine><<<grid, kThreads, 0, s>>>(qf, xf, qnf, xnf, thresh, dd, mm, ii, Q, N, d);
+      linear_scan_tile_kernel<kDotCosine, false><<<grid, kThreads, 0, s>>>(qf, xf, qnf, xnf, thresh, dd, mm, ii, Q, N, d);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -321,27 +385,79 @@ extern "C" int linear_scan_l1(const void* q, const void* x, float thresh,
                               void* dist, void* mask, void* ids, int Q, int N,
                               int d, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  const dim3 grid((N + kBN - 1) / kBN, (Q + kBQ - 1) / kBQ);
-  linear_scan_tile_kernel<kAbsL1><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned grid = tile_blocks(Q, N);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  linear_scan_tile_kernel<kAbsL1, false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(x), nullptr,
       nullptr, thresh, static_cast<float*>(dist), static_cast<uint8_t*>(mask),
       static_cast<int32_t*>(ids), Q, N, d);
   return static_cast<int>(cudaGetLastError());
 }
 
+// q: (Q, d), x: (N, d), qn: (Q,), xn: (N,) float32, contiguous (qn, xn
+// are read only for mode 0 = l2; mode 1 = cosine).  Output dist (Q, N) f32.
+extern "C" int pairwise_dot(const void* q, const void* x, const void* qn,
+                            const void* xn, int mode, void* dist, int Q, int N,
+                            int d, void* stream) {
+  if (Q <= 0 || N <= 0) return 0;
+  const unsigned grid = tile_blocks(Q, N);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* qf = static_cast<const float*>(q);
+  auto* xf = static_cast<const float*>(x);
+  auto* qnf = static_cast<const float*>(qn);
+  auto* xnf = static_cast<const float*>(xn);
+  auto* dd = static_cast<float*>(dist);
+  switch (mode) {
+    case kDotL2:
+      linear_scan_tile_kernel<kDotL2, true><<<grid, kThreads, 0, s>>>(qf, xf, qnf, xnf, 0.f, dd, nullptr, nullptr, Q, N, d);
+      break;
+    case kDotCosine:
+      linear_scan_tile_kernel<kDotCosine, true><<<grid, kThreads, 0, s>>>(qf, xf, qnf, xnf, 0.f, dd, nullptr, nullptr, Q, N, d);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: (Q, d), x: (N, d) float32, contiguous.  Output dist (Q, N) f32.
+extern "C" int pairwise_l1(const void* q, const void* x, void* dist, int Q,
+                           int N, int d, void* stream) {
+  if (Q <= 0 || N <= 0) return 0;
+  const unsigned grid = tile_blocks(Q, N);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  linear_scan_tile_kernel<kAbsL1, true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(x), nullptr,
+      nullptr, 0.f, static_cast<float*>(dist), nullptr, nullptr, Q, N, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // q: (Q, W), x: (N, W) packed 32-bit codes (int32 bit views read as
-// unsigned), contiguous, 1 <= W <= 8.  Outputs dist (Q, N) f32, mask
-// (Q, N) u8, ids (Q, N) i32.
+// unsigned), contiguous, W >= 1.  Outputs dist (Q, N) f32, mask (Q, N) u8,
+// ids (Q, N) i32.
 extern "C" int linear_scan_hamming(const void* q, const void* x, float thresh,
                                    void* dist, void* mask, void* ids, int Q,
                                    int N, int W, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  if (W < 1 || W > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  if (W < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + kHamRows - 1) / kHamRows, (Q + kHamQ - 1) / kHamQ);
-  linear_scan_hamming_kernel<<<grid, kHamRows, 0, static_cast<cudaStream_t>(stream)>>>(
+  linear_scan_hamming_kernel<false><<<grid, kHamRows, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(x), thresh,
-      static_cast<float*>(dist), static_cast<uint8_t*>(mask),
-      static_cast<int32_t*>(ids), Q, N, W);
+      dist, static_cast<uint8_t*>(mask), static_cast<int32_t*>(ids), Q, N, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: (Q, W), x: (N, W) packed 32-bit codes (int32 bit views read as
+// unsigned), contiguous, W >= 1.  Output out (Q, N) int32.
+extern "C" int hamming(const void* q, const void* x, void* out, int Q, int N,
+                       int W, void* stream) {
+  if (Q <= 0 || N <= 0) return 0;
+  if (W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + kHamRows - 1) / kHamRows, (Q + kHamQ - 1) / kHamQ);
+  linear_scan_hamming_kernel<true><<<grid, kHamRows, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(x), 0.f,
+      out, nullptr, nullptr, Q, N, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,32 +27,14 @@ from repro_torch.kernels.ref import fused_lsh_scan as fused_lsh_scan_ref
 
 __all__ = ["linear_scan_dot", "linear_scan_l1", "linear_scan_hamming",
            "lsh_scan", "fused_linear_scan_ref", "fused_lsh_scan_ref",
-           "LSH_METRICS", "MAX_HAMMING_WORDS"]
+           "LSH_METRICS"]
 
 LINEAR_MODES = {"l2": 0, "cosine": 1}
 LSH_METRICS = {"l2": 0, "l1": 1, "cosine": 2, "hamming": 3}
-MAX_HAMMING_WORDS = 8      # linear_scan_hamming holds a code in registers
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-
-
-def _fn(name, argtypes):
-    fn = getattr(_build.load("fused_scan"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: want {tuple(shape)} {dtype}, got "
-                         f"{tuple(t.shape)} {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def linear_scan_dot(thresh: float, q: torch.Tensor, x: torch.Tensor,
@@ -65,21 +47,19 @@ def linear_scan_dot(thresh: float, q: torch.Tensor, x: torch.Tensor,
     """
     nq, d = q.shape
     nn = x.shape[0]
-    _check(q, "q", torch.float32, (nq, d))
-    _check(x, "x", torch.float32, (nn, d))
-    _check(qn, "qn", torch.float32, (nq,))
-    _check(xn, "xn", torch.float32, (nn,))
+    _build.check(q, "q", torch.float32, (nq, d))
+    _build.check(x, "x", torch.float32, (nn, d))
+    _build.check(qn, "qn", torch.float32, (nq,))
+    _build.check(xn, "xn", torch.float32, (nn,))
     dist, mask, ids = _linear_outputs(nq, nn, q.device)
     if nq == 0 or nn == 0:
         return dist, mask, ids
-    fn = _fn("linear_scan_dot", [_P, _P, _P, _P, _F, _I, _P, _P, _P, _I, _I,
-                                 _I, _P])
-    err = fn(q.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(),
-             float(thresh), LINEAR_MODES[mode], dist.data_ptr(),
-             mask.data_ptr(), ids.data_ptr(), nq, nn, d,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"linear_scan_dot launch failed: cudaError {err}")
+    _build.launch("fused_scan", "linear_scan_dot",
+                  [_P, _P, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _P],
+                  q.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(),
+                  float(thresh), LINEAR_MODES[mode], dist.data_ptr(),
+                  mask.data_ptr(), ids.data_ptr(), nq, nn, d,
+                  _build.stream(q))
     linear_scan_dot.launches += 1
     return dist, mask, ids
 
@@ -95,17 +75,16 @@ def linear_scan_l1(thresh: float, q: torch.Tensor, x: torch.Tensor):
     sum |q - x|, the mask ``dist <= thresh``."""
     nq, d = q.shape
     nn = x.shape[0]
-    _check(q, "q", torch.float32, (nq, d))
-    _check(x, "x", torch.float32, (nn, d))
+    _build.check(q, "q", torch.float32, (nq, d))
+    _build.check(x, "x", torch.float32, (nn, d))
     dist, mask, ids = _linear_outputs(nq, nn, q.device)
     if nq == 0 or nn == 0:
         return dist, mask, ids
-    fn = _fn("linear_scan_l1", [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P])
-    err = fn(q.data_ptr(), x.data_ptr(), float(thresh), dist.data_ptr(),
-             mask.data_ptr(), ids.data_ptr(), nq, nn, d,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"linear_scan_l1 launch failed: cudaError {err}")
+    _build.launch("fused_scan", "linear_scan_l1",
+                  [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
+                  q.data_ptr(), x.data_ptr(), float(thresh), dist.data_ptr(),
+                  mask.data_ptr(), ids.data_ptr(), nq, nn, d,
+                  _build.stream(q))
     linear_scan_l1.launches += 1
     return dist, mask, ids
 
@@ -113,24 +92,21 @@ def linear_scan_l1(thresh: float, q: torch.Tensor, x: torch.Tensor):
 def linear_scan_hamming(thresh: float, q: torch.Tensor, x: torch.Tensor):
     """(Q, W) x (N, W) int32 bit views of packed uint32 codes -> (dists
     f32, mask bool, ids i32), (Q, N): the Hamming distance (exact in
-    float32), the mask ``float(dist) <= thresh``.  1 <= W <= 8."""
+    float32), the mask ``float(dist) <= thresh``.  W >= 1."""
     nq, w = q.shape
     nn = x.shape[0]
-    _check(q, "q", torch.int32, (nq, w))
-    _check(x, "x", torch.int32, (nn, w))
-    if not 1 <= w <= MAX_HAMMING_WORDS:
-        raise ValueError(f"linear_scan_hamming takes 1..{MAX_HAMMING_WORDS} "
-                         f"words per code, got {w}")
+    _build.check(q, "q", torch.int32, (nq, w))
+    _build.check(x, "x", torch.int32, (nn, w))
+    if w < 1:
+        raise ValueError("linear_scan_hamming needs at least one word per code")
     dist, mask, ids = _linear_outputs(nq, nn, q.device)
     if nq == 0 or nn == 0:
         return dist, mask, ids
-    fn = _fn("linear_scan_hamming", [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P])
-    err = fn(q.data_ptr(), x.data_ptr(), float(thresh), dist.data_ptr(),
-             mask.data_ptr(), ids.data_ptr(), nq, nn, w,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"linear_scan_hamming launch failed: cudaError {err}")
+    _build.launch("fused_scan", "linear_scan_hamming",
+                  [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
+                  q.data_ptr(), x.data_ptr(), float(thresh), dist.data_ptr(),
+                  mask.data_ptr(), ids.data_ptr(), nq, nn, w,
+                  _build.stream(q))
     linear_scan_hamming.launches += 1
     return dist, mask, ids
 
@@ -147,21 +123,21 @@ def lsh_scan(thresh: float, x: torch.Tensor, q: torch.Tensor,
     nq, c = ids.shape
     n, d = x.shape
     dtype = torch.int32 if metric == "hamming" else torch.float32
-    _check(x, "x", dtype, (n, d))
-    _check(q, "q", dtype, (nq, d))
-    _check(ids, "ids", torch.int32, (nq, c))
-    _check(prev, "prev", torch.int32, (nq, c))
+    _build.check(x, "x", dtype, (n, d))
+    _build.check(q, "q", dtype, (nq, d))
+    _build.check(ids, "ids", torch.int32, (nq, c))
+    _build.check(prev, "prev", torch.int32, (nq, c))
     dev = x.device
     dist = torch.empty((nq, c), dtype=torch.float32, device=dev)
     mask = torch.empty((nq, c), dtype=torch.bool, device=dev)
     if nq == 0 or c == 0:
         return dist, mask
-    fn = _fn("lsh_scan", [_I, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P])
-    err = fn(LSH_METRICS[metric], x.data_ptr(), q.data_ptr(), ids.data_ptr(),
-             prev.data_ptr(), float(thresh), dist.data_ptr(), mask.data_ptr(),
-             nq, c, n, d, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"lsh_scan launch failed: cudaError {err}")
+    _build.launch("fused_scan", "lsh_scan",
+                  [_I, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+                  LSH_METRICS[metric], x.data_ptr(), q.data_ptr(),
+                  ids.data_ptr(), prev.data_ptr(), float(thresh),
+                  dist.data_ptr(), mask.data_ptr(), nq, c, n, d,
+                  _build.stream(x))
     lsh_scan.launches += 1
     return dist, mask
 

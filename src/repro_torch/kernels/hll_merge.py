@@ -20,16 +20,6 @@ from repro_torch.kernels.ref import hll_merge_estimate as hll_merge_estimate_ref
 __all__ = ["hll_merge_estimate", "hll_merge_estimate_ref"]
 
 
-def _lib():
-    lib = _build.load("hll_merge")
-    fn = lib.hll_merge_estimate
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def hll_merge_estimate(regs: torch.Tensor) -> torch.Tensor:
     """(Q, L, m) uint8 CUDA registers -> (Q,) float32 candSize estimates."""
     if not regs.is_cuda:
@@ -45,10 +35,12 @@ def hll_merge_estimate(regs: torch.Tensor) -> torch.Tensor:
     if q == 0:
         return out
     coef = float(np.float32(_alpha(m) * m * m))
-    stream = torch.cuda.current_stream(regs.device).cuda_stream
-    err = _lib()(regs.data_ptr(), out.data_ptr(), q, L, m, coef, stream)
-    if err:
-        raise RuntimeError(f"hll_merge_estimate launch failed: cudaError {err}")
+    _build.launch("hll_merge", "hll_merge_estimate",
+                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p],
+                  regs.data_ptr(), out.data_ptr(), q, L, m, coef,
+                  _build.stream(regs))
     hll_merge_estimate.launches += 1
     return out
 

@@ -16,12 +16,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import distances as _dist
 from repro_torch.kernels import fused_scan as _fs
 from repro_torch.kernels import hll_merge as _hllm
 from repro_torch.kernels import ref as _ref
-from repro_torch.u32 import as_i32
+from repro_torch.kernels import simhash as _sim
+from repro_torch.u32 import as_i32, as_u32
 
-__all__ = ["hll_merge_estimate", "pad_to", "metric_radius_transform",
+__all__ = ["pairwise_dist", "hamming_dist", "simhash_fingerprint",
+           "hll_merge_estimate", "pad_to", "metric_radius_transform",
            "fused_linear_scan", "fused_lsh_scan", "resolve_impl"]
 
 IMPLS = ("ref", "cuda")
@@ -56,6 +59,66 @@ def metric_radius_transform(metric: str, r: float) -> float:
     """Map a user radius to the raw-kernel comparison value: the L2 scans
     return *squared* distances, so the threshold is r^2."""
     return r * r if metric == "l2" else r
+
+
+_PAIRWISE_REF = {"l2": _ref.pairwise_sql2, "l1": _ref.pairwise_l1,
+                "cosine": _ref.pairwise_cosine}
+
+
+def pairwise_dist(q: torch.Tensor, x: torch.Tensor, metric: str,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """(Q, d) x (N, d) -> (Q, N) float32 distances for "l2", "l1" or
+    "cosine".
+
+    NOTE: metric "l2" returns SQUARED L2 clamped at 0 (compare against
+    r^2 via ``metric_radius_transform``).  Inputs of any float type are
+    cast to float32.  On CUDA, l2 and cosine run ``pairwise_dot`` (for
+    cosine on rows normalised here, per call) and l1 ``pairwise_l1``.
+    """
+    if metric not in _PAIRWISE_REF:
+        raise ValueError(metric)
+    if resolve_impl(impl, q.device) == "ref":
+        return _PAIRWISE_REF[metric](q, x)
+    q = q.to(torch.float32)
+    x = x.to(torch.float32)
+    if metric == "l1":
+        return _dist.pairwise_l1(q.contiguous(), x.contiguous())
+    if metric == "cosine":
+        return _dist.pairwise_dot(_ref.unit_rows(q).contiguous(),
+                                  _ref.unit_rows(x).contiguous(), None, None,
+                                  mode="cosine")
+    q, x = q.contiguous(), x.contiguous()
+    return _dist.pairwise_dot(q, x, torch.sum(q * q, dim=-1),
+                              torch.sum(x * x, dim=-1), mode="l2")
+
+
+def hamming_dist(qc: torch.Tensor, xc: torch.Tensor,
+                 impl: Optional[str] = None) -> torch.Tensor:
+    """(Q, W) x (N, W) packed uint32 codes (int64 values or int32 bit
+    views) -> (Q, N) int32 Hamming distances."""
+    if resolve_impl(impl, qc.device) == "ref":
+        return _ref.hamming(qc, xc)
+    return _dist.hamming(as_i32(qc).contiguous(), as_i32(xc).contiguous())
+
+
+def pad_projection(r: torch.Tensor, L: int, k: int) -> torch.Tensor:
+    """(d, L*k) projection -> (d, L*words*32) zero-padded per table."""
+    d = r.shape[0]
+    words = (k + 31) // 32
+    r = torch.nn.functional.pad(r.reshape(d, L, k), (0, words * 32 - k))
+    return r.reshape(d, L * words * 32)
+
+
+def simhash_fingerprint(x: torch.Tensor, r: torch.Tensor, L: int, k: int,
+                        impl: Optional[str] = None) -> torch.Tensor:
+    """(N, d) points, (d, L*k) projections -> (N, L, ceil(k/32)) packed
+    uint32 words (int64 holding [0, 2**32), as ``SimHash.codes``)."""
+    words = (k + 31) // 32
+    rp = pad_projection(r, L, k)
+    if resolve_impl(impl, x.device) == "ref":
+        return _ref.simhash_fingerprint(x, rp, L, words)
+    return as_u32(_sim.simhash(x.to(torch.float32).contiguous(),
+                               rp.to(torch.float32).contiguous(), L, k))
 
 
 def fused_linear_scan(q: torch.Tensor, x: torch.Tensor, r, metric: str,

@@ -99,6 +99,44 @@ def hamming(qc: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
     return torch.sum(popcount_u32(x), dim=-1, dtype=torch.int32)
 
 
+def simhash_fingerprint(x: torch.Tensor, r_padded: torch.Tensor, L: int,
+                        words: int) -> torch.Tensor:
+    """SimHash fingerprints, (N, d) x (d, L*words*32) -> (N, L, words)
+    packed words (int64 holding [0, 2**32), as ``families._pack_bits``).
+
+    ``r_padded`` has zero columns beyond the family's true k bits per
+    table (zero projection -> bit 0); bit j of a word is its column j.
+    """
+    proj = x.to(torch.float32) @ r_padded.to(torch.float32)
+    bits = (proj > 0).reshape(x.shape[0], L, words, 32).to(torch.int64)
+    return torch.sum(bits << torch.arange(32, device=x.device), dim=-1)
+
+
+# relative to sum_i |x_i r_i|: float32 sums in other orders
+SIMHASH_EPS = 1e-5
+
+
+def simhash_bits_differing(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                           r_padded: torch.Tensor, eps: float = SIMHASH_EPS):
+    """Compare packed fingerprints ``a`` and ``b`` ((N, L, words)) of the
+    points ``x`` under ``r_padded``.  Returns (bits that differ, those of
+    them whose float64 projection lies farther than eps * sum_i |x_i r_i|
+    from 0).  Two correct float32 projections may differ only in the first
+    count: the second must be 0."""
+    n = a.shape[0]
+    diff = (a.to(torch.int64) ^ b.to(torch.int64)).reshape(n, -1) & 0xFFFFFFFF
+    rows, words = torch.nonzero(diff, as_tuple=True)
+    if len(rows) == 0:
+        return 0, 0
+    bits = (diff[rows, words][:, None]
+            >> torch.arange(32, device=diff.device)) & 1
+    hit, bit = torch.nonzero(bits, as_tuple=True)
+    rows, cols = rows[hit], words[hit] * 32 + bit
+    terms = x[rows].double() * r_padded[:, cols].T.double()
+    far = terms.sum(1).abs() > eps * terms.abs().sum(1)
+    return len(rows), int(far.sum())
+
+
 def fused_linear_scan(q: torch.Tensor, x: torch.Tensor, thresh,
                       metric: str):
     """The composed linear-route pipeline (pairwise distance ->

@@ -4,17 +4,19 @@ Imports neither JAX nor ``repro``, so it runs on a GPU machine without
 them:  ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Every test skips (with its reason) where there is no CUDA device: the
 kernels have no CPU mode.  Tolerances as in ``test_torch_kernels.py``;
-HLL estimates at rtol 1e-5 (float32 sums in another order).
+HLL estimates at rtol 1e-5 (float32 sums in another order); Hamming
+matrices exact; SimHash bits as ``torch_cases.simhash_flips`` allows.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import fused_scan, hll_merge, ops  # noqa: E402
+from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
+                                 hll_merge, ops, simhash)
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
 from torch_cases import (RADII, TOL, as_tensor, handcrafted_ids,  # noqa: E402
-                         hll_regs, pair)
+                         hll_regs, pair, simhash_flips)
 
 RNG = np.random.default_rng(0)
 
@@ -51,9 +53,9 @@ def test_cuda_linear_scan_matches_plain(cuda, metric, q, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("w", [1, 2, 3, 8])
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 9, 16])
 def test_cuda_hamming_scan_words_zero_codes_and_ties(cuda, w):
-    """W = 1..8 words, all-zero codes, and a threshold equal to an
+    """W = 1..16 words (chunks of 8 and a partial chunk), all-zero codes, and a threshold equal to an
     attained distance: the kernel reports exactly what the plain version
     does (Hamming distances are exact)."""
     qa = RNG.integers(0, 2**32, (33, w), dtype=np.uint32)
@@ -147,3 +149,83 @@ def test_cuda_churned_dynamic_index_matches_plain(cuda, metric):
         assert kernel.launches > before       # the delta scan, at least
         b = plain.query(q, r, force=force)
         assert a.neighbor_sets() == b.neighbor_sets(), force
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "cosine", "l1"])
+@pytest.mark.parametrize("q,n,d", [(1, 129, 37), (8, 100, 37), (33, 257, 254),
+                                   (100, 1000, 54), (65, 1, 32), (7, 300, 1)])
+def test_cuda_pairwise_dist_matches_plain(cuda, metric, q, n, d):
+    """Odd Q and N (partial tiles), Q or N = 1, d not a multiple of the
+    d-chunk, an all-zero row on each side (cosine's 1e-12 norm clamp)."""
+    qa = RNG.normal(size=(q, d)).astype(np.float32)
+    xa = RNG.normal(size=(n, d)).astype(np.float32)
+    qa[0] = 0.0
+    xa[-1] = 0.0
+    qt, xt = torch.from_numpy(qa).to(cuda), torch.from_numpy(xa).to(cuda)
+    kernel = distances.pairwise_l1 if metric == "l1" else distances.pairwise_dot
+    before = kernel.launches
+    a = ops.pairwise_dist(qt, xt, metric, impl="cuda")
+    b = ops.pairwise_dist(qt, xt, metric, impl="ref")
+    assert kernel.launches == before + 1
+    assert a.dtype == torch.float32 and a.shape == (q, n)
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "cosine", "l1"])
+def test_cuda_pairwise_dist_f16_inputs(cuda, metric):
+    """f16 inputs are cast to float32 first, as the plain version casts."""
+    qt = torch.from_numpy(RNG.normal(size=(16, 32)).astype(np.float16)).to(cuda)
+    xt = torch.from_numpy(RNG.normal(size=(64, 32)).astype(np.float16)).to(cuda)
+    a = ops.pairwise_dist(qt, xt, metric, impl="cuda")
+    b = ops.pairwise_dist(qt, xt, metric, impl="ref")
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 9, 16])
+@pytest.mark.parametrize("q,n", [(1, 1), (33, 257), (100, 1000)])
+def test_cuda_hamming_dist_is_exact(cuda, w, q, n):
+    qa = RNG.integers(0, 2**32, (q, w), dtype=np.uint32)
+    xa = RNG.integers(0, 2**32, (n, w), dtype=np.uint32)
+    xa[0] = qa[0]
+    qt = torch.from_numpy(qa.view(np.int32)).to(cuda)
+    xt = torch.from_numpy(xa.view(np.int32)).to(cuda)
+    before = distances.hamming.launches
+    a = ops.hamming_dist(qt, xt, impl="cuda")
+    b = ops.hamming_dist(qt, xt, impl="ref")
+    assert distances.hamming.launches == before + 1
+    assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert int(a[0, 0]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,k", [(3, 8), (5, 31), (2, 32), (4, 40), (1, 64),
+                                 (20, 21), (7, 1), (20, 4), (3, 16)])
+@pytest.mark.parametrize("n,d", [(1, 37), (130, 48), (1000, 254)])
+def test_cuda_simhash_matches_plain(cuda, L, k, n, d):
+    """Bits are equal except where the float64 projection lies within
+    1e-5 * sum |x_i r_i| of 0 (float32 sums in another order)."""
+    x = torch.from_numpy(RNG.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    x[0] = 0.0                        # every projection 0.0: all bits 0
+    r = torch.from_numpy(RNG.normal(size=(d, L * k)).astype(np.float32)).to(cuda)
+    before = simhash.simhash.launches
+    a = ops.simhash_fingerprint(x, r, L, k, impl="cuda")
+    b = ops.simhash_fingerprint(x, r, L, k, impl="ref")
+    assert simhash.simhash.launches == before + 1
+    assert a.dtype == torch.int64 and a.shape == (n, L, (k + 31) // 32)
+    assert not bool(a[0].any())
+    simhash_flips(a, b, x, ops.pad_projection(r, L, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,d", [("l2", 32), ("cosine", 254),
+                                      ("l1", 54)])
+def test_cuda_calibrate_runs_the_distance_kernel(cuda, metric, d):
+    from repro_torch.core import calibrate
+    kernel = distances.pairwise_l1 if metric == "l1" else distances.pairwise_dot
+    before = kernel.launches
+    cm = calibrate(d, metric, n_probe=1024)
+    assert kernel.launches == before + 6      # one warm-up and 5 timed
+    assert cm.alpha == 1.0 and np.isfinite(cm.beta) and cm.beta >= 1e-3

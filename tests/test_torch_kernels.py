@@ -238,9 +238,9 @@ def test_l1_linear_scan_odd_shapes_match_repro(jimpl, q, n, d):
 
 
 @pytest.mark.parametrize("jimpl", JAX_IMPLS)
-@pytest.mark.parametrize("w", [1, 2, 3, 8])
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 9, 16])
 def test_hamming_linear_scan_words_and_ties_match_repro(jimpl, w):
-    """W = 1..8 packed words, an all-zero code, and a threshold equal to
+    """W = 1..16 packed words, an all-zero code, and a threshold equal to
     an attained distance (equality reports)."""
     qa = RNG.integers(0, 2**32, (7, w), dtype=np.uint32)
     xa = RNG.integers(0, 2**32, (300, w), dtype=np.uint32)

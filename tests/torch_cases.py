@@ -43,3 +43,13 @@ def hll_regs(q, L, m, kind, rng):
         return r
     lo = 29 - int(np.log2(m))
     return rng.integers(lo, lo + 2, (q, L, m)).astype(np.uint8)
+
+
+def simhash_flips(a, b, x, r_padded):
+    """Count the bits where the packed fingerprints ``a`` and ``b``
+    ((N, L, words)) differ; raise unless every such bit's float64
+    projection lies near 0 (``ref.simhash_bits_differing``)."""
+    from repro_torch.kernels.ref import simhash_bits_differing
+    differ, far = simhash_bits_differing(a, b, x, r_padded)
+    assert far == 0, f"{far} bits differ away from 0"
+    return differ
