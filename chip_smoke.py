@@ -5,9 +5,11 @@
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. card, torch and CUDA versions; build the CUDA kernels from
-     ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
+     ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel)
+     and log each kernel's registers, static shared memory and spills;
   2. each kernel (K1-K9) against its plain PyTorch version on hand-made
-     edge cases;
+     edge cases (the dot-form tile of K1 and K6 on the GPU tests' cases,
+     ``tests/torch_cases.py`` ``DOT_CASES``);
   3. ``calibrate`` on the card for cosine (d = 254), l2 (d = 32) and l1
      (d = 54): beta/alpha beside the paper's presets, the distance
      kernel's launches inside each call (K6 or K7, a warm-up and 5);
@@ -37,7 +39,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      at its mixing radius, K8 on the 100 queries x the codes, and a
      churned streaming index;
   8. a ``{"kernels": [...]}`` JSON line with each kernel's launches, times,
-     plain and library times and bound; then the last line
+     plain and library times and bound (for K1 and K6 the larger of the
+     bytes and three TF32 passes on the tensor cores, both terms and the
+     CUDA-core term beside it, and the launch layout); then the last line
      ``{"ok": true, "device": {...}}``.
 
 Neighbor sets may differ only in rows whose float64 distance lies within
@@ -62,9 +66,10 @@ sys.path.insert(0, str(ROOT / "src"))
 THRESH_EPS = 1e-5
 TOL = dict(rtol=3e-4, atol=3e-4)      # distances, kernel vs plain
 HLL_RTOL = 1e-5
-# Published H100 peaks (NVIDIA data sheet): memory bytes/s, fp32 FLOP/s
-# on the CUDA cores.  SXM unless the card names itself PCIe.
-PEAKS = {"sxm": (3.35e12, 67e12), "pcie": (2.0e12, 51e12)}
+# Published H100 peaks (NVIDIA data sheet, dense): memory bytes/s, fp32
+# FLOP/s on the CUDA cores, TF32 FLOP/s on the tensor cores.  SXM unless
+# the card names itself PCIe.
+PEAKS = {"sxm": (3.35e12, 67e12, 495e12), "pcie": (2.0e12, 51e12, 378e12)}
 
 
 def log(*a):
@@ -109,7 +114,7 @@ class Smoke:
                          "hamming": distances.hamming,
                          "simhash": simhash.simhash}
         name = torch.cuda.get_device_name(0)
-        self.bw, self.fp32 = PEAKS["pcie" if "PCIe" in name else "sxm"]
+        self.bw, self.fp32, self.tf32 = PEAKS["pcie" if "PCIe" in name else "sxm"]
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8,
                                      device=self.dev)
 
@@ -150,6 +155,33 @@ class Smoke:
     def bound_ms(self, nbytes, flops):
         tb, tf = nbytes / self.bw * 1e3, flops / self.fp32 * 1e3
         return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+    def bound_dot_ms(self, nbytes, nq, n, d):
+        """The bound of the dot-form tile (K1, K6): the larger of the bytes
+        and its 3 x 2 Q N d TF32 tensor-core operations (three passes
+        make the fp32-exact product), with both terms and the CUDA-core
+        term (2 Q N d at the fp32 rate) for the record."""
+        tb = nbytes / self.bw * 1e3
+        tt = 3 * 2.0 * nq * n * d / self.tf32 * 1e3
+        return (max(tb, tt), "bytes" if tb >= tt else "operations",
+                dict(bound_bytes_ms=tb, bound_tf32_ms=tt,
+                     bound_cuda_cores_ms=2.0 * nq * n * d / self.fp32 * 1e3))
+
+    def dot_plan(self, q, x):
+        """The launch layout the dot-form tile takes for (q, x)."""
+        import ctypes
+        from repro_torch.kernels import _build
+        fn = _build.load("fused_scan").dot_tile_plan
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 11)()
+        err = fn(q.data_ptr(), x.data_ptr(), q.shape[0], x.shape[0],
+                 q.shape[1], out)
+        assert err == 0, f"dot_tile_plan: cudaError {err}"
+        return dict(zip(("copy_floats", "n_fragments", "warps", "group",
+                         "groups", "tiles", "panel", "stages", "smem_bytes",
+                         "blocks_per_sm", "blocks_per_group"), out))
 
     # -- comparisons ----------------------------------------------------
     def masks_agree(self, mk, mp, dist_plain, thresh, what):
@@ -223,11 +255,46 @@ def phase_build(s: Smoke):
     log(f"[build] nvcc wall {time.perf_counter() - t0:.1f} s, per source "
         + ", ".join(f"{k} {sec:.1f} s" for k, (sec, _) in built.items()))
     for name, (_, text) in built.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for kernel, regs, smem, spills in ptxas_table(text):
+            log(f"[build] {name} {kernel}: {regs} registers, {smem} B static "
+                f"shared memory, {spills} B spilled (stores/loads)")
     for name in SOURCES:
         _build.load(name)
+
+
+def demangled_kernel(mangled):
+    """``name<template args>`` of a mangled kernel: the identifier ending in
+    ``_kernel`` whose length prefix fits (Itanium ABI), and the integer
+    template arguments."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):
+            ident = mangled[m.end():m.end() + int(mangled[i:m.end()])]
+            if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+                args = re.findall(r"L[ib](\d+)E", mangled)
+                return ident + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_table(text):
+    """(kernel, registers, static shared bytes, spill stores/loads) per
+    entry function of nvcc's -Xptxas -v output."""
+    import re
+    rows, name, spills = [], None, "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = demangled_kernel(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)}"
+            continue
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), int(m.group(2) or 0), spills))
+            name, spills = None, "?"
+    return rows
 
 
 def phase_edge_cases(s: Smoke):
@@ -248,15 +315,7 @@ def phase_edge_cases(s: Smoke):
         return (torch.from_numpy(rng.normal(size=(q, d)).astype(np.float32)).to(dev),
                 torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev))
 
-    for metric in ("l2", "cosine"):
-        for q, n, d in ((8, 100, 37), (33, 257, 37), (65, 1000, 254),
-                        (1, 129, 1)):
-            qa, xa = pair(metric, q, n, d)
-            a = ops.fused_linear_scan(qa, xa, radii[metric], metric, impl="cuda")
-            b = ops.fused_linear_scan(qa, xa, radii[metric], metric, impl="ref")
-            assert torch.equal(a[0], b[0].contiguous())
-            assert torch.equal(a[2], b[2]), (metric, q, n)
-            torch.testing.assert_close(a[1], b[1], **TOL)
+    dot_flips = dot_edge_cases(s, rng)
     sent = 40
     hand = torch.tensor(np.sort(np.array([
         [0, 0, 0, 1, 2, 2, 5, sent], [3, 7, 7, 9, sent, sent, sent, sent],
@@ -359,6 +418,11 @@ def phase_edge_cases(s: Smoke):
         flips += s.simhash_flips(a, b, xa, ops.pad_projection(ra, L, k),
                                  f"K9 n={n} d={d} L={L} k={k}")
     torch.cuda.synchronize()
+    log(f"[edge] K1 / K6 (the dot-form tile, l2 and cosine: Q = 1-129, N = 1 "
+        f"and ragged tiles, d = 1, 3, 32, 37, 54, 254, 256, x[1:] and 4-byte "
+        f"offset views, zero rows, rows within 1e-4 of the threshold; "
+        f"{dot_flips} masks differ from the plain version, all within "
+        f"{THRESH_EPS:g} of the threshold)")
     log("[edge] K1 (l2, cosine), K2 (l2, l1, cosine, hamming), K3, K4 (d = "
         "1, 37, 54), K5 (W = 1, 2, 3, 8, 9, 16; ties; zero codes), K6 / K7 "
         "(Q or N = 1, d = 37 and 254, zero rows, f16), K8 (W = 1, 2, 3, 8, "
@@ -366,6 +430,49 @@ def phase_edge_cases(s: Smoke):
         "plain versions on "
         f"the hand-made cases; K9 bits within {ref.SIMHASH_EPS:g} of 0 that "
         f"differ: {flips}")
+
+
+def dot_edge_cases(s, rng):
+    """K1 through ``ops.fused_linear_scan`` and K6 (``pairwise_dot``) in
+    l2 and cosine on the GPU tests' cases (``tests/torch_cases.py``
+    DOT_CASES: zero rows, rows within 1e-4 of the threshold, corpus
+    views): one launch each, exact ids, distances within TOL, and report
+    masks that differ from the plain version's, or from the float64
+    distance's, only within THRESH_EPS * max(1, |t|) of the threshold t.
+    Returns the number of masks that differ."""
+    np, torch = s.np, s.torch
+    from repro_torch.kernels import distances, fused_scan, ops, ref
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import (DOT_CASES, dist64, dot_inputs,
+                             masks_outside_band_agree, on_device, unit_rows_np)
+    flips = 0
+    for q, n, d, view in DOT_CASES:
+        for metric in ("l2", "cosine"):
+            qa, xa, t = dot_inputs(metric, q, n, d, rng)
+            r = t if metric == "cosine" else float(np.sqrt(t))
+            qt, xt = torch.from_numpy(qa).to(s.dev), on_device(xa, view, s.dev)
+            xu = (on_device(unit_rows_np(xa), view, s.dev)
+                  if metric == "cosine" else None)
+            what = f"K1 {metric} Q={q} N={n} d={d} {view}"
+            before = fused_scan.linear_scan_dot.launches
+            a = ops.fused_linear_scan(qt, xt, r, metric, impl="cuda", x_unit=xu)
+            assert fused_scan.linear_scan_dot.launches == before + 1, what
+            b = ops.fused_linear_scan(qt, xt, r, metric, impl="ref")
+            assert torch.equal(a[0], b[0].contiguous()), what
+            torch.testing.assert_close(a[1], b[1], **TOL)
+            mk, mp = a[2].cpu().numpy(), b[2].cpu().numpy()
+            masks_outside_band_agree(mk, mp, dist64(metric, qa, xa), t)
+            flips += int((mk != mp).sum())
+            before = distances.pairwise_dot.launches
+            if metric == "cosine":
+                c = distances.pairwise_dot(ref.unit_rows(qt).contiguous(), xu,
+                                           None, None, mode="cosine")
+            else:
+                c = ops.pairwise_dist(qt, xt, "l2", impl="cuda")
+            assert distances.pairwise_dot.launches == before + 1, what
+            torch.testing.assert_close(
+                c, ops.pairwise_dist(qt, xt, metric, impl="ref"), **TOL)
+    return flips
 
 
 CALIBRATE = (("cosine", 254, "webspam"), ("l2", 32, "corel"),
@@ -598,7 +705,7 @@ def kernel_times(s: Smoke, idx, q_np, r, metric):
     assert torch.equal(a[2], b[0].contiguous())
     torch.testing.assert_close(a[0], b[1], **TOL)
     s.masks_agree(a[1], b[2], b[1], thresh, "linear_scan_dot")
-    bound, by = s.bound_ms(in_bytes + 9 * 32 * n, 2.0 * 32 * n * d)
+    bound, by, terms = s.bound_dot_ms(in_bytes + 9 * 32 * n, 32, n, d)
     x_unit = xk if metric == "cosine" else None    # as the index keeps it
     ops_ms = s.cuda_ms(lambda: ops.fused_linear_scan(qc, x, r, metric,
                                                      impl="cuda",
@@ -606,7 +713,8 @@ def kernel_times(s: Smoke, idx, q_np, r, metric):
     out["linear_scan_dot"] = dict(
         ms=s.cuda_ms(kern), plain_ms=s.cuda_ms(plain), library_ms=s.cuda_ms(lib),
         bound_ms=bound, bound_by=by, max_abs_err=err,
-        shape=f"Q=32 N={n} d={d} {metric}", ops_ms=ops_ms)
+        shape=f"Q=32 N={n} d={d} {metric}", ops_ms=ops_ms,
+        plan=s.dot_plan(qk, xk), **terms)
 
     # K2: LSH verification on the first chunk's real candidates
     qb = idx.bucket_ids(qc)
@@ -698,14 +806,13 @@ def pairwise_times(s: Smoke, q, x, metric):
                                               mode="cosine")
         lib_in = torch.ones((1, 1), device=s.dev)
         lib = lambda: torch.addmm(lib_in, qk, xk.T, alpha=-1)  # noqa: E731
-        in_bytes, nops = 4 * (qk.numel() + xk.numel()), 2 * nq * n * d
+        in_bytes = 4 * (qk.numel() + xk.numel())
     elif metric == "l2":
         qn, xn = (q * q).sum(-1), (x * x).sum(-1)
         kern = lambda: distances.pairwise_dot(q, x, qn, xn, mode="l2")  # noqa: E731
         lib_in = qn[:, None] + xn[None, :]
         lib = lambda: torch.addmm(lib_in, q, x.T, alpha=-2)  # noqa: E731
         in_bytes = 4 * (q.numel() + x.numel() + nq + n)
-        nops = 2 * nq * n * d
     else:                           # a subtract, an absolute value, an add
         kern = lambda: distances.pairwise_l1(q, x)  # noqa: E731
         lib = lambda: torch.cdist(q, x, p=1.0)  # noqa: E731
@@ -715,12 +822,17 @@ def pairwise_times(s: Smoke, q, x, metric):
     a, b, c = kern(), through_ops(), plain()
     torch.testing.assert_close(a, c, **TOL)
     torch.testing.assert_close(b, c, **TOL)
-    bound, by = s.bound_ms(in_bytes + 4 * nq * n, nops)
+    extra = {}
+    if metric == "l1":
+        bound, by = s.bound_ms(in_bytes + 4 * nq * n, nops)
+    else:
+        bound, by, extra = s.bound_dot_ms(in_bytes + 4 * nq * n, nq, n, d)
+        extra["plan"] = s.dot_plan(q, x)
     out = dict(ms=s.cuda_ms(kern), ops_ms=s.cuda_ms(through_ops),
                plain_ms=s.cuda_ms(plain), library_ms=s.cuda_ms(lib),
                bound_ms=bound, bound_by=by,
                max_abs_err=float((b - c).abs().max()),
-               shape=f"Q={nq} N={n} d={d} {metric}")
+               shape=f"Q={nq} N={n} d={d} {metric}", **extra)
     del a, b, c
     return out
 
@@ -984,6 +1096,11 @@ def log_kernel_times(tag, kt):
         if "ops_ms" in v:
             log(f"[{tag}] {k} through ops (the wrapper's own preparation "
                 f"and the kernel): {v['ops_ms']:.4f} ms")
+        if "bound_tf32_ms" in v:
+            log(f"[{tag}] {k} bound terms: bytes {v['bound_bytes_ms']:.4f} ms, "
+                f"TF32 x3 {v['bound_tf32_ms']:.4f} ms (the same products on "
+                f"the CUDA cores {v['bound_cuda_cores_ms']:.4f} ms); launch "
+                f"layout {v['plan']}")
 
 
 def main() -> int:
@@ -1084,7 +1201,9 @@ def main() -> int:
     r2 = radii2[2]
     idx2, by_path["corel"], _ = drive(s, x2, q2, metric2, corel_fam(r2), kw2,
                                       r2, "corel")
-    log_kernel_times("corel", kernel_times(s, idx2, q2, r2, metric2))
+    corel_kt = kernel_times(s, idx2, q2, r2, metric2)
+    log_kernel_times("corel", corel_kt)
+    timings["linear_scan_dot"]["corel"] = corel_kt["linear_scan_dot"]
     corel_l2 = pairwise_times(s, torch.from_numpy(q2).to(s.dev), idx2.x,
                               metric2)
     log_kernel_times("corel", {"pairwise_dot": corel_l2})

@@ -15,8 +15,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
                                  hll_merge, ops, simhash)
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
-from torch_cases import (RADII, TOL, as_tensor, handcrafted_ids,  # noqa: E402
-                         hll_regs, pair, simhash_flips)
+from torch_cases import (DOT_CASES, RADII, TOL, as_tensor,  # noqa: E402
+                         dist64, dot_inputs, handcrafted_ids, hll_regs,
+                         masks_outside_band_agree, on_device, pair,
+                         simhash_flips, unit_rows_np)
 
 RNG = np.random.default_rng(0)
 
@@ -32,24 +34,45 @@ LINEAR_KERNEL = {"l2": "linear_scan_dot", "cosine": "linear_scan_dot",
                  "l1": "linear_scan_l1", "hamming": "linear_scan_hamming"}
 
 
+# l1 and Hamming at d = 37 / W = 3; the dot form (K1) on DOT_CASES too:
+# Q across n-fragments and query groups, N = 1, d through each copy width,
+# views of the corpus, zero rows and rows within 1e-4 of the threshold.
+LINEAR_CASES = ([(m, q, n, 37, None) for m in ("l2", "cosine", "l1", "hamming")
+                 for q, n in ((8, 100), (33, 257), (65, 1000))]
+                + [(m, *c) for m in ("l2", "cosine") for c in DOT_CASES])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("metric", ["l2", "cosine", "l1", "hamming"])
-@pytest.mark.parametrize("q,n", [(8, 100), (33, 257), (65, 1000)])
-def test_cuda_linear_scan_matches_plain(cuda, metric, q, n):
-    qa, xa = pair(metric, q, n, RNG)
-    qt, xt = as_tensor(qa).to(cuda), as_tensor(xa).to(cuda)
+@pytest.mark.parametrize("metric,q,n,d,view", LINEAR_CASES)
+def test_cuda_linear_scan_matches_plain(cuda, metric, q, n, d, view):
     kernel = getattr(fused_scan, LINEAR_KERNEL[metric])
+    x_unit = None
+    if metric in ("l1", "hamming"):
+        qa, xa = pair(metric, q, n, RNG)
+        qt, xt = as_tensor(qa).to(cuda), as_tensor(xa).to(cuda)
+        r = RADII[metric]
+    else:
+        qa, xa, t = dot_inputs(metric, q, n, d, RNG)
+        qt, xt = torch.from_numpy(qa).to(cuda), on_device(xa, view, cuda)
+        r = t if metric == "cosine" else float(np.sqrt(t))
+        if metric == "cosine":
+            x_unit = on_device(unit_rows_np(xa), view, cuda)
     before = kernel.launches
-    a = ops.fused_linear_scan(qt, xt, RADII[metric], metric, impl="cuda")
-    b = ops.fused_linear_scan(qt, xt, RADII[metric], metric, impl="ref")
+    a = ops.fused_linear_scan(qt, xt, r, metric, impl="cuda", x_unit=x_unit)
+    b = ops.fused_linear_scan(qt, xt, r, metric, impl="ref")
     assert kernel.launches == before + 1
     np.testing.assert_array_equal(a[0].cpu().numpy(), b[0].cpu().numpy())
-    np.testing.assert_array_equal(a[2].cpu().numpy(), b[2].cpu().numpy())
     np.testing.assert_allclose(a[1].cpu().numpy(), b[1].cpu().numpy(), **TOL)
-    if metric == "cosine":      # unit rows made once by the caller
-        c = ops.fused_linear_scan(qt, xt, RADII[metric], metric, impl="cuda",
+    if metric in ("l1", "hamming"):
+        np.testing.assert_array_equal(a[2].cpu().numpy(), b[2].cpu().numpy())
+        return
+    masks_outside_band_agree(a[2].cpu().numpy(), b[2].cpu().numpy(),
+                             dist64(metric, qa, xa), t)
+    if metric == "cosine" and view is None:   # unit rows made once by the caller
+        c = ops.fused_linear_scan(qt, xt, r, metric, impl="cuda")
+        e = ops.fused_linear_scan(qt, xt, r, metric, impl="cuda",
                                   x_unit=unit_rows(xt).contiguous())
-        assert all(torch.equal(u, v) for u, v in zip(a, c))
+        assert all(torch.equal(u, v) for u, v in zip(c, e))
 
 
 @pytest.mark.gpu
@@ -151,21 +174,36 @@ def test_cuda_churned_dynamic_index_matches_plain(cuda, metric):
         assert a.neighbor_sets() == b.neighbor_sets(), force
 
 
+# Every metric on six shapes; the dot form (K6) on DOT_CASES too.
+PAIRWISE_CASES = ([(m, q, n, d, None) for m in ("l2", "cosine", "l1")
+                   for q, n, d in ((1, 129, 37), (8, 100, 37), (33, 257, 254),
+                                   (100, 1000, 54), (65, 1, 32), (7, 300, 1))]
+                  + [(m, *c) for m in ("l2", "cosine") for c in DOT_CASES])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("metric", ["l2", "cosine", "l1"])
-@pytest.mark.parametrize("q,n,d", [(1, 129, 37), (8, 100, 37), (33, 257, 254),
-                                   (100, 1000, 54), (65, 1, 32), (7, 300, 1)])
-def test_cuda_pairwise_dist_matches_plain(cuda, metric, q, n, d):
+@pytest.mark.parametrize("metric,q,n,d,view", PAIRWISE_CASES)
+def test_cuda_pairwise_dist_matches_plain(cuda, metric, q, n, d, view):
     """Odd Q and N (partial tiles), Q or N = 1, d not a multiple of the
-    d-chunk, an all-zero row on each side (cosine's 1e-12 norm clamp)."""
-    qa = RNG.normal(size=(q, d)).astype(np.float32)
-    xa = RNG.normal(size=(n, d)).astype(np.float32)
-    qa[0] = 0.0
-    xa[-1] = 0.0
-    qt, xt = torch.from_numpy(qa).to(cuda), torch.from_numpy(xa).to(cuda)
+    d-chunk, an all-zero row on each side (cosine's 1e-12 norm clamp);
+    for the dot form also views of the corpus (the kernel on the unit
+    rows for cosine, which ``ops`` would copy)."""
+    if view is None:
+        qa = RNG.normal(size=(q, d)).astype(np.float32)
+        xa = RNG.normal(size=(n, d)).astype(np.float32)
+        qa[0] = 0.0
+        xa[-1] = 0.0
+    else:
+        qa, xa, _ = dot_inputs(metric, q, n, d, RNG)
+    qt, xt = torch.from_numpy(qa).to(cuda), on_device(xa, view, cuda)
     kernel = distances.pairwise_l1 if metric == "l1" else distances.pairwise_dot
     before = kernel.launches
-    a = ops.pairwise_dist(qt, xt, metric, impl="cuda")
+    if metric == "cosine" and view is not None:
+        a = distances.pairwise_dot(unit_rows(qt).contiguous(),
+                                   on_device(unit_rows_np(xa), view, cuda),
+                                   None, None, mode="cosine")
+    else:
+        a = ops.pairwise_dist(qt, xt, metric, impl="cuda")
     b = ops.pairwise_dist(qt, xt, metric, impl="ref")
     assert kernel.launches == before + 1
     assert a.dtype == torch.float32 and a.shape == (q, n)

@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Time builds of ``fused_scan.cu`` against each other in one process.
+
+    python3 tools/dot_tile_ab.py --parent OLD/fused_scan.cu   # on a CUDA machine
+
+Builds this tree's ``src/repro_torch/kernels/csrc/fused_scan.cu``, the
+``--parent`` source (for example from ``git archive`` of the parent
+commit) and variants of this tree's source that take one piece of the
+dot-form tile's work out (``--variants``): ``no_mma`` (the three
+``mma.sync`` passes replaced by a cheap use of the split fragments, so
+the loads and splits stay), ``one_pass`` (the hi.hi' pass alone) and
+``no_epilogue`` (the tile's stores skipped).  Each build is swapped into
+the wrappers in turn, alternating which runs first, and the script
+prints the median and range of each kernel at the main path's shapes
+(K1, K4, K6, K7, random data of the Webspam and CoverType widths): ms
+per launch from CUDA events, the L2 flushed before each launch, as
+``chip_smoke.py`` times them.  The variants compute wrong distances and
+only their times are read.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+SOURCE = ROOT / "src/repro_torch/kernels/csrc/fused_scan.cu"
+OUT = ROOT / "build" / "dot_tile_ab"
+
+_PASSES = """#pragma unroll
+      for (int f = 0; f < NF; ++f) mma_tf32(acc[f], al, bh[f][0], bh[f][1]);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) mma_tf32(acc[f], ah, bl[f][0], bl[f][1]);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) mma_tf32(acc[f], ah, bh[f][0], bh[f][1]);"""
+VARIANTS = {
+    "no_mma": (_PASSES, """#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        acc[f][0] += __uint_as_float(ah[0] ^ al[1] ^ bh[f][0] ^ bl[f][1]);"""),
+    "one_pass": (_PASSES, """#pragma unroll
+      for (int f = 0; f < NF; ++f) mma_tf32(acc[f], ah, bh[f][0], bh[f][1]);"""),
+    "no_epilogue": ("    if (c != chunks - 1) continue;\n",
+                    "    if (c != chunks - 1 || a.Q > 0) continue;\n"),
+}
+
+
+def build(name: str, text: str) -> tuple[str, ctypes.CDLL]:
+    OUT.mkdir(parents=True, exist_ok=True)
+    src, lib = OUT / f"{name}.cu", OUT / f"{name}.so"
+    src.write_text(text)
+    from repro_torch.kernels._build import nvcc
+    r = subprocess.run([nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                        "-o", str(lib), str(src)], capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc failed for {name}:\n{r.stderr}")
+    return name, ctypes.CDLL(str(lib))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", type=Path, help="another fused_scan.cu")
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--rounds", type=int, default=10)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("dot_tile_ab: needs a CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build, distances, fused_scan, ref
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    text = SOURCE.read_text()
+    sources = {"change": text}
+    if args.parent:
+        sources["parent"] = args.parent.read_text()
+    if args.variants:
+        for name, (old, new) in VARIANTS.items():
+            assert text.count(old) == 1, name
+            sources[name] = text.replace(old, new)
+    with ThreadPoolExecutor(len(sources)) as ex:
+        libs = dict(ex.map(lambda kv: build(*kv), sources.items()))
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def cuda_ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    unit = lambda *shape: ref.unit_rows(  # noqa: E731
+        torch.randn(*shape, device=dev, generator=g)).contiguous()
+    qw, qw100, xw = unit(32, 254), unit(100, 254), unit(349900, 254)
+    qp, xp = unit(64, 254), unit(4096, 254)
+    e32 = qw.new_empty(32)
+    ex = xw.new_empty(xw.shape[0])
+    qc = torch.randn(32, 54, device=dev, generator=g)
+    qc100 = torch.randn(100, 54, device=dev, generator=g)
+    xc = torch.randn(580912, 54, device=dev, generator=g)
+    cases = {
+        "K1 Q=32 N=349900 d=254 cosine": lambda: fused_scan.linear_scan_dot(
+            0.5, qw, xw, e32, ex, mode="cosine"),
+        "K6 Q=100 N=349900 d=254 cosine": lambda: distances.pairwise_dot(
+            qw100, xw, None, None, mode="cosine"),
+        "K6 Q=64 N=4096 d=254 cosine": lambda: distances.pairwise_dot(
+            qp, xp, None, None, mode="cosine"),
+        "K4 Q=32 N=580912 d=54": lambda: fused_scan.linear_scan_l1(40.0, qc, xc),
+        "K7 Q=100 N=580912 d=54": lambda: distances.pairwise_l1(qc100, xc),
+    }
+    res = {(n, c): [] for n in libs for c in cases}
+    names = list(libs)
+    for rnd in range(args.rounds):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            _build._libs["fused_scan"] = libs[name]
+            for c, fn in cases.items():
+                res[(name, c)].append(cuda_ms(fn))
+    for c in cases:
+        for name in names:
+            t = res[(name, c)]
+            line = (f"{c} {name}: median {statistics.median(t):.4f} ms, range "
+                    f"{min(t):.4f}-{max(t):.4f}")
+            if name == "change" and "parent" in libs:
+                p = res[("parent", c)]
+                line += (f"; faster than parent in "
+                         f"{sum(a < b for a, b in zip(t, p))}/{len(t)} rounds")
+            print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
