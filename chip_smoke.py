@@ -8,8 +8,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel)
      and log each kernel's registers, static shared memory and spills;
   2. each kernel (K1-K9) against its plain PyTorch version on hand-made
-     edge cases (the dot-form tile of K1 and K6 on the GPU tests' cases,
-     ``tests/torch_cases.py`` ``DOT_CASES``);
+     edge cases (the dot-form tile of K1 and K6, the fused K2 and the L1
+     tile of K4 and K7 on the GPU tests' cases, ``tests/torch_cases.py``
+     ``DOT_CASES``, ``LSH_SHAPES`` x ``LSH_DIMS`` and ``L1_CASES``);
   3. ``calibrate`` on the card for cosine (d = 254), l2 (d = 32) and l1
      (d = 54): beta/alpha beside the paper's presets, the distance
      kernel's launches inside each call (K6 or K7, a warm-up and 5);
@@ -41,8 +42,15 @@ Phases (each raises on failure, so any failure exits non-zero):
   8. a ``{"kernels": [...]}`` JSON line with each kernel's launches, times,
      plain and library times and bound (for K1 and K6 the larger of the
      bytes and three TF32 passes on the tensor cores, both terms and the
-     CUDA-core term beside it, and the launch layout); then the last line
-     ``{"ok": true, "device": {...}}``.
+     CUDA-core term beside it, and the launch layout; for K4 and K7 two
+     FP32 instructions a term; K2 from the unsorted candidates, its
+     library time ``torch.sort`` of them alone; for K2, K4 and K7 also the
+     device time of a CUDA graph replay, ``device_ms``); then the last
+     line ``{"ok": true, "device": {...}}``.
+
+Each hybrid query's ``torch.profiler`` trace also logs its sort kernels
+per batch: the LSH route sorts its candidates inside K2, so none is
+``lsh_search``'s.
 
 Neighbor sets may differ only in rows whose float64 distance lies within
 1e-5 * max(1, |t|) of the threshold t: the kernel and the plain version
@@ -62,6 +70,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))
 
 THRESH_EPS = 1e-5
 TOL = dict(rtol=3e-4, atol=3e-4)      # distances, kernel vs plain
@@ -137,24 +146,27 @@ class Smoke:
     # -- timing -------------------------------------------------------
     def cuda_ms(self, fn, iters=10):
         """Median device ms of ``fn``, L2 flushed before each launch."""
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            self.flush_buf.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        return statistics.median(times)
+        from dot_tile_ab import cuda_ms
+        return cuda_ms(fn, self.flush_buf, iters)
 
-    def bound_ms(self, nbytes, flops):
-        tb, tf = nbytes / self.bw * 1e3, flops / self.fp32 * 1e3
+    def graph_ms(self, fn, iters=10):
+        """Median device ms of ``fn`` replayed from a CUDA graph, L2
+        flushed before each replay (``tools/dot_tile_ab.py``)."""
+        from dot_tile_ab import graph_ms
+        return graph_ms(fn, self.flush_buf, iters)
+
+    def bound_ms(self, nbytes, flops, rate=None):
+        """The larger of ``nbytes`` at the memory rate and ``flops`` at
+        ``rate`` (default: the fp32 FLOP/s of the CUDA cores)."""
+        tb = nbytes / self.bw * 1e3
+        tf = flops / (rate or self.fp32) * 1e3
         return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+    def bound_l1_ms(self, nbytes, nq, n, d):
+        """The L1 tile's bound: acc += |q - x| is two FP32 instructions
+        (FADD, then FADD with |.|) a term, issued at half the FMA-counted
+        fp32 FLOP/s: 2 Q N d instructions at fp32 / 2 a second."""
+        return self.bound_ms(nbytes, 2.0 * nq * n * d, rate=self.fp32 / 2)
 
     def bound_dot_ms(self, nbytes, nq, n, d):
         """The bound of the dot-form tile (K1, K6): the larger of the bytes
@@ -166,22 +178,6 @@ class Smoke:
         return (max(tb, tt), "bytes" if tb >= tt else "operations",
                 dict(bound_bytes_ms=tb, bound_tf32_ms=tt,
                      bound_cuda_cores_ms=2.0 * nq * n * d / self.fp32 * 1e3))
-
-    def dot_plan(self, q, x):
-        """The launch layout the dot-form tile takes for (q, x)."""
-        import ctypes
-        from repro_torch.kernels import _build
-        fn = _build.load("fused_scan").dot_tile_plan
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        out = (ctypes.c_int * 11)()
-        err = fn(q.data_ptr(), x.data_ptr(), q.shape[0], x.shape[0],
-                 q.shape[1], out)
-        assert err == 0, f"dot_tile_plan: cudaError {err}"
-        return dict(zip(("copy_floats", "n_fragments", "warps", "group",
-                         "groups", "tiles", "panel", "stages", "smem_bytes",
-                         "blocks_per_sm", "blocks_per_group"), out))
 
     # -- comparisons ----------------------------------------------------
     def masks_agree(self, mk, mp, dist_plain, thresh, what):
@@ -316,6 +312,8 @@ def phase_edge_cases(s: Smoke):
                 torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev))
 
     dot_flips = dot_edge_cases(s, rng)
+    lsh_flips = lsh_edge_cases(s, rng)
+    l1_flips = l1_edge_cases(s, rng)
     sent = 40
     hand = torch.tensor(np.sort(np.array([
         [0, 0, 0, 1, 2, 2, 5, sent], [3, 7, 7, 9, sent, sent, sent, sent],
@@ -346,16 +344,6 @@ def phase_edge_cases(s: Smoke):
         a = ops.hll_merge_estimate(regs, impl="cuda")
         b = ops.hll_merge_estimate(regs, impl="ref")
         torch.testing.assert_close(a, b, rtol=HLL_RTOL, atol=0)
-    # K4: odd Q and N, d = 37 and 54 (not multiples of the d-chunk)
-    for q, n, d in ((1, 1, 54), (33, 257, 54), (33, 257, 37), (8, 100, 37),
-                    (65, 1000, 54), (1, 129, 1)):
-        qa, xa = pair("l1", q, n, d)
-        r = float(torch.median((qa[:, None] - xa[None]).abs().sum(-1)))
-        a = ops.fused_linear_scan(qa, xa, r, "l1", impl="cuda")
-        b = ops.fused_linear_scan(qa, xa, r, "l1", impl="ref")
-        assert torch.equal(a[0], b[0].contiguous())
-        torch.testing.assert_close(a[1], b[1], **TOL)
-        s.masks_agree(a[2], b[2], b[1], r, f"K4 {q}x{n} d={d}")
     # K5: W = 1, 2, 3, 8, 9, 16 words, all-zero codes, odd Q and N, and a
     # threshold equal to an attained distance (equality must report)
     for q, n, w in ((1, 1, 2), (33, 257, 1), (33, 257, 2), (33, 257, 3),
@@ -423,8 +411,17 @@ def phase_edge_cases(s: Smoke):
         f"offset views, zero rows, rows within 1e-4 of the threshold; "
         f"{dot_flips} masks differ from the plain version, all within "
         f"{THRESH_EPS:g} of the threshold)")
-    log("[edge] K1 (l2, cosine), K2 (l2, l1, cosine, hamming), K3, K4 (d = "
-        "1, 37, 54), K5 (W = 1, 2, 3, 8, 9, 16; ties; zero codes), K6 / K7 "
+    log(f"[edge] K2 fused (sort, dedup, gather, verify from unsorted ids: "
+        f"ids at split boundaries, one split, one repeated id, C = 1-60,001, "
+        f"n = 1-80,000, d = 1-254, W = 1-129, cosine on x and on unit rows): "
+        f"ids equal torch.sort's; "
+        f"{lsh_flips} masks differ, all within {THRESH_EPS:g} of the "
+        f"threshold")
+    log(f"[edge] K4 / K7 (the L1 tile: Q = 1-129, N = 1-4,097, d = 1, 37, 54, "
+        f"64, 65, 400, x[1:] and 4-byte offset views): {l1_flips} masks "
+        f"differ, all within {THRESH_EPS:g} of the threshold")
+    log("[edge] K1 (l2, cosine), K2 (sorted ids, l2, l1, cosine, hamming), "
+        "K3, K5 (W = 1, 2, 3, 8, 9, 16; ties; zero codes), K6 / K7 "
         "(Q or N = 1, d = 37 and 254, zero rows, f16), K8 (W = 1, 2, 3, 8, "
         "9, 16) and K9 (k = 1, 4, 8, 16, 21, 31, 32, 40, 64) match their "
         "plain versions on "
@@ -472,6 +469,74 @@ def dot_edge_cases(s, rng):
             assert distances.pairwise_dot.launches == before + 1, what
             torch.testing.assert_close(
                 c, ops.pairwise_dist(qt, xt, metric, impl="ref"), **TOL)
+    return flips
+
+
+def lsh_edge_cases(s, rng):
+    """The fused K2 through ``ops.fused_lsh_scan_unsorted`` on the GPU
+    tests' cases (``tests/torch_cases.py`` LSH_CASES): one launch each,
+    ids equal to ``torch.sort``'s, masks equal to the plain version's off
+    the THRESH_EPS band, distances within TOL under both masks.  Returns
+    the number of masks that differ."""
+    torch = s.torch
+    from repro_torch.kernels import fused_scan, ops, ref
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import (LSH_CASES, as_tensor, lsh_dist64, lsh_inputs,
+                             masks_outside_band_agree)
+    flips = 0
+    for metric, d, n, q, c, kind in LSH_CASES:
+        dtype = torch.int32 if metric == "hamming" else torch.float32
+        width = fused_scan.lsh_scan_plan(
+            torch.empty((n, d), dtype=dtype, device=s.dev), q, c)["width"]
+        qa, xa, ids, t, r = lsh_inputs(metric, d, n, q, c, kind, width, rng)
+        args = (as_tensor(xa).to(s.dev), torch.from_numpy(ids).to(s.dev),
+                as_tensor(qa).to(s.dev), r, metric)
+        what = f"K2 {metric} n={n} Q={q} C={c} d={d} {kind}"
+        b = ops.fused_lsh_scan_unsorted(*args, impl="ref")
+        d64 = lsh_dist64(metric, qa, xa, b[0].cpu().numpy())
+        # cosine on x (ops scales the rows) and on the unit rows the indexes keep
+        for x_unit in ([None, ref.unit_rows(args[0]).contiguous()]
+                       if metric == "cosine" else [None]):
+            before = fused_scan.lsh_scan.launches
+            a = ops.fused_lsh_scan_unsorted(*args, impl="cuda", x_unit=x_unit)
+            assert fused_scan.lsh_scan.launches == before + 1, what
+            assert torch.equal(a[0], b[0]), what
+            mk, mp = a[2].cpu().numpy(), b[2].cpu().numpy()
+            masks_outside_band_agree(mk, mp, d64, t)
+            flips += int((mk != mp).sum())
+            both = a[2] & b[2]
+            torch.testing.assert_close(a[1][both], b[1][both], **TOL)
+    return flips
+
+
+def l1_edge_cases(s, rng):
+    """K4 (``ops.fused_linear_scan``) and K7 (``ops.pairwise_dist``) on the
+    GPU tests' L1 cases (``tests/torch_cases.py`` L1_CASES): one launch
+    each, exact ids, distances within TOL, masks equal to the plain
+    version's off the THRESH_EPS band.  Returns the masks that differ."""
+    torch = s.torch
+    from repro_torch.kernels import distances, fused_scan, ops
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import (L1_CASES, dist64, l1_inputs,
+                             masks_outside_band_agree, on_device)
+    flips = 0
+    for q, n, d, view in L1_CASES:
+        qa, xa, t = l1_inputs(q, n, d, rng)
+        qt, xt = torch.from_numpy(qa).to(s.dev), on_device(xa, view, s.dev)
+        what = f"K4 Q={q} N={n} d={d} {view}"
+        before = fused_scan.linear_scan_l1.launches
+        a = ops.fused_linear_scan(qt, xt, t, "l1", impl="cuda")
+        assert fused_scan.linear_scan_l1.launches == before + 1, what
+        b = ops.fused_linear_scan(qt, xt, t, "l1", impl="ref")
+        assert torch.equal(a[0], b[0].contiguous()), what
+        torch.testing.assert_close(a[1], b[1], **TOL)
+        mk, mp = a[2].cpu().numpy(), b[2].cpu().numpy()
+        masks_outside_band_agree(mk, mp, dist64("l1", qa, xa), t)
+        flips += int((mk != mp).sum())
+        before = distances.pairwise_l1.launches
+        c = ops.pairwise_dist(qt, xt, "l1", impl="cuda")
+        assert distances.pairwise_l1.launches == before + 1, what
+        torch.testing.assert_close(c, b[1], **TOL)
     return flips
 
 
@@ -630,6 +695,12 @@ def profile_hybrid(s: Smoke, idx, q_np, r, tag, ms, reps=3):
             f"share not measured")
         return
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    sorts = [e for e in dev if "sort" in e.key.lower()]
+    log(f"[{tag} profile] sort kernels per query: "
+        f"{sum(e.count for e in sorts) / reps:g}"
+        + "".join(f"; {e.key[:48]} x{e.count / reps:g} "
+                  f"{e.self_device_time_total / reps / 1e3:.3f} ms"
+                  for e in sorts))
     log(f"[{tag} profile] device busy {busy:.3f} ms per query: "
         f"{busy / ms:.1%} of the untraced {ms:.2f} ms, idle share "
         f"{1 - busy / ms:.1%} (traced host clock {traced:.2f} ms); top "
@@ -676,6 +747,7 @@ def kernel_times(s: Smoke, idx, q_np, r, metric):
     shapes: one 32-query chunk for the scans, the whole batch for K3."""
     np, torch = s.np, s.torch
     from repro_torch.core.lsh.tables import gather_candidates, gather_registers
+    from repro_torch.core.search import dedupe_sorted
     from repro_torch.kernels import fused_scan, hll_merge, ops, ref
     x = idx.x
     n, d = x.shape
@@ -714,29 +786,40 @@ def kernel_times(s: Smoke, idx, q_np, r, metric):
         ms=s.cuda_ms(kern), plain_ms=s.cuda_ms(plain), library_ms=s.cuda_ms(lib),
         bound_ms=bound, bound_by=by, max_abs_err=err,
         shape=f"Q=32 N={n} d={d} {metric}", ops_ms=ops_ms,
-        plan=s.dot_plan(qk, xk), **terms)
+        plan=fused_scan.dot_tile_plan(qk, xk), **terms)
 
-    # K2: LSH verification on the first chunk's real candidates
+    # K2: the fused sort + verification on the first chunk's real
+    # candidates as the gather leaves them (unsorted); the library call is
+    # torch.sort of them alone, the plain version torch.sort + the plain
+    # verification
     qb = idx.bucket_ids(qc)
-    cands = gather_candidates(idx.tables, qb, idx.cap, n)
-    ids = torch.sort(cands, dim=-1).values.contiguous()
-    prev = torch.cat([torch.full((32, 1), -1, dtype=ids.dtype, device=s.dev),
-                      ids[:, :-1]], dim=-1).contiguous()
-    distinct = int(((ids != prev) & (ids < n)).sum())
-    kern = lambda: fused_scan.lsh_scan(thresh, x, qc, ids, prev,  # noqa: E731
-                                       metric=metric)
-    plain = lambda: ref.fused_lsh_scan(x, ids, prev, qc, thresh, metric)  # noqa: E731
-    a, b = kern(), plain()              # (dist, mask) / (ids, dist, mask)
-    s.masks_agree(a[1], b[2], b[1], thresh, "lsh_scan")
-    both = a[1] & b[2]
-    err = float((a[0][both] - b[1][both]).abs().max()) if bool(both.any()) else 0.0
-    c = ids.shape[1]
-    flops_per = 6 if metric == "cosine" else 3
-    bound, by = s.bound_ms(distinct * d * 4 + 2 * 4 * 32 * c + 4 * 32 * d
-                           + 5 * 32 * c, flops_per * distinct * d)
+    cands = gather_candidates(idx.tables, qb, idx.cap, n).contiguous()
+    c = cands.shape[1]
+    if metric == "cosine":              # the unit rows, as the index runs it
+        xk, qk, mk = ref.unit_rows(x).contiguous(), qc, "cosine_unit"
+    else:
+        xk, qk, mk = x, qc, metric
+    kern = lambda: fused_scan.lsh_scan(thresh, xk, qk, cands,  # noqa: E731
+                                       metric=mk)
+    plain = lambda: ops.fused_lsh_scan_unsorted(x, cands, qc, r,  # noqa: E731
+                                                metric, impl="ref")
+    a, b = kern(), plain()              # (ids, dist, mask) both
+    assert torch.equal(a[0], b[0]), "lsh_scan: ids differ from torch.sort's"
+    s.masks_agree(a[2], b[2], b[1], thresh, "lsh_scan")
+    both = a[2] & b[2]
+    err = float((a[1][both] - b[1][both]).abs().max()) if bool(both.any()) else 0.0
+    distinct = int(dedupe_sorted(b[0], n)[1].sum())
+    flops_per = 2 if metric == "cosine" else 3     # x.q on unit rows: one FMA
+    # ids in, the distinct rows gathered, the query rows, 9 B a slot out
+    bound, by = s.bound_ms(4 * 32 * c + distinct * d * 4 + 4 * 32 * d
+                           + 9 * 32 * c, flops_per * distinct * d)
+    lib = lambda: torch.sort(cands, dim=-1)  # noqa: E731
     out["lsh_scan"] = dict(
-        ms=s.cuda_ms(kern), plain_ms=s.cuda_ms(plain), library_ms=None,
+        ms=s.cuda_ms(kern), plain_ms=s.cuda_ms(plain), library_ms=s.cuda_ms(lib),
+        device_ms=s.graph_ms(kern), library_device_ms=s.graph_ms(lib),
+        library_call="torch.sort of the candidates alone",
         bound_ms=bound, bound_by=by, max_abs_err=err,
+        plan=fused_scan.lsh_scan_plan(xk, 32, c),
         shape=f"Q=32 C={c} distinct={distinct} d={d} {metric}")
 
     # K3: HLL merge + estimate over the whole batch's registers
@@ -769,7 +852,6 @@ def linear_kernel_times(s: Smoke, x, q_np, r, metric):
         kern = lambda: fused_scan.linear_scan_l1(thresh, qc, x)  # noqa: E731
         lib = lambda: torch.cdist(qc, x, p=1.0)  # noqa: E731
         in_bytes = 4 * (qc.numel() + x.numel())
-        nops = 3 * 32 * n * d       # subtract, absolute value, add
     else:
         name = "linear_scan_hamming"
         qc, x = as_i32(qc).contiguous(), as_i32(x).contiguous()
@@ -782,14 +864,21 @@ def linear_kernel_times(s: Smoke, x, q_np, r, metric):
     assert torch.equal(a[2], b[0].contiguous())
     torch.testing.assert_close(a[0], b[1], **TOL)
     s.masks_agree(a[1], b[2], b[1], thresh, name)
-    # the int ops of K5 are counted at the fp32 CUDA-core rate
-    bound, by = s.bound_ms(in_bytes + 9 * 32 * n, nops)
+    extra = {}
+    if metric == "l1":
+        bound, by = s.bound_l1_ms(in_bytes + 9 * 32 * n, 32, n, d)
+        extra["plan"] = fused_scan.l1_tile_plan(qc, x)
+    else:   # the int ops of K5 are counted at the fp32 CUDA-core rate
+        bound, by = s.bound_ms(in_bytes + 9 * 32 * n, nops)
+    if metric == "l1":
+        extra["device_ms"] = s.graph_ms(kern)
     return name, dict(
         ms=s.cuda_ms(kern), plain_ms=s.cuda_ms(plain),
         library_ms=None if lib is None else s.cuda_ms(lib),
         bound_ms=bound, bound_by=by,
         max_abs_err=float((a[0] - b[1]).abs().max()),
-        shape=f"Q=32 N={n} {'W' if metric == 'hamming' else 'd'}={d} {metric}")
+        shape=f"Q=32 N={n} {'W' if metric == 'hamming' else 'd'}={d} {metric}",
+        **extra)
 
 
 def pairwise_times(s: Smoke, q, x, metric):
@@ -797,7 +886,7 @@ def pairwise_times(s: Smoke, q, x, metric):
     ms and bound for the queries ``q`` against the rows ``x`` (both on
     the card), a shape a caller of ``ops.pairwise_dist`` gives them."""
     torch = s.torch
-    from repro_torch.kernels import distances, ops, ref
+    from repro_torch.kernels import distances, fused_scan, ops, ref
     n, d = x.shape
     nq = q.shape[0]
     if metric == "cosine":          # the kernel alone, on normalised rows
@@ -813,10 +902,10 @@ def pairwise_times(s: Smoke, q, x, metric):
         lib_in = qn[:, None] + xn[None, :]
         lib = lambda: torch.addmm(lib_in, q, x.T, alpha=-2)  # noqa: E731
         in_bytes = 4 * (q.numel() + x.numel() + nq + n)
-    else:                           # a subtract, an absolute value, an add
+    else:
         kern = lambda: distances.pairwise_l1(q, x)  # noqa: E731
         lib = lambda: torch.cdist(q, x, p=1.0)  # noqa: E731
-        in_bytes, nops = 4 * (q.numel() + x.numel()), 3 * nq * n * d
+        in_bytes = 4 * (q.numel() + x.numel())
     through_ops = lambda: ops.pairwise_dist(q, x, metric, impl="cuda")  # noqa: E731
     plain = lambda: ops.pairwise_dist(q, x, metric, impl="ref")  # noqa: E731
     a, b, c = kern(), through_ops(), plain()
@@ -824,10 +913,12 @@ def pairwise_times(s: Smoke, q, x, metric):
     torch.testing.assert_close(b, c, **TOL)
     extra = {}
     if metric == "l1":
-        bound, by = s.bound_ms(in_bytes + 4 * nq * n, nops)
+        bound, by = s.bound_l1_ms(in_bytes + 4 * nq * n, nq, n, d)
+        extra["plan"] = fused_scan.l1_tile_plan(q, x)
+        extra["device_ms"] = s.graph_ms(kern)
     else:
         bound, by, extra = s.bound_dot_ms(in_bytes + 4 * nq * n, nq, n, d)
-        extra["plan"] = s.dot_plan(q, x)
+        extra["plan"] = fused_scan.dot_tile_plan(q, x)
     out = dict(ms=s.cuda_ms(kern), ops_ms=s.cuda_ms(through_ops),
                plain_ms=s.cuda_ms(plain), library_ms=s.cuda_ms(lib),
                bound_ms=bound, bound_by=by,
@@ -1090,9 +1181,16 @@ def drive_streaming(s: Smoke, idx, x_np, q_np, metric, r, *, n_build, batch,
 def log_kernel_times(tag, kt):
     for k, v in kt.items():
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
+        if "library_call" in v:
+            lib += f" ({v['library_call']})"
         log(f"[{tag}] {k}: {v['ms']:.4f} ms, plain {v['plain_ms']:.4f}, "
             f"library {lib}, bound {v['bound_ms']:.3g} ({v['bound_by']}), "
             f"max abs err {v['max_abs_err']:.3g}; {v['shape']}")
+        if "device_ms" in v:
+            log(f"[{tag}] {k} device ms (CUDA graph replay, no host work "
+                f"between launches): {v['device_ms']:.4f}"
+                + (f", library {v['library_device_ms']:.4f}"
+                   if "library_device_ms" in v else ""))
         if "ops_ms" in v:
             log(f"[{tag}] {k} through ops (the wrapper's own preparation "
                 f"and the kernel): {v['ops_ms']:.4f} ms")
@@ -1101,6 +1199,8 @@ def log_kernel_times(tag, kt):
                 f"TF32 x3 {v['bound_tf32_ms']:.4f} ms (the same products on "
                 f"the CUDA cores {v['bound_cuda_cores_ms']:.4f} ms); launch "
                 f"layout {v['plan']}")
+        elif "plan" in v:
+            log(f"[{tag}] {k} launch layout {v['plan']}")
 
 
 def main() -> int:

@@ -180,7 +180,7 @@ class TableSegment:
     impl: Optional[str] = None
     q_chunk: Optional[int] = None               # None -> min(32, Q)
     tidx: Optional[torch.Tensor] = None         # (V,) multi-probe column->table
-    x_unit: Optional[torch.Tensor] = None       # cosine: x's unit rows, for K1
+    x_unit: Optional[torch.Tensor] = None       # cosine: x's unit rows, for K1, K2
 
     def estimate_terms(self, qbuckets: torch.Tensor) -> SegmentEstimate:
         counts = bucket_counts(self.tables, qbuckets, tidx=self.tidx)
@@ -208,7 +208,7 @@ class TableSegment:
             qc = self.q_chunk or min(32, q.shape[0])
             ids, dists, mask = search_lib.lsh_search(
                 self.x, self.tables, qbuckets, q, r, self.metric, self.cap,
-                q_chunk=qc, tidx=self.tidx, impl=self.impl)
+                q_chunk=qc, tidx=self.tidx, impl=self.impl, x_unit=self.x_unit)
         else:
             ids, dists, mask = search_lib.linear_search(
                 self.x, q, r, self.metric, impl=self.impl, x_unit=self.x_unit)

@@ -5,10 +5,13 @@ Both run through the fused scan kernels behind the ``ops`` dispatch:
   * ``linear_search`` — fused brute-force scan (Eq. 2 cost): distance +
                         threshold + report mask + ids in one kernel pass
                         over (Q, N).
-  * ``lsh_search``    — fixed-capacity bucket gather, an int32 sort, then
-                        the fused verification kernel: sorted-run dedup +
-                        row gather + rowwise distance + threshold over
-                        (Q, C) candidates (Eq. 1 cost).
+  * ``lsh_search``    — fixed-capacity bucket gather, then one fused
+                        kernel over the (Q, C) unsorted candidates: their
+                        sort, run dedup, row gather, rowwise distance and
+                        threshold (Eq. 1 cost).  The reference sorts the
+                        candidates with ``jnp.sort`` and then runs its
+                        verification kernel; the plain version here does
+                        the same with ``torch.sort``.
 
 Reporting semantics: every function returns ``(ids, dists, mask)`` where
 ``mask[q, i]`` marks a reported r-near neighbor of query q.  Buffers are
@@ -105,16 +108,19 @@ def lsh_candidate_counts(tables: LSHTables, qbuckets: torch.Tensor, cap: int,
 def lsh_search(x: torch.Tensor, tables: LSHTables, qbuckets: torch.Tensor,
                q: torch.Tensor, r: float, metric: str, cap: int,
                q_chunk: int = 32, tidx: torch.Tensor | None = None,
-               impl: str | None = None):
+               impl: str | None = None, x_unit: torch.Tensor | None = None):
     """LSH-based search (steps S2+S3).
 
     x: (n, d) database rows (or (n, W) packed codes for hamming);
     qbuckets: (Q, V) bucket of each query per probed table (V = L, or
     L*T with ``tidx`` mapping probe columns to physical tables);
-    q: (Q, d) queries.  Returns (ids (Q, V*cap), dists, mask) — deduped,
-    verified.  Per chunk the candidate ids are sorted (int32) and handed
-    to ``ops.fused_lsh_scan``; pad rows of a partial chunk carry
-    all-sentinel candidates, so they mask themselves.
+    q: (Q, d) queries.  Returns (ids (Q, V*cap), dists, mask) — ids
+    sorted per query, deduped, verified.  Per chunk the unsorted
+    candidate ids go to ``ops.fused_lsh_scan_unsorted`` (on CUDA one
+    kernel sorts and verifies them); pad rows of a partial chunk carry
+    all-sentinel candidates, so they mask themselves.  For cosine,
+    ``x_unit`` (x's unit rows, made once per corpus) is what the kernel
+    gathers.
     """
     sentinel = x.shape[0]
     cands = gather_candidates(tables, qbuckets, cap, sentinel,
@@ -122,8 +128,8 @@ def lsh_search(x: torch.Tensor, tables: LSHTables, qbuckets: torch.Tensor,
 
     def chunk_fn(args):
         c, qq = args                                   # (qc, C), (qc, d)
-        ids = torch.sort(c, dim=-1).values
-        return ops.fused_lsh_scan(x, ids, qq, r, metric, impl=impl)
+        return ops.fused_lsh_scan_unsorted(x, c, qq, r, metric, impl=impl,
+                                           x_unit=x_unit)
 
     nq = q.shape[0]
     if q_chunk and nq > q_chunk:

@@ -87,21 +87,41 @@
 // mask and the ids as linear_scan_dot does, pairwise_l1 the distances
 // alone (template DIST_ONLY, 4 B of output a pair instead of 9).
 //
-// Bound on an H100 SXM: device memory for one chunk at the CoverType shape
-// (Q = 32 queries, N = 524,288, d = 54: x read once, 113.2 MB, and 9 B a
-// pair written, 151.0 MB: 0.079 ms at 3.35 TB/s, against 2.7 G operations,
-// a subtract, an absolute value and an add per term, 0.041 ms at
-// 67 TFLOP/s); operations for pairwise_l1 at Q = 100 (N = 580,912:
-// 9.41 G operations, 0.140 ms, against 358 MB).  The sum has no matmul
-// form, so it runs on the CUDA cores.
-// Design: a block owns 32 queries x 128 corpus rows; q and x go through
-// shared memory in d-chunks of 32 (rows padded by one word so neither the
-// transposing stores nor the reads conflict on banks); each of the 256
-// threads keeps a 4 x 4 register tile of sums.  A d that is not a multiple
-// of the chunk (54, 37) is masked on load: the tail loads zeros on both
-// sides, which add |0 - 0| = 0.  The blocks of one row tile are numbered
-// consecutively (query block fastest), so they run together and the corpus
-// tile they share is read from device memory about once.
+// Bound on an H100 SXM.  acc += |q - x| is two FP32 instructions (an FADD,
+// then an FADD with the |.| modifier on its operand); the card issues
+// 33.5 T of them a second (its 67 TFLOP/s counts an FMA as two).  So the
+// least time is the larger of the bytes (x and q read once, 9 B a pair
+// written, 4 B for pairwise_l1) at 3.35 TB/s and 2 Q N d instructions at
+// 33.5 T/s.  K4 at CoverType (one chunk of Q = 32, N = 524,288, d = 54):
+// 264.3 MB, 0.0789 ms, against 1.81 G instructions, 0.0541 ms: bytes.  K7 at
+// Q = 100, N = 580,912: 6.27 G instructions, 0.1873 ms, against 358 MB,
+// 0.1068 ms: operations.  The sum has no matmul form: CUDA cores.
+// Design:
+//  * A block owns a group of up to 32 queries (8 a warp) and walks row
+//    tiles of 128 (persistent grid: SMs x resident blocks, shared evenly
+//    by the groups; the 8-query sets are spread evenly over the groups, so
+//    Q = 100 runs groups of 32, 24, 24, 20; a warp whose 8 queries are all
+//    past the group computes nothing).  Each thread keeps an 8 x 4 register tile (queries
+//    x rows lane + 32 j), so one k step is two broadcast 16-byte reads of
+//    the queries, a quarter of a 16-byte read of each row, and 64 FP32
+//    instructions.
+//  * The group's queries are staged k-major in shared memory, once for the
+//    whole of d up to 64 columns (what four blocks an SM leave beside the
+//    ring and the epilogue); a wider d is staged in 64-column panels,
+//    restaged each tile, and each restage drains the ring
+//    (cp_async_wait<0>) first.
+//  * The corpus streams through a cp.async ring of 16-column chunks (rows
+//    padded to 20 words, so the 16-byte row reads do not conflict on
+//    banks), 3 stages at four blocks an SM; copy width 16, 8 or 4 B as
+//    for the dot tile (CoverType's 216-byte rows take 8 B).  The
+//    last chunk is ragged: columns past d are neither copied nor summed,
+//    so d = 54 runs 54 steps, not 64.  The next tile's chunks load during
+//    this tile's epilogue.
+//  * The sum runs in k order, 0 to d - 1, as the earlier kernel summed it,
+//    so its distances are bit for bit the same.
+//  * Epilogue through shared memory, as the dot tile's: each thread
+//    finishes 4 adjacent rows of one query, one 16-byte store of distances,
+//    one of ids and one 32-bit store of 4 masks where aligned.
 //
 // ---------------------------------------------------------------------------
 // linear_scan_hamming and hamming
@@ -127,24 +147,61 @@
 //
 // ---------------------------------------------------------------------------
 // lsh_scan
-// Replaces: repro/kernels/fused_scan.py, lsh_scan_pallas (body _lsh_kernel).
-// For each (query, candidate slot) of the sorted (Q, C) candidate ids it
-// masks duplicate runs and sentinels ((id != prev) & (id < n)), gathers the
-// candidate's corpus row, computes the l2 / l1 / cosine / Hamming distance
-// and applies the threshold, writing (Q, C) distances and mask.
+// Replaces: repro/kernels/fused_scan.py, lsh_scan_pallas (:272, body
+// _lsh_kernel), together with the jnp.sort that feeds it in
+// repro/core/search.py (:163).  For each query it takes the (Q, C)
+// candidate ids as the bucket gather leaves them (unsorted, sentinel = n)
+// and writes what the sort and the TPU kernel return together: the ids
+// sorted (bit for bit torch.sort's: equal keys are equal ids), and for each
+// slot the distance and the report mask, (id is a run's first) & (id < n)
+// & (distance <= thresh), for l2 / l1 / cosine / Hamming.  A run's other
+// slots and the sentinel tail get +inf and mask 0.  Cosine reads corpus
+// rows the caller scaled to unit length (ops scales them when the index
+// keeps none).
 //
-// Bound on an H100 SXM: device memory, in the gathered rows: distinct
-// candidates x d x 4 B (at most 32 x 5,120 x 254 x 4 B = 166.5 MB per
-// chunk, about 50 us), plus the ids in and the outputs out.  Design: one
-// warp per candidate slot.  The lanes read the row in coalesced 128-byte
-// strides straight from device memory (the corpus is not staged: at 355 MB
-// it fits no on-chip memory), and reduce with warp shuffles.  A slot that
-// is a duplicate or a sentinel skips its gather entirely, so only distinct
-// rows are read; its distance is written as +inf and is not part of the
-// contract (the mask is 0 there).
+// Bound on an H100 SXM: device memory, in the ids read (4 Q C B), the
+// distinct rows gathered (distinct x d x 4 B), the query rows and 9 B a slot
+// written.  At Webspam q3 (Q = 32, C = 5,120, 89,357 distinct rows) the
+// rows dominate: 92.9 MB, 0.0277 ms.
+// Design (a sort by counting: the ids of one query span only [0, n]):
+//  * Grid (splits, Q), 512 threads, two blocks an SM.  Block s of query q
+//    owns the ids [s w, (s + 1) w): as many splits as fill the card in one
+//    wave (8 for a 32-query chunk; one block a query would use 32 of the
+//    132 SMs), w up to 2^18.
+//  * The block streams its query's C ids (16-byte loads, four in flight a
+//    thread), counts those below its range, which is its output offset,
+//    and sets a presence bit in shared memory for each id of its range
+//    (w / 8 bytes: 5 KB at Webspam's 43,738).  Sentinels are counted by no
+//    block: the last block writes the tail after the ids below n.
+//  * A block scan of the bitmap words' popcounts gives each word its rank,
+//    so an id's place among the distinct ids is its word's rank plus a
+//    popcount.  A second pass over the ids counts each at that place: the
+//    runs (duplicates) are counters, so the dedup needs no comparison with
+//    a left neighbour, and the caller's sort and `prev` are gone.  A block
+//    scan of the counts gives each distinct id its output offset.
+//  * Any C: the counters are per distinct id, at most dcap at once (what
+//    shared memory holds beside the bitmap: 5,120 at the main path's
+//    shapes, about 9,400 at most); a block that owns
+//    more distinct ids walks them dcap at a time, one more pass over the
+//    ids each.  A run of one id is one counter whatever its length.
+//  * Each distinct row is gathered once, by a lane group sized to the row:
+//    16 words a lane, all loaded before any is used (16 lanes at Webspam's
+//    d = 254, 4 at d = 54, 2 at d = 32, one thread for Hamming W = 2), in
+//    16, 8 or 4-byte pieces as x's alignment and d allow (Webspam's
+//    1,016-byte rows: 8 B), against the query row staged once per block.
+//    The gather is latency-bound, not bandwidth-bound: a row's time is one
+//    trip to memory plus its reduction, so rows of 1 KB pay for every
+//    instruction after the loads (tools/lsh_scan_ab.py, PERF.md).  Hence:
+//  * Cosine reads the unit rows the indexes keep for the linear scan:
+//    1 - x.q is one sum, where cosine on x takes three, two square roots
+//    and a division.  The block scales its query row once.
+//  * The block writes its slots in order, coalesced: a thread per slot,
+//    its run found by a binary search over the offsets.
+//  ptxas figures (registers, spills) are in chip_smoke.py's build log.
 #include <algorithm>
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -422,13 +479,14 @@ dot_tile_kernel(const DotArgs a) {
 // The current device's SM count and per-block shared memory limit, read
 // once per device (a launch is on the host's clock of every query).
 struct DeviceInfo {
-  int sms = 0, optin = 0;
+  int sms = 0, optin = 0, per_sm = 0;
 };
 
 DeviceInfo read_device_info(int dev) {
   DeviceInfo info;
   cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&info.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&info.per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   return info;
 }
 
@@ -546,93 +604,286 @@ int dot_tile(DotArgs a, DotPlan& p, cudaStream_t s, bool launch) {
 
 // ---- the L1 tile (linear_scan_l1, pairwise_l1) ---------------------------
 
-constexpr int kBQ = 32;    // queries per block
-constexpr int kBN = 128;   // corpus rows per block
-constexpr int kBK = 32;    // d-chunk staged per step
-constexpr int kThreads = 256;
+constexpr int kL1Threads = 128;         // 4 warps
+constexpr int kL1Group = 32;            // queries per group: 8 a warp
+constexpr int kL1TQ = 8;                // queries a thread
+constexpr int kL1TN = 4;                // rows a thread: lane + 32 j
+constexpr int kL1BN = 32 * kL1TN;       // rows per tile
+constexpr int kL1BK = 16;               // d-columns of a ring stage
+constexpr int kL1XS = kL1BK + 4;        // words per row in a stage
+constexpr int kL1MinStages = 3;
+constexpr int kL1MaxStages = 4;
+constexpr int kL1BlocksPerSm = 4;       // the shared memory budget's divisor
+constexpr int kL1EpiS = kL1BN + 4;      // words per query row of the epilogue
+static_assert(kL1MaxStages == kDotMaxStages, "cp_async_wait_at_most's depths");
+static_assert(kL1Threads / 32 * kL1TQ == kL1Group, "a warp per 8 queries");
 
-// Blocks of the L1 tile kernel for a (Q, N) output: one per 32 queries x 128
-// rows, on a 1-D grid.  0 if the count does not fit a launch.
-unsigned tile_blocks(int Q, int N) {
-  const int64_t b = static_cast<int64_t>((N + kBN - 1) / kBN) * ((Q + kBQ - 1) / kBQ);
-  return b > 0x7fffffff ? 0u : static_cast<unsigned>(b);
+struct L1Args {
+  const float* q;        // (Q, d)
+  const float* x;        // (N, d)
+  float thresh;
+  float* dist;           // (Q, N)
+  uint8_t* mask;         // (Q, N), or null: distances only
+  int32_t* ids;          // (Q, N), null with mask
+  int Q, N, d;
+  int panel;             // d-columns of the queries staged at once
+  int tiles;             // row tiles of kL1BN rows
+  int stages;            // depth of the ring
+  int sets, extra;       // 8-query sets a group (the first `extra` one more)
+};
+
+struct L1Plan {
+  int vec, panel, stages, smem, groups, tiles, occupancy, walkers, sets, extra;
+};
+
+// One column k: acc += |q - x| for the thread's 8 queries (two broadcast
+// 16-byte reads at qk) and 4 rows, in k order, as every version sums it.
+__device__ __forceinline__ void l1_step(float (&acc)[kL1TQ][kL1TN],
+                                        const float (&xk)[kL1TN], const float* qk) {
+  const float4 qa = *reinterpret_cast<const float4*>(qk);
+  const float4 qb = *reinterpret_cast<const float4*>(qk + 4);
+  const float qv[kL1TQ] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+  for (int i = 0; i < kL1TQ; ++i)
+#pragma unroll
+    for (int j = 0; j < kL1TN; ++j) acc[i][j] += fabsf(qv[i] - xk[j]);
 }
 
-// DIST_ONLY: write the distances only (pairwise_l1); mask and ids are
-// then null and unwritten.
-template <bool DIST_ONLY>
-__global__ void __launch_bounds__(kThreads)
-l1_tile_kernel(const float* __restrict__ q, const float* __restrict__ x,
-               float thresh, float* __restrict__ dist,
-               uint8_t* __restrict__ mask, int32_t* __restrict__ ids, int Q,
-               int N, int d) {
-  __shared__ float qs[kBK][kBQ + 1];
-  __shared__ float xs[kBK][kBN + 1];
+// VEC: floats a cp.async (4, 2 or 1).  Grid: (walkers, groups); group g
+// owns a.sets (+1 for g < a.extra) consecutive sets of 8 queries.
+template <bool DIST_ONLY, int VEC>
+__global__ void __launch_bounds__(kL1Threads, kL1BlocksPerSm)
+l1_tile_kernel(const L1Args a) {
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
-  const int tx = tid & 31;   // corpus columns tx + 32 j
-  const int ty = tid >> 5;   // query rows ty + 8 i
-  const int qblocks = (Q + kBQ - 1) / kBQ;
-  const int n0 = (blockIdx.x / qblocks) * kBN;   // < N, so it fits an int
-  const int q0 = (blockIdx.x % qblocks) * kBQ;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = blockIdx.y;
+  const int q0 = kL1TQ * (g * a.sets + min(g, a.extra));
+  const int nq = min(kL1TQ * (a.sets + (g < a.extra)), a.Q - q0);   // real queries
+  const int walkers = gridDim.x;
+  const bool busy = warp * kL1TQ < nq;               // warp-uniform
+  const int chunks = ceil_div(max(a.d, 1), kL1BK);
+  const int per_panel = a.panel / kL1BK;
+  float* qs = smem;                                  // [panel][kL1Group]
+  float* ring = qs + a.panel * kL1Group;             // [stages][kL1BN][kL1XS]
+  float* epi = ring + a.stages * kL1BN * kL1XS;      // [kL1Group][kL1EpiS]
+  const int steps = ceil_div(a.tiles - static_cast<int>(blockIdx.x), walkers) * chunks;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-#pragma unroll
-    for (int s = 0; s < (kBQ * kBK) / kThreads; ++s) {
-      const int idx = tid + s * kThreads;
-      const int row = idx / kBK;
-      const int k = idx % kBK;
-      const int gq = q0 + row;
-      const int gk = k0 + k;
-      qs[k][row] = (gq < Q && gk < d) ? q[static_cast<int64_t>(gq) * d + gk] : 0.f;
+  // The queries go in k-major ([k][query]), so a warp's 8 queries at one k
+  // are two broadcast 16-byte reads; copied a float at a time, once.
+  auto stage_queries = [&](int panel) {
+    const int k0 = panel * a.panel;
+    for (int i = tid; i < kL1Group * a.panel; i += kL1Threads) {
+      const int r = i / a.panel;
+      const int k = i - r * a.panel;
+      const bool ok = r < nq && k0 + k < a.d;
+      cp_async<1>(qs + k * kL1Group + r,
+                  ok ? a.q + static_cast<int64_t>(q0 + r) * a.d + k0 + k : a.q, ok);
     }
+    cp_async_commit();
+  };
+  // Step s: chunk s % chunks of the block's tile s / chunks.  Columns past d
+  // are not copied (never read); rows past N are zero-filled.
+  auto load_step = [&](int s) {
+    if (s < steps) {
+      const int n0 = (blockIdx.x + (s / chunks) * walkers) * kL1BN;
+      const int k0 = (s % chunks) * kL1BK;
+      float* dst = ring + (s % a.stages) * kL1BN * kL1XS;
+      constexpr int per_row = kL1BK / VEC;
 #pragma unroll
-    for (int s = 0; s < (kBN * kBK) / kThreads; ++s) {
-      const int idx = tid + s * kThreads;
-      const int row = idx / kBK;
-      const int k = idx % kBK;
-      const int gn = n0 + row;
-      const int gk = k0 + k;
-      xs[k][row] = (gn < N && gk < d) ? x[static_cast<int64_t>(gn) * d + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kBK; ++k) {
-      float a[4];
-      float b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[k][ty + 8 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = xs[k][tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += fabsf(a[i] - b[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gq = q0 + ty + 8 * i;
-    if (gq >= Q) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 32 * j;
-      if (gn >= N) continue;
-      const float v = acc[i][j];
-      const int64_t o = static_cast<int64_t>(gq) * N + gn;
-      dist[o] = v;
-      if (!DIST_ONLY) {
-        mask[o] = v <= thresh ? 1 : 0;
-        ids[o] = gn;
+      for (int j = 0; j < kL1BK / VEC; ++j) {      // kL1BN per_row / kL1Threads
+        const int i = tid + j * kL1Threads;
+        const int r = i / per_row;
+        const int k = (i % per_row) * VEC;
+        if (k0 + k >= a.d) continue;
+        const bool ok = n0 + r < a.N;
+        cp_async<VEC>(dst + r * kL1XS + k,
+                      ok ? a.x + static_cast<int64_t>(n0 + r) * a.d + k0 + k : a.x, ok);
       }
     }
+    cp_async_commit();                            // empty past the end
+  };
+
+  float acc[kL1TQ][kL1TN];
+#pragma unroll
+  for (int i = 0; i < kL1TQ; ++i)
+#pragma unroll
+    for (int j = 0; j < kL1TN; ++j) acc[i][j] = 0.f;
+
+  stage_queries(0);
+  for (int s = 0; s < a.stages - 1; ++s) load_step(s);
+
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_at_most(a.stages - 2);          // step s has landed
+    __syncthreads();                              // and step s - 1 is consumed
+    const int c = s % chunks;
+    if (per_panel < chunks && c % per_panel == 0 && s > 0) {
+      stage_queries(c / per_panel);               // the next d-panel
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    load_step(s + a.stages - 1);
+
+    if (busy) {
+      const float* xs = ring + (s % a.stages) * kL1BN * kL1XS + lane * kL1XS;
+      const float* qp = qs + (c % per_panel) * kL1BK * kL1Group + warp * kL1TQ;
+      const int kc = min(kL1BK, a.d - c * kL1BK);  // exactly d: no padded columns
+      int k = 0;
+      for (; k + 4 <= kc; k += 4) {               // a 16-byte read a row
+        float4 xv[kL1TN];
+#pragma unroll
+        for (int j = 0; j < kL1TN; ++j)
+          xv[j] = *reinterpret_cast<const float4*>(xs + j * 32 * kL1XS + k);
+        const float x0[kL1TN] = {xv[0].x, xv[1].x, xv[2].x, xv[3].x};
+        const float x1[kL1TN] = {xv[0].y, xv[1].y, xv[2].y, xv[3].y};
+        const float x2[kL1TN] = {xv[0].z, xv[1].z, xv[2].z, xv[3].z};
+        const float x3[kL1TN] = {xv[0].w, xv[1].w, xv[2].w, xv[3].w};
+        l1_step(acc, x0, qp + k * kL1Group);
+        l1_step(acc, x1, qp + (k + 1) * kL1Group);
+        l1_step(acc, x2, qp + (k + 2) * kL1Group);
+        l1_step(acc, x3, qp + (k + 3) * kL1Group);
+      }
+      for (; k < kc; ++k) {                       // d % 4 columns
+        float xk[kL1TN];
+#pragma unroll
+        for (int j = 0; j < kL1TN; ++j) xk[j] = xs[j * 32 * kL1XS + k];
+        l1_step(acc, xk, qp + k * kL1Group);
+      }
+    }
+    if (c < chunks - 1) continue;
+
+    // The tile's epilogue through epi: each thread then finishes 4 adjacent
+    // rows of one query, 4 queries a pass.
+    const int n0 = (blockIdx.x + (s / chunks) * walkers) * kL1BN;
+    if (busy) {
+#pragma unroll
+      for (int i = 0; i < kL1TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < kL1TN; ++j)
+          epi[(warp * kL1TQ + i) * kL1EpiS + lane + 32 * j] = acc[i][j];
+    }
+    __syncthreads();
+    const int gn = n0 + lane * 4;
+    for (int ql = warp; gn < a.N && ql < nq; ql += kL1Threads / 32) {
+      const float4 e4 = *reinterpret_cast<const float4*>(epi + ql * kL1EpiS + lane * 4);
+      const float v[4] = {e4.x, e4.y, e4.z, e4.w};
+      bool in[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) in[j] = gn + j < a.N;
+      const int64_t o = static_cast<int64_t>(q0 + ql) * a.N + gn;
+      float* dd = a.dist + o;
+      if (in[3] && (reinterpret_cast<uintptr_t>(dd) & 15) == 0) {
+        *reinterpret_cast<float4*>(dd) = e4;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (in[j]) dd[j] = v[j];
+      }
+      if (DIST_ONLY) continue;
+      uint8_t* mm = a.mask + o;
+      int32_t* ii = a.ids + o;
+      uint32_t m[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) m[j] = v[j] <= a.thresh ? 1u : 0u;
+      if (in[3] && (reinterpret_cast<uintptr_t>(mm) & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(mm) = m[0] | m[1] << 8 | m[2] << 16 | m[3] << 24;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (in[j]) mm[j] = static_cast<uint8_t>(m[j]);
+      }
+      if (in[3] && (reinterpret_cast<uintptr_t>(ii) & 15) == 0) {
+        *reinterpret_cast<int4*>(ii) = make_int4(gn, gn + 1, gn + 2, gn + 3);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (in[j]) ii[j] = gn + j;
+      }
+    }
+    __syncthreads();                     // epi is free for the next tile
+#pragma unroll
+    for (int i = 0; i < kL1TQ; ++i)
+#pragma unroll
+      for (int j = 0; j < kL1TN; ++j) acc[i][j] = 0.f;
+  }
+  cp_async_wait<0>();                    // the trailing empty groups
+}
+
+// The L1 tile's layout.  Copy width as the dot tile's; the queries' d-panel
+// as wide as kL1BlocksPerSm blocks an SM allow beside a 3-stage ring and
+// the epilogue: 64 columns at four blocks (all of d up to 64, else panels
+// restaged each tile, each behind a drain of the ring), a fourth stage
+// where the rest allows.  Returns a cudaError_t.
+int l1_plan(const void* q, const void* x, int Q, int N, int d, L1Plan& p) {
+  const DeviceInfo dev = device_info();
+  const uintptr_t al = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(x);
+  p.vec = (d % 4 == 0 && al % 16 == 0) ? 4 : (d % 2 == 0 && al % 8 == 0) ? 2 : 1;
+  // 1 KB a block is reserved
+  const int budget = std::min(dev.optin, dev.per_sm / kL1BlocksPerSm - 1024);
+  const int stage = 4 * kL1BN * kL1XS;
+  const int epi = 4 * kL1Group * kL1EpiS;
+  const int cols = (budget - epi - kL1MinStages * stage) / (4 * kL1Group);
+  p.panel = std::min(round_up(std::max(d, 1), kL1BK), cols / kL1BK * kL1BK);
+  if (p.panel < kL1BK) return static_cast<int>(cudaErrorInvalidValue);
+  const int qs = 4 * kL1Group * p.panel;
+  p.stages = std::min(kL1MaxStages, (budget - qs - epi) / stage);
+  p.smem = qs + epi + p.stages * stage;
+  const int sets = ceil_div(Q, kL1TQ);
+  p.groups = ceil_div(sets, kL1Group / kL1TQ);
+  p.sets = sets / p.groups;
+  p.extra = sets % p.groups;
+  p.tiles = ceil_div(N, kL1BN);
+  return p.groups > 65535 ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
+// Walkers = SMs x resident blocks an SM, shared evenly by the groups (a
+// tile takes a block about as long whether 3 or 4 of its warps are busy,
+// so the plan spreads the 8-query sets evenly over the groups), at most one
+// per tile.  Launches if `launch`; fills p.occupancy and p.walkers either way.
+template <bool DIST_ONLY, int VEC>
+int run_l1(L1Args a, L1Plan& p, cudaStream_t s, bool launch) {
+  auto kernel = l1_tile_kernel<DIST_ONLY, VEC>;
+  static const cudaError_t attr = [&] {    // and the largest carveout
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, device_info().optin);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static std::mutex mu;
+  static int last_smem = 0, last_occupancy = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (p.smem != last_smem) {
+      const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &last_occupancy, kernel, kL1Threads, p.smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      last_smem = p.smem;
+    }
+    p.occupancy = last_occupancy;
+  }
+  if (p.occupancy < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  p.walkers = std::min(p.tiles, std::max(1, device_info().sms * p.occupancy / p.groups));
+  if (!launch) return 0;
+  a.panel = p.panel;
+  a.tiles = p.tiles;
+  a.stages = p.stages;
+  a.sets = p.sets;
+  a.extra = p.extra;
+  kernel<<<dim3(p.walkers, p.groups), kL1Threads, p.smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plan and (if `launch`) run the L1 tile; fills p either way.
+int l1_tile(const L1Args& a, L1Plan& p, cudaStream_t s, bool launch) {
+  const int err = l1_plan(a.q, a.x, a.Q, a.N, a.d, p);
+  if (err) return err;
+  const bool dist_only = a.mask == nullptr;
+  switch (p.vec) {
+    case 4: return dist_only ? run_l1<true, 4>(a, p, s, launch) : run_l1<false, 4>(a, p, s, launch);
+    case 2: return dist_only ? run_l1<true, 2>(a, p, s, launch) : run_l1<false, 2>(a, p, s, launch);
+    default: return dist_only ? run_l1<true, 1>(a, p, s, launch) : run_l1<false, 1>(a, p, s, launch);
   }
 }
 
@@ -690,78 +941,371 @@ linear_scan_hamming_kernel(const uint32_t* __restrict__ q,
   }
 }
 
-enum Metric { kL2 = 0, kL1 = 1, kCosine = 2, kHamming = 3 };
-constexpr int kWarpsPerBlock = 8;
+// ---- lsh_scan: sort, dedup, gather and verify --------------------------
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+// kCosineUnit: 1 - x.q on corpus rows the caller scaled to unit length, the
+// query row scaled in the kernel.
+enum Metric { kL2 = 0, kL1 = 1, kCosineUnit = 2, kHamming = 3 };
+constexpr int kLshThreads = 512;
+constexpr int kLshWarps = kLshThreads / 32;
+constexpr int kLshBlocksPerSm = 2;
+constexpr int kLshWords = 16;           // words of a row a lane loads before using any
+constexpr int kLshMaxWidth = 1 << 18;   // ids a block owns, at most: 64 KB of bitmap and ranks
+
+struct LshArgs {
+  const void* x;         // (n, d) float32, or int32 bit views of packed codes
+  const void* q;         // (Q, d)
+  const int32_t* cands;  // (Q, C), unsorted, sentinel = n
+  float thresh;
+  int32_t* ids;          // (Q, C) out: cands sorted
+  float* dist;           // (Q, C)
+  uint8_t* mask;         // (Q, C)
+  int Q, C, n, d;
+  int width;             // ids a block owns; gridDim.x blocks a query
+  int dcap;              // distinct ids a block holds at once
+  int group;             // lanes a gathered row (a power of two, 1-32)
+};
+
+struct LshPlan {
+  int splits, width, dcap, vec, group, smem;
+};
+
+template <typename T, int VEC> struct Vec;
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<float, 2> { using type = float2; };
+template <> struct Vec<float, 1> { using type = float; };
+template <> struct Vec<uint32_t, 4> { using type = uint4; };
+template <> struct Vec<uint32_t, 2> { using type = uint2; };
+template <> struct Vec<uint32_t, 1> { using type = uint32_t; };
+
+__device__ __forceinline__ void unpack(const float4& v, float* o) {
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void unpack(const float2& v, float* o) { o[0] = v.x; o[1] = v.y; }
+__device__ __forceinline__ void unpack(const float& v, float* o) { o[0] = v; }
+__device__ __forceinline__ void unpack(const uint4& v, uint32_t* o) {
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void unpack(const uint2& v, uint32_t* o) { o[0] = v.x; o[1] = v.y; }
+__device__ __forceinline__ void unpack(const uint32_t& v, uint32_t* o) { o[0] = v; }
+
+// Sum over the `group` lanes (a power of two) that share a row.
+template <typename T>
+__device__ __forceinline__ T group_sum(T v, int group) {
+  for (int off = group >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-template <int METRIC>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-lsh_scan_kernel(const void* __restrict__ xv, const void* __restrict__ qv,
-                const int32_t* __restrict__ ids,
-                const int32_t* __restrict__ prev, float thresh,
-                float* __restrict__ dist, uint8_t* __restrict__ mask, int Q,
-                int C, int n, int d) {
-  const int lane = threadIdx.x & 31;
-  const int64_t slot =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (slot >= static_cast<int64_t>(Q) * C) return;   // warp-uniform
-  const int id = ids[slot];
-  const bool uniq = (id != prev[slot]) && (id < n);
-  if (!uniq) {                                       // warp-uniform
-    if (lane == 0) {
-      dist[slot] = __int_as_float(0x7f800000);       // +inf, masked
-      mask[slot] = 0;
-    }
-    return;
-  }
-  const int64_t row = min(max(id, 0), n - 1);
-  const int64_t qi = slot / C;
-  float v;
-  if (METRIC == kHamming) {
-    const int32_t* xr = static_cast<const int32_t*>(xv) + row * d;
-    const int32_t* qr = static_cast<const int32_t*>(qv) + qi * d;
-    int c = 0;
-    for (int k = lane; k < d; k += 32) c += __popc(xr[k] ^ qr[k]);
+// Pieces (VEC-wide loads) a lane holds in flight.
+template <int VEC>
+constexpr int kLshPieces = kLshWords / VEC;
+
+// The distance of the row at xrow (device or shared memory) to the staged
+// query qs, by the lanes lg = 0..group-1 of its group; every lane returns
+// it.  Each lane issues all its loads of a round (pieces lg, lg + group, ...,
+// kLshPieces of them) before it uses any, so a row costs one trip to
+// memory.  `ok` false: no read, any value.
+template <int METRIC, int VEC>
+__device__ __forceinline__ float row_dist(const void* xrow, const void* qsv, int d,
+                                          int lg, int group, bool ok) {
+  constexpr int U = kLshPieces<VEC>;
+  const int pieces = ok ? d / VEC : 0;
+  using T = std::conditional_t<METRIC == kHamming, uint32_t, float>;
+  using V = typename Vec<T, VEC>::type;
+  const V* xr = static_cast<const V*>(xrow);
+  const V* qr = static_cast<const V*>(qsv);
+  float s0 = 0.f;                       // l2 / l1: the sum; cosine: x.q
+  int bits = 0;                         // Hamming
+  for (int p0 = lg; p0 < pieces; p0 += U * group) {
+    V xp[U];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
-    v = static_cast<float>(c);
-  } else {
-    const float* xr = static_cast<const float*>(xv) + row * d;
-    const float* qr = static_cast<const float*>(qv) + qi * d;
-    if (METRIC == kCosine) {
-      float xx = 0.f, xq = 0.f, qq = 0.f;
-#pragma unroll 4
-      for (int k = lane; k < d; k += 32) {
-        const float a = xr[k];
-        const float b = qr[k];
-        xx = fmaf(a, a, xx);
-        xq = fmaf(a, b, xq);
-        qq = fmaf(b, b, qq);
+    for (int u = 0; u < U; ++u)
+      if (p0 + u * group < pieces) xp[u] = xr[p0 + u * group];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (p0 + u * group >= pieces) break;
+      T a[VEC], b[VEC];
+      unpack(xp[u], a);
+      unpack(qr[p0 + u * group], b);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        if constexpr (METRIC == kHamming) {
+          bits += __popc(a[e] ^ b[e]);
+        } else if constexpr (METRIC == kCosineUnit) {
+          s0 = fmaf(a[e], b[e], s0);
+        } else {
+          const float diff = a[e] - b[e];
+          s0 += (METRIC == kL2) ? diff * diff : fabsf(diff);
+        }
       }
-      xx = warp_sum(xx);
-      xq = warp_sum(xq);
-      qq = warp_sum(qq);
-      // 1 - sum (x / max(|x|, 1e-12)) (q / max(|q|, 1e-12)), with the two
-      // norms factored out of the sum.
-      v = 1.f - xq / (fmaxf(sqrtf(xx), 1e-12f) * fmaxf(sqrtf(qq), 1e-12f));
-    } else {
-      float s = 0.f;
-#pragma unroll 4
-      for (int k = lane; k < d; k += 32) {
-        const float diff = xr[k] - qr[k];
-        s += (METRIC == kL2) ? diff * diff : fabsf(diff);
-      }
-      v = warp_sum(s);
     }
   }
-  if (lane == 0) {
-    dist[slot] = v;
-    mask[slot] = v <= thresh ? 1 : 0;
+  if constexpr (METRIC == kHamming) {
+    return static_cast<float>(group_sum(bits, group));
+  } else if constexpr (METRIC == kCosineUnit) {
+    return 1.f - group_sum(s0, group);
+  } else {
+    return group_sum(s0, group);
+  }
+}
+
+// Exclusive scan of one int a thread over the block; `total` gets the sum.
+// Barriers before and after its use of `scratch` (kLshWarps ints).
+__device__ __forceinline__ int block_scan(int v, int& total, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += u;
+  }
+  __syncthreads();                      // the last scan's readers are done
+  if (lane == 31) scratch[warp] = inc;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < kLshWarps; ++i) {
+    const int t = scratch[i];
+    if (i < warp) before += t;
+    total += t;
+  }
+  return before + inc - v;
+}
+
+// Call visit(v) for each of the C ids at c, four loads a thread in flight
+// before any is used (16-byte loads where C and c allow).
+template <typename F>
+__device__ __forceinline__ void for_each_id(const int32_t* c, int C, F&& visit) {
+  const int tid = threadIdx.x;
+  if ((C & 3) == 0 && (reinterpret_cast<uintptr_t>(c) & 15) == 0) {
+    const int4* c4 = reinterpret_cast<const int4*>(c);
+    const int n4 = C / 4;
+    for (int i0 = tid; i0 < n4; i0 += 4 * kLshThreads) {
+      int4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u * kLshThreads < n4) v[u] = c4[i0 + u * kLshThreads];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (i0 + u * kLshThreads >= n4) break;
+        visit(v[u].x);
+        visit(v[u].y);
+        visit(v[u].z);
+        visit(v[u].w);
+      }
+    }
+  } else {
+    for (int i0 = tid; i0 < C; i0 += 4 * kLshThreads) {
+      int v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u * kLshThreads < C) v[u] = c[i0 + u * kLshThreads];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (i0 + u * kLshThreads >= C) break;
+        visit(v[u]);
+      }
+    }
+  }
+}
+
+// Block (s, qi) owns the ids [lo, hi) = [s w, min((s + 1) w, n)) of query qi.
+// Grid: (splits, Q); 512 threads.  Shared memory: a presence bit per id of
+// the range, each bitmap word's rank (distinct ids before it), and for up
+// to dcap distinct ids at once their counts (then output offsets), their
+// ids relative to lo and their distances; the query row.
+template <int METRIC, int VEC>
+__global__ void __launch_bounds__(kLshThreads, kLshBlocksPerSm)
+lsh_scan_kernel(const LshArgs a) {
+  extern __shared__ __align__(16) unsigned char lsh_smem[];
+  __shared__ int scratch[kLshWarps];
+  const int tid = threadIdx.x;
+  const int qi = blockIdx.y;
+  const int lo = blockIdx.x * a.width;
+  const int hi = min(lo + a.width, a.n);
+  const int words = ceil_div(a.width, 32);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(lsh_smem);        // [words]
+  int* rank = reinterpret_cast<int*>(bits + round_up(words, 4));  // [words]
+  int* cnt = rank + round_up(words, 4);                           // [dcap], then offsets
+  int* rel = cnt + round_up(a.dcap, 4);                           // [dcap]
+  float* dist_s = reinterpret_cast<float*>(rel + round_up(a.dcap, 4));   // [dcap]
+  uint32_t* qs = reinterpret_cast<uint32_t*>(dist_s + round_up(a.dcap, 4));  // [d]
+  const int32_t* c = a.cands + static_cast<int64_t>(qi) * a.C;
+
+  // 1. Mark the ids of [lo, hi) present and count those below lo (this
+  //    block's output offset).  Sentinels (>= n) are counted by no block:
+  //    the tail is what is left.
+  for (int i = tid; i < words; i += kLshThreads) bits[i] = 0;
+  const uint32_t* qrow = static_cast<const uint32_t*>(a.q) + static_cast<int64_t>(qi) * a.d;
+  for (int k = tid; k < a.d; k += kLshThreads) qs[k] = qrow[k];
+  __syncthreads();
+  if (METRIC == kCosineUnit && tid < 32) {       // q / max(|q|, 1e-12), as unit_rows
+    float* qf = reinterpret_cast<float*>(qs);
+    float ss = 0.f;
+    for (int k = tid; k < a.d; k += 32) ss = fmaf(qf[k], qf[k], ss);
+    const float nrm = fmaxf(sqrtf(group_sum(ss, 32)), 1e-12f);
+    for (int k = tid; k < a.d; k += 32) qf[k] = qf[k] / nrm;
+  }                                     // read after the barriers of step 2
+  int below = 0;
+  for_each_id(c, a.C, [&](int v) {
+    if (v < lo) {
+      ++below;
+    } else if (v < hi) {
+      const int r = v - lo;
+      atomicOr(bits + (r >> 5), 1u << (r & 31));
+    }
+  });
+  __syncthreads();
+
+  // 2. Rank the words: thread t owns a run of consecutive words.
+  const int wpt = ceil_div(words, kLshThreads);
+  const int w0 = min(tid * wpt, words);
+  const int w1 = min(w0 + wpt, words);
+  int nd = 0;
+  for (int i = w0; i < w1; ++i) nd += __popc(bits[i]);
+  int n_distinct, below_all;
+  int k = block_scan(nd, n_distinct, scratch);
+  for (int i = w0; i < w1; ++i) {
+    rank[i] = k;
+    k += __popc(bits[i]);
+  }
+  block_scan(below, below_all, scratch);          // its barriers publish rank
+
+  // 3. The distinct ids in order, dcap of them at a time (one pass unless
+  //    a block owns more distinct ids than its shared memory holds): count
+  //    each id at its rank, turn the counts into output offsets, gather and
+  //    verify each distinct row once, write the slots.
+  const int64_t base = static_cast<int64_t>(qi) * a.C + below_all;
+  const float inf = __int_as_float(0x7f800000);
+  const int lg = tid & (a.group - 1);
+  const int rows_at_once = kLshThreads / a.group;
+  int done = 0;                                   // slots written so far
+  for (int k_lo = 0; k_lo < n_distinct; k_lo += a.dcap) {   // block-uniform
+    const int nk = min(a.dcap, n_distinct - k_lo);
+    for (int i = tid; i < nk; i += kLshThreads) cnt[i] = 0;
+    __syncthreads();
+    for_each_id(c, a.C, [&](int v) {
+      if (v < lo || v >= hi) return;
+      const int r = v - lo;
+      const int kk = rank[r >> 5] + __popc(bits[r >> 5] & ((1u << (r & 31)) - 1u)) - k_lo;
+      if (kk < 0 || kk >= nk) return;
+      atomicAdd(cnt + kk, 1);
+      rel[kk] = r;                                // every duplicate writes the same
+    });
+    __syncthreads();
+    const int ept = ceil_div(nk, kLshThreads);    // thread t owns a run of entries
+    const int e0 = min(tid * ept, nk);
+    const int e1 = min(e0 + ept, nk);
+    int cs = 0;
+    for (int i = e0; i < e1; ++i) cs += cnt[i];
+    int n_in;
+    int o = block_scan(cs, n_in, scratch);
+    int* offs = cnt;
+    for (int i = e0; i < e1; ++i) {
+      const int m = cnt[i];
+      offs[i] = o;
+      o += m;
+    }
+    __syncthreads();
+
+    using T = std::conditional_t<METRIC == kHamming, uint32_t, float>;
+    const T* x = static_cast<const T*>(a.x);
+    for (int k0 = 0; k0 < nk; k0 += rows_at_once) {   // block-uniform
+      const int kk = k0 + tid / a.group;
+      const bool ok = kk < nk;
+      const T* row = x + static_cast<int64_t>(lo + (ok ? rel[kk] : 0)) * a.d;
+      const float v = row_dist<METRIC, VEC>(row, qs, a.d, lg, a.group, ok);
+      if (ok && lg == 0) dist_s[kk] = v;
+    }
+    __syncthreads();
+
+    // A thread a slot, in order (coalesced): a run's first slot carries the
+    // distance and the mask, its duplicates +inf and 0.
+    for (int p = tid; p < n_in; p += kLshThreads) {
+      int l = 0, h = nk - 1;            // the last run starting at or before p
+      while (l < h) {
+        const int mid = (l + h + 1) >> 1;
+        if (offs[mid] <= p) l = mid;
+        else h = mid - 1;
+      }
+      const bool first = offs[l] == p;
+      const float v = first ? dist_s[l] : inf;
+      const int64_t o64 = base + done + p;
+      a.ids[o64] = lo + rel[l];
+      a.dist[o64] = v;
+      a.mask[o64] = first && v <= a.thresh ? 1 : 0;
+    }
+    done += n_in;
+    __syncthreads();                    // cnt, rel and dist_s are free again
+  }
+  if (blockIdx.x + 1 == gridDim.x) {    // the sentinel tail
+    for (int p = done + tid; below_all + p < a.C; p += kLshThreads) {
+      a.ids[base + p] = a.n;
+      a.dist[base + p] = inf;
+      a.mask[base + p] = 0;
+    }
+  }
+}
+
+// How lsh_scan lays out a call: splits (blocks a query) = as many as two
+// blocks an SM give the Q queries in one wave, and at least n / 2^18, at
+// most n; the width w = ceil(n / splits) (the splits then ceil(n / w)); dcap
+// = the distinct ids a block can hold beside its bitmap when two blocks
+// share an SM, at most min(w, C); the gather's copy width from x's
+// alignment and d; `group` lanes a row = the power of two at or above the
+// row's words / 16, at most 32.  Returns a cudaError_t.
+int lsh_plan(const void* x, int Q, int C, int n, int d, LshPlan& p) {
+  const DeviceInfo dev = device_info();
+  const int64_t fill = std::max(1, kLshBlocksPerSm * dev.sms / std::max(Q, 1));
+  const int64_t splits = std::min<int64_t>(
+      std::max<int64_t>({fill, ceil_div(n, kLshMaxWidth), 1}), std::max(n, 1));
+  p.width = std::max(1, static_cast<int>(ceil_div(n, static_cast<int>(splits))));
+  p.splits = std::max(1, ceil_div(n, p.width));
+  const uintptr_t al = reinterpret_cast<uintptr_t>(x);
+  p.vec = (d % 4 == 0 && al % 16 == 0) ? 4 : (d % 2 == 0 && al % 8 == 0) ? 2 : 1;
+  const int rounds = ceil_div(d / p.vec, kLshWords / p.vec);   // kLshPieces a lane
+  p.group = 1;
+  while (p.group < 32 && p.group < rounds) p.group *= 2;
+  // 1 KB a block reserved, and the static scan scratch
+  const int budget = std::min(dev.optin, dev.per_sm / kLshBlocksPerSm - 1024)
+                     - 4 * kLshWarps;
+  const int fixed = 8 * round_up(ceil_div(p.width, 32), 4) + 4 * round_up(d, 4);
+  const int room = (budget - fixed) / 12 / 4 * 4;
+  p.dcap = std::min({p.width, C, room});
+  if (p.dcap < 1 || Q > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  p.smem = fixed + 12 * round_up(p.dcap, 4);
+  return 0;
+}
+
+template <int METRIC, int VEC>
+int run_lsh(const LshArgs& a, const LshPlan& p, cudaStream_t s) {
+  auto kernel = lsh_scan_kernel<METRIC, VEC>;
+  // The dynamic part may take what the block's static scan arrays leave;
+  // the largest carveout lets kLshBlocksPerSm blocks share an SM.
+  static const int max_dynamic = [&] {
+    cudaFuncAttributes fa{};
+    if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return -1;
+    const int bytes = device_info().optin - static_cast<int>(fa.sharedSizeBytes);
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared) != cudaSuccess)
+      return -1;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                bytes) == cudaSuccess ? bytes : -1;
+  }();
+  if (max_dynamic < 0) return static_cast<int>(cudaErrorInvalidDeviceFunction);
+  if (p.smem > max_dynamic) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<dim3(p.splits, a.Q), kLshThreads, p.smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int METRIC>
+int run_lsh_metric(const LshArgs& a, const LshPlan& p, cudaStream_t s) {
+  switch (p.vec) {
+    case 4: return run_lsh<METRIC, 4>(a, p, s);
+    case 2: return run_lsh<METRIC, 2>(a, p, s);
+    default: return run_lsh<METRIC, 1>(a, p, s);
   }
 }
 
@@ -816,31 +1360,45 @@ extern "C" int dot_tile_plan(const void* q, const void* x, int Q, int N,
   return err;
 }
 
-// q: (Q, d), x: (N, d) float32, contiguous.  Outputs dist (Q, N) f32,
-// mask (Q, N) u8, ids (Q, N) i32.
+// q: (Q, d), x: (N, d) float32, contiguous rows (any 4-byte aligned base).
+// Outputs dist (Q, N) f32, mask (Q, N) u8, ids (Q, N) i32.
 extern "C" int linear_scan_l1(const void* q, const void* x, float thresh,
                               void* dist, void* mask, void* ids, int Q, int N,
                               int d, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  const unsigned grid = tile_blocks(Q, N);
-  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
-  l1_tile_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(x), thresh,
-      static_cast<float*>(dist), static_cast<uint8_t*>(mask),
-      static_cast<int32_t*>(ids), Q, N, d);
-  return static_cast<int>(cudaGetLastError());
+  L1Args a{static_cast<const float*>(q), static_cast<const float*>(x), thresh,
+           static_cast<float*>(dist), static_cast<uint8_t*>(mask),
+           static_cast<int32_t*>(ids), Q, N, d};
+  L1Plan p{};
+  return l1_tile(a, p, static_cast<cudaStream_t>(stream), true);
 }
 
-// q: (Q, d), x: (N, d) float32, contiguous.  Output dist (Q, N) f32.
+// q: (Q, d), x: (N, d) float32, contiguous rows.  Output dist (Q, N) f32.
 extern "C" int pairwise_l1(const void* q, const void* x, void* dist, int Q,
                            int N, int d, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  const unsigned grid = tile_blocks(Q, N);
-  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
-  l1_tile_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(x), 0.f,
-      static_cast<float*>(dist), nullptr, nullptr, Q, N, d);
-  return static_cast<int>(cudaGetLastError());
+  L1Args a{static_cast<const float*>(q), static_cast<const float*>(x), 0.f,
+           static_cast<float*>(dist), nullptr, nullptr, Q, N, d};
+  L1Plan p{};
+  return l1_tile(a, p, static_cast<cudaStream_t>(stream), true);
+}
+
+// The layout linear_scan_l1 / pairwise_l1 launch for these pointers and this
+// shape, without launching: out[0..8] = copy width (floats), d-columns of the
+// queries staged at once, ring stages, dynamic shared memory (bytes), query
+// groups, row tiles, resident blocks an SM, blocks walking a group's tiles,
+// 8-query sets a group (the first ones one more).  Returns a cudaError_t.
+extern "C" int l1_tile_plan(const void* q, const void* x, int Q, int N, int d,
+                            int* out) {
+  if (Q <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  L1Args a{static_cast<const float*>(q), static_cast<const float*>(x), 0.f,
+           nullptr, nullptr, nullptr, Q, N, d};
+  L1Plan p{};
+  const int err = l1_tile(a, p, nullptr, false);
+  const int v[9] = {p.vec, p.panel, p.stages, p.smem, p.groups, p.tiles,
+                    p.occupancy, p.walkers, p.sets};
+  std::copy(v, v + 9, out);
+  return err;
 }
 
 // q: (Q, W), x: (N, W) packed 32-bit codes (int32 bit views read as
@@ -871,37 +1429,42 @@ extern "C" int hamming(const void* q, const void* x, void* out, int Q, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// metric: 0 l2, 1 l1, 2 cosine (x, q float32), 3 hamming (x, q int32 bit
-// views of packed uint32 codes).  x: (n, d), q: (Q, d), ids and prev:
-// (Q, C) int32, contiguous.  Outputs dist (Q, C) f32, mask (Q, C) u8.
+// metric: 0 l2, 1 l1, 2 cosine on unit corpus rows (x, q float32), 3
+// hamming (x, q int32 bit views of packed uint32 codes).  x: (n, d), q:
+// (Q, d), cands: (Q, C) int32 in [0, n] (n the sentinel), any order,
+// contiguous.  Outputs ids (Q, C)
+// int32 (cands sorted), dist (Q, C) f32, mask (Q, C) u8.
 extern "C" int lsh_scan(int metric, const void* x, const void* q,
-                        const void* ids, const void* prev, float thresh,
-                        void* dist, void* mask, int Q, int C, int n, int d,
-                        void* stream) {
-  const int64_t slots = static_cast<int64_t>(Q) * C;
-  if (slots <= 0) return 0;
-  const unsigned blocks =
-      static_cast<unsigned>((slots + kWarpsPerBlock - 1) / kWarpsPerBlock);
+                        const void* cands, float thresh, void* ids, void* dist,
+                        void* mask, int Q, int C, int n, int d, void* stream) {
+  if (Q <= 0 || C <= 0) return 0;
+  if (n < 0 || d < 0) return static_cast<int>(cudaErrorInvalidValue);
+  LshPlan p{};
+  const int err = lsh_plan(x, Q, C, n, d, p);
+  if (err) return err;
+  const LshArgs a{x, q, static_cast<const int32_t*>(cands), thresh,
+                  static_cast<int32_t*>(ids), static_cast<float*>(dist),
+                  static_cast<uint8_t*>(mask), Q, C, n, d, p.width, p.dcap,
+                  p.group};
   auto s = static_cast<cudaStream_t>(stream);
-  auto* i = static_cast<const int32_t*>(ids);
-  auto* p = static_cast<const int32_t*>(prev);
-  auto* dd = static_cast<float*>(dist);
-  auto* mm = static_cast<uint8_t*>(mask);
   switch (metric) {
-    case kL2:
-      lsh_scan_kernel<kL2><<<blocks, kWarpsPerBlock * 32, 0, s>>>(x, q, i, p, thresh, dd, mm, Q, C, n, d);
-      break;
-    case kL1:
-      lsh_scan_kernel<kL1><<<blocks, kWarpsPerBlock * 32, 0, s>>>(x, q, i, p, thresh, dd, mm, Q, C, n, d);
-      break;
-    case kCosine:
-      lsh_scan_kernel<kCosine><<<blocks, kWarpsPerBlock * 32, 0, s>>>(x, q, i, p, thresh, dd, mm, Q, C, n, d);
-      break;
-    case kHamming:
-      lsh_scan_kernel<kHamming><<<blocks, kWarpsPerBlock * 32, 0, s>>>(x, q, i, p, thresh, dd, mm, Q, C, n, d);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kL2: return run_lsh_metric<kL2>(a, p, s);
+    case kL1: return run_lsh_metric<kL1>(a, p, s);
+    case kCosineUnit: return run_lsh_metric<kCosineUnit>(a, p, s);
+    case kHamming: return run_lsh_metric<kHamming>(a, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// The layout lsh_scan launches for this x and shape, without launching:
+// out[0..5] = blocks a query (splits), ids a block owns (width), distinct
+// ids a block holds at once, copy width of the gather (elements), lanes a
+// row, dynamic shared memory (bytes).  Returns a cudaError_t.
+extern "C" int lsh_scan_plan(const void* x, int Q, int C, int n, int d,
+                             int* out) {
+  LshPlan p{};
+  const int err = lsh_plan(x, Q, C, n, d, p);
+  const int v[6] = {p.splits, p.width, p.dcap, p.vec, p.group, p.smem};
+  std::copy(v, v + 6, out);
+  return err;
 }

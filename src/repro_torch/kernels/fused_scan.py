@@ -7,12 +7,13 @@
     CUDA cores).  Replaces ``linear_scan_l1_pallas``.
   * ``linear_scan_hamming`` — the same pass over packed 32-bit codes
     (XOR + popcount).  Replaces ``linear_scan_hamming_pallas``.
-  * ``lsh_scan`` — the LSH route's verification: sorted-run dedup, row
-    gather, rowwise l2/l1/cosine/Hamming distance and threshold over the
-    (Q, C) candidates.  Replaces ``lsh_scan_pallas``.  The corpus is
+  * ``lsh_scan`` — the LSH route's verification: the candidates' sort,
+    dedup, row gather, rowwise l2/l1/cosine/Hamming distance and threshold
+    over the unsorted (Q, C) candidates, in one kernel.  Replaces
+    ``lsh_scan_pallas`` and the sort in front of it.  The corpus is
     gathered from device memory, never staged whole on chip.
 
-Their plain versions are ``ref.fused_linear_scan`` and
+Their plain versions are ``ref.fused_linear_scan`` and ``torch.sort`` +
 ``ref.fused_lsh_scan``; ``ops`` chooses between them by device.
 """
 from __future__ import annotations
@@ -26,11 +27,13 @@ from repro_torch.kernels.ref import fused_linear_scan as fused_linear_scan_ref
 from repro_torch.kernels.ref import fused_lsh_scan as fused_lsh_scan_ref
 
 __all__ = ["linear_scan_dot", "linear_scan_l1", "linear_scan_hamming",
-           "lsh_scan", "fused_linear_scan_ref", "fused_lsh_scan_ref",
-           "LSH_METRICS"]
+           "lsh_scan", "lsh_scan_plan", "l1_tile_plan", "dot_tile_plan",
+           "fused_linear_scan_ref", "fused_lsh_scan_ref", "LSH_METRICS"]
 
 LINEAR_MODES = {"l2": 0, "cosine": 1}
-LSH_METRICS = {"l2": 0, "l1": 1, "cosine": 2, "hamming": 3}
+# "cosine_unit": cosine on corpus rows the caller scaled to unit length (the
+# query rows are scaled in the kernel)
+LSH_METRICS = {"l2": 0, "l1": 1, "cosine_unit": 2, "hamming": 3}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -112,34 +115,83 @@ def linear_scan_hamming(thresh: float, q: torch.Tensor, x: torch.Tensor):
 
 
 def lsh_scan(thresh: float, x: torch.Tensor, q: torch.Tensor,
-             ids: torch.Tensor, prev: torch.Tensor, *, metric: str):
-    """Verify sorted (Q, C) int32 candidates -> (dists f32, mask bool).
+             cands: torch.Tensor, *, metric: str):
+    """Sort and verify (Q, C) int32 candidates -> (ids i32, dists f32,
+    mask bool), each (Q, C).
 
     x: (n, d) corpus and q: (Q, d) queries, float32 — or int32 bit views
-    of packed uint32 codes for "hamming"; ``prev`` is ``ids`` shifted
-    right one slot (-1 first); sentinel = n.  Distances of masked-out
-    duplicate and sentinel slots are +inf and not part of the contract.
+    of packed uint32 codes for "hamming"; for "cosine_unit" x holds unit
+    rows.  ``cands`` in any order, each in [0, n] (sentinel = n; an id
+    outside that range is never gathered, and the outputs are then
+    unspecified).  ``ids`` is ``torch.sort(cands)``'s values; ``mask``
+    marks each run's first slot whose row lies within ``thresh``.
+    Distances of duplicate and sentinel slots are +inf and not part of
+    the contract.
     """
-    nq, c = ids.shape
+    nq, c = cands.shape
     n, d = x.shape
     dtype = torch.int32 if metric == "hamming" else torch.float32
     _build.check(x, "x", dtype, (n, d))
     _build.check(q, "q", dtype, (nq, d))
-    _build.check(ids, "ids", torch.int32, (nq, c))
-    _build.check(prev, "prev", torch.int32, (nq, c))
+    _build.check(cands, "cands", torch.int32, (nq, c))
     dev = x.device
+    ids = torch.empty((nq, c), dtype=torch.int32, device=dev)
     dist = torch.empty((nq, c), dtype=torch.float32, device=dev)
     mask = torch.empty((nq, c), dtype=torch.bool, device=dev)
     if nq == 0 or c == 0:
-        return dist, mask
+        return ids, dist, mask
     _build.launch("fused_scan", "lsh_scan",
-                  [_I, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P],
+                  [_I, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
                   LSH_METRICS[metric], x.data_ptr(), q.data_ptr(),
-                  ids.data_ptr(), prev.data_ptr(), float(thresh),
+                  cands.data_ptr(), float(thresh), ids.data_ptr(),
                   dist.data_ptr(), mask.data_ptr(), nq, c, n, d,
                   _build.stream(x))
     lsh_scan.launches += 1
-    return dist, mask
+    return ids, dist, mask
+
+
+def lsh_scan_plan(x: torch.Tensor, nq: int, c: int) -> dict:
+    """The layout ``lsh_scan`` launches for the corpus ``x`` (on the card)
+    and (nq, c) candidates: blocks a query (splits), ids a block owns
+    (width), distinct ids a block holds at once, the gather's copy width in
+    elements, lanes a row and dynamic shared memory in bytes."""
+    return _plan("lsh_scan_plan", [_P, _I, _I, _I, _I],
+                 (x.data_ptr(), nq, c, x.shape[0], x.shape[1]),
+                 ("splits", "width", "distinct_at_once", "copy_elems",
+                  "lanes_per_row", "smem_bytes"))
+
+
+def l1_tile_plan(q: torch.Tensor, x: torch.Tensor) -> dict:
+    """The layout ``linear_scan_l1`` / ``pairwise_l1`` launch for (q, x)
+    on the card."""
+    return _plan("l1_tile_plan", [_P, _P, _I, _I, _I],
+                 (q.data_ptr(), x.data_ptr(), q.shape[0], x.shape[0],
+                  x.shape[1]),
+                 ("copy_floats", "panel", "stages", "smem_bytes", "groups",
+                  "tiles", "blocks_per_sm", "blocks_per_group",
+                  "query_sets_per_group"))
+
+
+def dot_tile_plan(q: torch.Tensor, x: torch.Tensor) -> dict:
+    """The layout ``linear_scan_dot`` / ``pairwise_dot`` launch for (q, x)
+    on the card."""
+    return _plan("dot_tile_plan", [_P, _P, _I, _I, _I],
+                 (q.data_ptr(), x.data_ptr(), q.shape[0], x.shape[0],
+                  x.shape[1]),
+                 ("copy_floats", "n_fragments", "warps", "group", "groups", "tiles",
+                  "panel", "stages", "smem_bytes", "blocks_per_sm",
+                  "blocks_per_group"))
+
+
+def _plan(entry: str, argtypes, args, keys) -> dict:
+    out = (_I * len(keys))()
+    fn = getattr(_build.load("fused_scan"), entry)
+    fn.argtypes = [*argtypes, ctypes.POINTER(_I)]
+    fn.restype = _I
+    err = fn(*args, out)
+    if err:
+        raise RuntimeError(f"{entry}: cudaError {err}")
+    return dict(zip(keys, out))
 
 
 linear_scan_dot.launches = 0

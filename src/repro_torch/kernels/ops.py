@@ -25,7 +25,8 @@ from repro_torch.u32 import as_i32, as_u32
 
 __all__ = ["pairwise_dist", "hamming_dist", "simhash_fingerprint",
            "hll_merge_estimate", "pad_to", "metric_radius_transform",
-           "fused_linear_scan", "fused_lsh_scan", "resolve_impl"]
+           "fused_linear_scan", "fused_lsh_scan", "fused_lsh_scan_unsorted",
+           "resolve_impl"]
 
 IMPLS = ("ref", "cuda")
 
@@ -165,35 +166,67 @@ def fused_linear_scan(q: torch.Tensor, x: torch.Tensor, r, metric: str,
     return ids, dists, mask
 
 
-def fused_lsh_scan(x: torch.Tensor, ids_sorted: torch.Tensor,
-                   q: torch.Tensor, r, metric: str,
-                   impl: Optional[str] = None):
-    """Fused LSH-route candidate verification: sorted-run dedup + row
-    gather + rowwise distance + threshold in one kernel pass over the
-    (Q, C) candidates.
+def fused_lsh_scan_unsorted(x: torch.Tensor, cands: torch.Tensor,
+                            q: torch.Tensor, r, metric: str,
+                            impl: Optional[str] = None,
+                            x_unit: Optional[torch.Tensor] = None):
+    """Fused LSH-route candidate verification from the gather's unsorted
+    candidates: sort + run dedup + row gather + rowwise distance +
+    threshold.
 
-    x: (n, d) corpus (packed 32-bit codes for hamming); ids_sorted:
-    (Q, C) *sorted* candidate ids with sentinel = n; q: (Q, d).  Returns
-    (ids (Q, C) i32, dists (Q, C) f32, mask (Q, C) bool) with duplicates,
-    sentinels and out-of-radius rows masked.
+    x: (n, d) corpus (packed 32-bit codes for hamming); cands: (Q, C)
+    candidate ids in any order, each in [0, n] (sentinel = n); q: (Q, d).
+    Returns (ids (Q, C) i32 sorted, dists (Q, C) f32, mask (Q, C) bool)
+    with duplicates, sentinels and out-of-radius rows masked.  On CUDA
+    one kernel (``fused_scan.lsh_scan``); the plain version sorts with
+    ``torch.sort`` and runs ``ref.fused_lsh_scan``.  ``x_unit``: for
+    cosine, x's rows already scaled to unit length (contiguous float32),
+    which the kernel gathers instead of x, computing 1 - x.q against the
+    query row it scales itself (made here when None); the plain version
+    ignores it.
     """
     impl = resolve_impl(impl, x.device)
     thresh = metric_radius_transform(metric, r)
-    prev = torch.cat([torch.full(ids_sorted.shape[:-1] + (1,), -1,
-                                 dtype=ids_sorted.dtype,
-                                 device=ids_sorted.device),
-                      ids_sorted[..., :-1]], dim=-1)
     if impl == "ref":
-        return _ref.fused_lsh_scan(x, ids_sorted, prev, q, thresh, metric)
+        ids = torch.sort(cands, dim=-1).values
+        return _ref.fused_lsh_scan(x, ids, _run_prev(ids), q, thresh, metric)
     if metric == "hamming":
         x, q = as_i32(x), as_i32(q)
+    elif metric == "cosine":
+        if x_unit is None:
+            x_unit = _ref.unit_rows(x.to(torch.float32))
+        x, q, metric = x_unit, q.to(torch.float32), "cosine_unit"
     else:
         x, q = x.to(torch.float32), q.to(torch.float32)
-    dists, mask = _fs.lsh_scan(
-        thresh, x.contiguous(), q.contiguous(),
-        ids_sorted.to(torch.int32).contiguous(),
-        prev.to(torch.int32).contiguous(), metric=metric)
-    return ids_sorted, dists, mask
+    return _fs.lsh_scan(thresh, x.contiguous(), q.contiguous(),
+                        cands.to(torch.int32).contiguous(), metric=metric)
+
+
+def _run_prev(ids: torch.Tensor) -> torch.Tensor:
+    """``ids`` shifted right one slot, -1 first: ``ids != prev`` marks
+    the runs' first slots (the plain version's dedup)."""
+    return torch.cat([torch.full(ids.shape[:-1] + (1,), -1, dtype=ids.dtype,
+                                 device=ids.device), ids[..., :-1]], dim=-1)
+
+
+def fused_lsh_scan(x: torch.Tensor, ids_sorted: torch.Tensor,
+                   q: torch.Tensor, r, metric: str,
+                   impl: Optional[str] = None):
+    """Fused LSH-route candidate verification of *sorted* candidates:
+    run dedup + row gather + rowwise distance + threshold, as
+    ``repro.kernels.ops.fused_lsh_scan``.
+
+    x: (n, d) corpus (packed 32-bit codes for hamming); ids_sorted:
+    (Q, C) sorted candidate ids with sentinel = n; q: (Q, d).  Returns
+    (ids (Q, C) i32, dists (Q, C) f32, mask (Q, C) bool) with duplicates,
+    sentinels and out-of-radius rows masked.  On CUDA it runs the kernel
+    of ``fused_lsh_scan_unsorted``: sorting sorted ids changes nothing.
+    """
+    if resolve_impl(impl, x.device) == "ref":
+        thresh = metric_radius_transform(metric, r)
+        return _ref.fused_lsh_scan(x, ids_sorted, _run_prev(ids_sorted), q,
+                                   thresh, metric)
+    return fused_lsh_scan_unsorted(x, ids_sorted, q, r, metric, impl=impl)
 
 
 def hll_merge_estimate(regs: torch.Tensor,

@@ -68,7 +68,7 @@ class MainSegment:
     ids: torch.Tensor          # (n,) int32 external doc ids (-1 on pad rows)
     bucket_ids: torch.Tensor   # (n, L) int32 per-table buckets (B on pad rows)
     tables: LSHTables
-    x_unit: Optional[torch.Tensor] = None   # cosine: x's unit rows, for K1
+    x_unit: Optional[torch.Tensor] = None   # cosine: x's unit rows, for K1, K2
 
     @property
     def n(self) -> int:

@@ -15,10 +15,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
                                  hll_merge, ops, simhash)
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
-from torch_cases import (DOT_CASES, RADII, TOL, as_tensor,  # noqa: E402
-                         dist64, dot_inputs, handcrafted_ids, hll_regs,
-                         masks_outside_band_agree, on_device, pair,
-                         simhash_flips, unit_rows_np)
+from torch_cases import (DOT_CASES, L1_CASES, LSH_CASES,  # noqa: E402
+                         RADII, TOL, as_tensor, dist64,
+                         dot_inputs, handcrafted_ids, hll_regs, l1_inputs,
+                         lsh_dist64, lsh_inputs, masks_outside_band_agree,
+                         on_device, pair, simhash_flips, unit_rows_np)
 
 RNG = np.random.default_rng(0)
 
@@ -112,6 +113,65 @@ def test_cuda_lsh_scan_matches_plain(cuda, metric):
     assert not m[2].any()
     np.testing.assert_allclose(a[1].cpu().numpy()[m], b[1].cpu().numpy()[m],
                                **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,d,n,q,c,kind", LSH_CASES)
+def test_cuda_lsh_scan_unsorted_matches_plain(cuda, metric, d, n, q, c, kind):
+    """The fused K2 (sort, dedup, gather, verify) from unsorted ids against
+    torch.sort + the plain verification: ids bit-equal, masks equal off
+    the 1e-5 band of the threshold, distances within TOL under both
+    masks.  Cosine runs twice: on x (``ops`` scales the rows) and on the
+    unit rows the indexes keep (``x_unit``)."""
+    dtype = torch.int32 if metric == "hamming" else torch.float32
+    width = fused_scan.lsh_scan_plan(
+        torch.empty((n, d), dtype=dtype, device=cuda), q, c)["width"]
+    qa, xa, ids, t, r = lsh_inputs(metric, d, n, q, c, kind, width, RNG)
+    args = (as_tensor(xa).to(cuda), torch.from_numpy(ids).to(cuda),
+            as_tensor(qa).to(cuda), r, metric)
+    b = ops.fused_lsh_scan_unsorted(*args, impl="ref")
+    ids_p = b[0].cpu().numpy()
+    d64 = lsh_dist64(metric, qa, xa, ids_p)
+    units = [None, unit_rows(args[0]).contiguous()] if metric == "cosine" else [None]
+    for x_unit in units:
+        before = fused_scan.lsh_scan.launches
+        a = ops.fused_lsh_scan_unsorted(*args, impl="cuda", x_unit=x_unit)
+        assert fused_scan.lsh_scan.launches == before + 1
+        np.testing.assert_array_equal(a[0].cpu().numpy(), ids_p)
+        mk, mp = a[2].cpu().numpy(), b[2].cpu().numpy()
+        masks_outside_band_agree(mk, mp, d64, t)
+        both = mk & mp
+        np.testing.assert_allclose(a[1].cpu().numpy()[both],
+                                   b[1].cpu().numpy()[both], **TOL)
+        if q > 1:
+            assert not mk[-1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["linear_scan_l1", "pairwise_l1"])
+@pytest.mark.parametrize("q,n,d,view", L1_CASES)
+def test_cuda_l1_tile_matches_plain(cuda, mode, q, n, d, view):
+    """K4 (through ``ops.fused_linear_scan``) and K7 (through
+    ``ops.pairwise_dist``) against the plain L1 on the L1 tile's edge
+    shapes: exact ids, distances within TOL, masks equal off the 1e-5 band
+    of a threshold at an attained distance."""
+    qa, xa, t = l1_inputs(q, n, d, RNG)
+    qt, xt = torch.from_numpy(qa).to(cuda), on_device(xa, view, cuda)
+    kernel = getattr(fused_scan if mode == "linear_scan_l1" else distances, mode)
+    before = kernel.launches
+    if mode == "pairwise_l1":
+        a = ops.pairwise_dist(qt, xt, "l1", impl="cuda")
+        b = ops.pairwise_dist(qt, xt, "l1", impl="ref")
+        assert kernel.launches == before + 1
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+        return
+    a = ops.fused_linear_scan(qt, xt, t, "l1", impl="cuda")
+    b = ops.fused_linear_scan(qt, xt, t, "l1", impl="ref")
+    assert kernel.launches == before + 1
+    np.testing.assert_array_equal(a[0].cpu().numpy(), b[0].cpu().numpy())
+    np.testing.assert_allclose(a[1].cpu().numpy(), b[1].cpu().numpy(), **TOL)
+    masks_outside_band_agree(a[2].cpu().numpy(), b[2].cpu().numpy(),
+                             dist64("l1", qa, xa), t)
 
 
 @pytest.mark.gpu

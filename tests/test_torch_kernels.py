@@ -26,7 +26,7 @@ from repro_torch.kernels import hll_merge  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from torch_cases import (RADII, TOL, as_tensor, handcrafted_ids,  # noqa: E402
-                         hll_regs, pair)
+                         hll_regs, lsh_ids, pair)
 
 RNG = np.random.default_rng(0)
 JAX_IMPLS = ["pallas_interpret", "ref"]
@@ -80,6 +80,36 @@ def test_fused_lsh_scan_handcrafted_matches_repro(jimpl, metric):
     np.testing.assert_allclose(da.numpy()[m], np.asarray(db)[m], **TOL)
     assert not m[2].any()
     for qi in range(2):
+        rep = ia.numpy()[qi][m[qi]]
+        assert len(rep) == len(set(rep.tolist()))
+
+
+@pytest.mark.parametrize("jimpl", JAX_IMPLS)
+@pytest.mark.parametrize("metric", ["l2", "l1", "cosine", "hamming"])
+@pytest.mark.parametrize("n,q,c,kind", [
+    (40, 3, 8, "handcrafted"), (40, 5, 33, "one_id"), (300, 7, 64, "boundary"),
+    (300, 3, 50, "one_split"), (1, 2, 5, "random")])
+def test_fused_lsh_scan_unsorted_matches_repro(jimpl, metric, n, q, c, kind):
+    """``ops.fused_lsh_scan_unsorted`` (unsorted candidates, as the gather
+    leaves them) against repro's ``jnp.sort`` + ``fused_lsh_scan``: shuffled
+    duplicate runs, a sentinel share and an all-sentinel row, a row of one
+    repeated id, ids at the boundaries of splits of 19 ids or inside one."""
+    qa, xa = _pair(metric, q, n)
+    if kind == "handcrafted":
+        ids = RNG.permuted(handcrafted_ids(n), axis=1)
+    else:
+        ids = lsh_ids(kind, n, q, c, 19, RNG)
+    r = RADII[metric]
+    ia, da, ma = tops.fused_lsh_scan_unsorted(_t(xa), torch.from_numpy(ids),
+                                              _t(qa), r, metric)
+    ib, db, mb = jops.fused_lsh_scan(_j(xa), jnp.sort(_j(ids), axis=-1),
+                                     _j(qa), r, metric, impl=jimpl)
+    np.testing.assert_array_equal(ia.numpy(), np.asarray(ib))
+    np.testing.assert_array_equal(ma.numpy(), np.asarray(mb))
+    m = ma.numpy()
+    np.testing.assert_allclose(da.numpy()[m], np.asarray(db)[m], **TOL)
+    assert not m[-1].any()                # the all-sentinel row
+    for qi in range(q):
         rep = ia.numpy()[qi][m[qi]]
         assert len(rep) == len(set(rep.tolist()))
 

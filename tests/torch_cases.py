@@ -116,8 +116,14 @@ def on_device(a, view, device):
 
 
 def dist64(metric, q, x):
-    """(Q, N) float64 squared-l2 or cosine distances (norms clamped)."""
+    """(Q, N) float64 distances: squared l2, l1, cosine (norms clamped),
+    or Hamming of uint32 codes."""
+    if metric == "hamming":
+        xor = (q[:, None, :] ^ x[None, :, :]).astype(np.uint32)
+        return np.unpackbits(xor.view(np.uint8), axis=-1).sum(-1).astype(np.float64)
     q, x = q.astype(np.float64), x.astype(np.float64)
+    if metric == "l1":
+        return np.abs(q[:, None, :] - x[None, :, :]).sum(-1)
     if metric == "l2":
         return np.maximum((q * q).sum(1)[:, None] + (x * x).sum(1)[None, :]
                           - 2.0 * q @ x.T, 0.0)
@@ -132,3 +138,98 @@ def masks_outside_band_agree(mask, mask_plain, d64, t):
     near = np.abs(d64 - t) <= THRESH_EPS * max(1.0, abs(t))
     assert not ((mask != mask_plain) & ~near).any(), "masks differ off t"
     assert not ((mask != (d64 <= t)) & ~near).any(), "masks wrong off t"
+
+
+# The L1 tile (K4 linear_scan_l1, K7 pairwise_l1): (Q, N, d, view).  Q across
+# warps and query groups (a last group of 1, 4 or 8 queries), ragged row
+# tiles (N = 129, 257, 333, 515, 4,097), d = 1, 37, 54, 64, 65 (ragged and
+# whole 32-column chunks, d % 4 = 1, 2, 0) and 400 (queries staged in
+# panels), copy widths 16 / 8 / 4 B and the corpus as x[1:] ("rows") or 4
+# bytes into its buffer ("flat").
+L1_CASES = [(1, 1, 1, None), (8, 129, 37, None), (33, 257, 54, None),
+            (100, 333, 64, None), (129, 515, 65, None), (32, 4097, 54, None),
+            (65, 333, 54, "flat"), (33, 257, 64, "rows"), (7, 515, 1, "flat"),
+            (40, 300, 400, None), (32, 129, 54, "rows")]
+
+
+def l1_inputs(q, n, d, rng):
+    """float32 (q, d) queries and (n, d) rows, and a threshold at the
+    median L1 distance (an attained value)."""
+    qa = rng.normal(size=(q, d)).astype(np.float32)
+    xa = rng.normal(size=(n, d)).astype(np.float32)
+    return qa, xa, float(np.median(dist64("l1", qa, xa)))
+
+
+# The fused LSH verification (K2): (metric, d or W words, n, Q, C, kind),
+# every (n, Q, C, kind) of LSH_SHAPES with every dimension of LSH_DIMS
+# (rows of 512 B and more, d = 160 and 254 and W = 129, go through the
+# kernel's cp.async.bulk ring, at 16, 8 and 4-byte alignment),
+# and two cases whose one split holds more distinct ids than a block's
+# shared memory (80,000 rows, 32 queries, 60,001 ids each in one split of
+# 10,000: the block walks its distinct ids in two passes).  Kinds
+# (lsh_ids): ids at every split boundary (s w - 1, s w) with duplicates,
+# every id inside one split, a row of one repeated id, random ids; every
+# case shuffled, with sentinels, and a last row of sentinels only where
+# Q > 1.  n = 1 and 40 (a split of one id), 5,000 and 20,000 (splits of
+# many); C = 1, 33, 5,121 and 60,001 (the ids alone past one block's
+# 227 KB of shared memory).
+LSH_SHAPES = [(1, 3, 1, "random"), (40, 3, 33, "boundary"),
+              (40, 5, 5121, "one_id"), (20000, 2, 5121, "boundary"),
+              (20000, 3, 33, "one_split"), (5000, 2, 60001, "random"),
+              (20000, 7, 5121, "random")]
+LSH_DIMS = [("l2", 1), ("l2", 2), ("l2", 32), ("l1", 37), ("l1", 54),
+            ("l1", 160), ("cosine", 254), ("cosine", 32), ("hamming", 1),
+            ("hamming", 2), ("hamming", 9), ("hamming", 129)]
+LSH_CASES = ([(m, d, *shape) for shape in LSH_SHAPES for m, d in LSH_DIMS]
+             + [("l2", 2, 80000, 32, 60001, "one_split"),
+                ("hamming", 2, 80000, 32, 60001, "one_split")])
+
+
+def lsh_ids(kind, n, q, c, width, rng):
+    """(q, c) int32 unsorted candidate ids in [0, n], n the sentinel;
+    ``width`` is the kernel's split (ids a block owns)."""
+    if kind == "boundary":
+        pool = sorted({v for s in range(0, n + width, width)
+                       for v in (s - 1, s) if 0 <= v < n})
+        ids = rng.choice(np.array(pool + [n]), size=(q, c))
+    elif kind == "one_split":
+        lo = (n // width // 2) * width
+        ids = rng.integers(lo, min(lo + width, n), (q, c))
+    else:
+        ids = rng.integers(0, n + 1, (q, c))
+    if kind == "one_id":
+        ids[0] = n // 2
+    ids[:, : c // 5] = n                  # a sentinel share
+    if q > 1:
+        ids[-1] = n
+    return rng.permuted(ids, axis=1).astype(np.int32)
+
+
+def lsh_inputs(metric, d, n, q, c, kind, width, rng):
+    """(queries, corpus, unsorted ids, t, r): float32 rows (uint32 codes
+    for hamming), t at the median distance of the distinct real candidates
+    (an attained value; r^2 for l2), r the radius to pass."""
+    if metric == "hamming":
+        qa = rng.integers(0, 2**32, (q, d), dtype=np.uint32)
+        xa = rng.integers(0, 2**32, (n, d), dtype=np.uint32)
+    else:
+        qa = rng.normal(size=(q, d)).astype(np.float32)
+        xa = rng.normal(size=(n, d)).astype(np.float32)
+    ids = lsh_ids(kind, n, q, c, width, rng)
+    d64 = lsh_dist64(metric, qa, xa, np.sort(ids, axis=1))
+    real = d64[np.isfinite(d64)]
+    t = float(np.median(real)) if real.size else 1.0
+    return qa, xa, ids, t, (float(np.sqrt(t)) if metric == "l2" else t)
+
+
+def lsh_dist64(metric, qa, xa, ids_sorted):
+    """(Q, C) float64 distance of each run's first slot of sorted ids to
+    its query; +inf on duplicates and sentinels."""
+    n = xa.shape[0]
+    prev = np.concatenate([np.full((len(ids_sorted), 1), -1), ids_sorted[:, :-1]], 1)
+    first = (ids_sorted != prev) & (ids_sorted < n)
+    out = np.full(ids_sorted.shape, np.inf)
+    for i in range(len(ids_sorted)):
+        rows = ids_sorted[i][first[i]]
+        out[i, first[i]] = dist64(metric, qa[i:i + 1], xa[rows])[0]
+    return out

@@ -49,17 +49,81 @@ VARIANTS = {
 }
 
 
-def build(name: str, text: str) -> tuple[str, ctypes.CDLL]:
-    OUT.mkdir(parents=True, exist_ok=True)
-    src, lib = OUT / f"{name}.cu", OUT / f"{name}.so"
+def build(name: str, text: str, out: Path = OUT) -> tuple[str, ctypes.CDLL]:
+    """nvcc ``text`` into ``out/name.so`` with the flags of ``_build``
+    (ptxas' report in ``out/name.ptxas.log``) and load it."""
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / f"{name}.cu", out / f"{name}.so"
     src.write_text(text)
-    from repro_torch.kernels._build import nvcc
-    r = subprocess.run([nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                        "-o", str(lib), str(src)], capture_output=True, text=True)
+    from repro_torch.kernels._build import NVCC_FLAGS, nvcc
+    r = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+                       capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{r.stderr}")
+    (out / f"{name}.ptxas.log").write_text(r.stderr + r.stdout)
     return name, ctypes.CDLL(str(lib))
+
+
+def cuda_ms(fn, flush, iters=10) -> float:
+    """Median device ms of ``fn`` from CUDA events, ``flush`` (a buffer
+    larger than the L2) zeroed before each launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def graph_ms(fn, flush, iters=10) -> float:
+    """Median device ms of ``fn`` captured once in a CUDA graph and
+    replayed, ``flush`` zeroed before each replay: the kernels' own time,
+    without the host's launch work that ``cuda_ms``'s events bracket too."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    del graph
+    return statistics.median(times)
+
+
+def report(res, names, cases) -> None:
+    """Median and range of each (build, case), and how often ``change``
+    beat ``parent`` round for round."""
+    for c in cases:
+        for name in names:
+            t = res[(name, c)]
+            line = (f"{c} {name}: median {statistics.median(t):.4f} ms, range "
+                    f"{min(t):.4f}-{max(t):.4f}")
+            if name == "change" and "parent" in names:
+                p = res[("parent", c)]
+                line += (f"; faster than parent in "
+                         f"{sum(a < b for a, b in zip(t, p))}/{len(t)} rounds")
+            print(line, flush=True)
 
 
 def main() -> int:
@@ -90,21 +154,6 @@ def main() -> int:
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
-    def cuda_ms(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        return statistics.median(times)
-
     g = torch.Generator(device=dev).manual_seed(0)
     unit = lambda *shape: ref.unit_rows(  # noqa: E731
         torch.randn(*shape, device=dev, generator=g)).contiguous()
@@ -131,17 +180,8 @@ def main() -> int:
         for name in (names if rnd % 2 == 0 else names[::-1]):
             _build._libs["fused_scan"] = libs[name]
             for c, fn in cases.items():
-                res[(name, c)].append(cuda_ms(fn))
-    for c in cases:
-        for name in names:
-            t = res[(name, c)]
-            line = (f"{c} {name}: median {statistics.median(t):.4f} ms, range "
-                    f"{min(t):.4f}-{max(t):.4f}")
-            if name == "change" and "parent" in libs:
-                p = res[("parent", c)]
-                line += (f"; faster than parent in "
-                         f"{sum(a < b for a, b in zip(t, p))}/{len(t)} rounds")
-            print(line, flush=True)
+                res[(name, c)].append(cuda_ms(fn, flush))
+    report(res, names, cases)
     return 0
 
 
