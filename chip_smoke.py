@@ -8,9 +8,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel)
      and log each kernel's registers, static shared memory and spills;
   2. each kernel (K1-K9) against its plain PyTorch version on hand-made
-     edge cases (the dot-form tile of K1 and K6, the fused K2 and the L1
-     tile of K4 and K7 on the GPU tests' cases, ``tests/torch_cases.py``
-     ``DOT_CASES``, ``LSH_SHAPES`` x ``LSH_DIMS`` and ``L1_CASES``);
+     edge cases (the dot-form tile of K1 and K6, the fused K2, the L1
+     tile of K4 and K7, the route estimate K3 and the grouped Hamming
+     scan K5 on the GPU tests' cases, ``tests/torch_cases.py``
+     ``DOT_CASES``, ``LSH_SHAPES`` x ``LSH_DIMS``, ``L1_CASES``,
+     ``ROUTE_CASES`` and ``GROUPED_CASES``);
   3. ``calibrate`` on the card for cosine (d = 254), l2 (d = 32) and l1
      (d = 54): beta/alpha beside the paper's presets, the distance
      kernel's launches inside each call (K6 or K7, a warm-up and 5);
@@ -38,7 +40,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      compacted and checked again;
   7. the MNIST analogue (59,900 64-bit codes, Hamming): the static index
      at its mixing radius, K8 on the 100 queries x the codes, and a
-     churned streaming index;
+     churned streaming index.  On both churned streaming indexes (CoverType,
+     MNIST) K3 over all frozen segments, and on MNIST K5 over all segments,
+     against their plain versions and bit for bit against the engine's
+     per-segment composition (each segment's terms or search, then a sum
+     or a concatenation), timed beside it;
   8. a ``{"kernels": [...]}`` JSON line with each kernel's launches, times,
      plain and library times and bound (for K1 and K6 the larger of the
      bytes and three TF32 passes on the tensor cores, both terms and the
@@ -48,9 +54,15 @@ Phases (each raises on failure, so any failure exits non-zero):
      device time of a CUDA graph replay, ``device_ms``); then the last
      line ``{"ok": true, "device": {...}}``.
 
-Each hybrid query's ``torch.profiler`` trace also logs its sort kernels
-per batch: the LSH route sorts its candidates inside K2, so none is
-``lsh_search``'s.
+Each query path's kernel launches are asserted exactly where the path
+fixes them: K3 once a batch on every path of every index (over all
+frozen segments), K5 once a linear group and once for the delta of an
+LSH group on a Hamming index, no kernel off its path.  Each hybrid
+query's ``torch.profiler`` trace also logs its sort kernels per batch
+(the LSH route sorts its candidates inside K2, so none is
+``lsh_search``'s) and its kernels per batch (all, ``cat``, index /
+gather, ``where``), and a trace of ``estimate()`` its kernels and device
+ms per call.
 
 Neighbor sets may differ only in rows whose float64 distance lies within
 1e-5 * max(1, |t|) of the threshold t: the kernel and the plain version
@@ -117,6 +129,7 @@ class Smoke:
                          "linear_scan_l1": fused_scan.linear_scan_l1,
                          "linear_scan_hamming": fused_scan.linear_scan_hamming,
                          "lsh_scan": fused_scan.lsh_scan,
+                         "route_estimate": hll_merge.route_estimate,
                          "hll_merge_estimate": hll_merge.hll_merge_estimate,
                          "pairwise_dot": distances.pairwise_dot,
                          "pairwise_l1": distances.pairwise_l1,
@@ -314,6 +327,8 @@ def phase_edge_cases(s: Smoke):
     dot_flips = dot_edge_cases(s, rng)
     lsh_flips = lsh_edge_cases(s, rng)
     l1_flips = l1_edge_cases(s, rng)
+    route_edge_cases(s, rng)
+    grouped_edge_cases(s, rng)
     sent = 40
     hand = torch.tensor(np.sort(np.array([
         [0, 0, 0, 1, 2, 2, 5, sent], [3, 7, 7, 9, sent, sent, sent, sent],
@@ -417,6 +432,15 @@ def phase_edge_cases(s: Smoke):
         f"ids equal torch.sort's; "
         f"{lsh_flips} masks differ, all within {THRESH_EPS:g} of the "
         f"threshold")
+    log("[edge] K3 route estimate (ROUTE_CASES: S = 1-65 segments, two "
+        "launches past 64, V = L and L T, m = 16-1,024, Q = 1-100, no "
+        "tombstones, a segment of dead rows): collisions exact, estimates "
+        f"within {HLL_RTOL:g} of the plain version and bit for bit the "
+        "per-segment composition of its one-segment case")
+    log("[edge] K5 grouped Hamming scan (GROUPED_CASES: S = 1-71 segments, "
+        "Q = 1-100, W = 1, 2, 3, 4, 8, 9, 16, odd sums of rows, a segment of "
+        "dead rows, static and streaming epilogues): ids, distances and "
+        "masks equal the plain version's")
     log(f"[edge] K4 / K7 (the L1 tile: Q = 1-129, N = 1-4,097, d = 1, 37, 54, "
         f"64, 65, 400, x[1:] and 4-byte offset views): {l1_flips} masks "
         f"differ, all within {THRESH_EPS:g} of the threshold")
@@ -470,6 +494,68 @@ def dot_edge_cases(s, rng):
             torch.testing.assert_close(
                 c, ops.pairwise_dist(qt, xt, metric, impl="ref"), **TOL)
     return flips
+
+
+def route_edge_cases(s, rng):
+    """K3 (``ops.route_estimate``) on the GPU tests' cases
+    (``tests/torch_cases.py`` ROUTE_CASES): one launch per 64 segments,
+    collisions equal to the plain version's, estimates within HLL_RTOL of
+    it and bit for bit the per-segment composition of the kernel's
+    one-segment case (the engine's estimate before the kernel took all
+    segments)."""
+    torch = s.torch
+    from repro_torch.kernels import hll_merge, ops
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import (ROUTE_CASES, route_estimate_per_segment,
+                             route_tables)
+
+    def on(a):
+        return None if a is None else torch.from_numpy(a).to(s.dev)
+
+    for case in ROUTE_CASES:
+        qb, tidx, segs = route_tables(*case, rng)
+        qb, tidx = on(qb), on(tidx)
+        tables = [ops.TableTerms(*(on(a) for a in seg)) for seg in segs]
+        before = hll_merge.route_estimate.launches
+        coll, cand = ops.route_estimate(qb, tables, tidx, impl="cuda")
+        assert hll_merge.route_estimate.launches == before + -(-len(segs) // 64), case
+        pc, pe = ops.route_estimate(qb, tables, tidx, impl="ref")
+        assert torch.equal(coll, pc), ("K3", case)
+        torch.testing.assert_close(cand, pe, rtol=HLL_RTOL, atol=0)
+        wc, we = route_estimate_per_segment(
+            qb, tables, tidx, lambda r: ops.hll_merge_estimate(r, impl="cuda"))
+        assert torch.equal(coll, wc) and torch.equal(cand, we), ("K3", case)
+
+
+def grouped_edge_cases(s, rng):
+    """K5 (``ops.grouped_linear_scan``, Hamming) on the GPU tests' cases
+    (``tests/torch_cases.py`` GROUPED_CASES): one launch per 64 segments,
+    ids, distances and masks equal to the plain version's."""
+    np, torch = s.np, s.torch
+    from repro_torch.kernels import fused_scan, ops
+    from repro_torch.kernels.ref import EXT_SENTINEL
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import GROUPED_CASES, grouped_parts
+
+    def on(a):
+        return None if a is None else torch.from_numpy(a).to(s.dev)
+
+    for q, w, sizes, kind in GROUPED_CASES:
+        qa, parts, t = grouped_parts(q, w, sizes, kind, rng)
+        qt = on(qa.view(np.int32))
+        tparts = [ops.ScanPart(on(x.view(np.int32)), on(live), on(ext))
+                  for x, live, ext in parts]
+        what = ("K5", q, w, len(sizes), kind)
+        before = fused_scan.linear_scan_hamming.launches
+        a = ops.grouped_linear_scan(qt, tparts, t, "hamming", impl="cuda")
+        assert fused_scan.linear_scan_hamming.launches == \
+            before + -(-len(sizes) // 64), what
+        b = ops.grouped_linear_scan(qt, tparts, t, "hamming", impl="ref")
+        for u, v in zip(a, b):
+            assert u.dtype == v.dtype and torch.equal(u, v), what
+        if kind == "dead":
+            assert not bool(a[2][:, :sizes[0]].any()), what
+            assert bool((a[0][:, :sizes[0]] == EXT_SENTINEL).all()), what
 
 
 def lsh_edge_cases(s, rng):
@@ -584,17 +670,22 @@ LINEAR_KERNEL = {"l2": "linear_scan_dot", "cosine": "linear_scan_dot",
 def check_path_launches(launches, n_lsh, n_linear, metric, what,
                         delta=False):
     """Each kernel launches on a path exactly when that path has work for
-    it: K3 for every batch, K2 when queries go to LSH, the metric's
-    linear scan when queries go to the linear scan or, on a streaming
-    index (``delta``), on every path (the delta scan); no other linear
-    scan ever."""
+    it: K3 (``route_estimate``, over all segments) exactly once a batch;
+    K2 when queries go to LSH; the metric's linear scan when queries go
+    to the linear scan or, on a streaming index (``delta``), on every
+    path (the delta scan) -- for Hamming (K5, over all segments) exactly
+    once a linear group and once for the delta of an LSH group; no other
+    kernel ever."""
     lin = LINEAR_KERNEL[metric]
-    want = {k: False for k in launches}
-    want.update({"hll_merge_estimate": True, "lsh_scan": n_lsh > 0,
-                 lin: n_linear > 0 or delta})
-    for k, needed in want.items():
+    want = {k: 0 for k in launches}       # None: at least one launch
+    want.update({"route_estimate": 1, "lsh_scan": None if n_lsh else 0})
+    if metric == "hamming":
+        want[lin] = int(n_linear > 0) + int(delta and n_lsh > 0)
+    else:
+        want[lin] = None if n_linear > 0 or delta else 0
+    for k, w in want.items():
         got = launches[k]
-        assert (got > 0) == needed, (
+        assert (got > 0) if w is None else got == w, (
             f"{what}: kernel {k} launched {got} times with {n_lsh} queries "
             f"routed to LSH and {n_linear} to the linear scan")
 
@@ -696,6 +787,8 @@ def profile_hybrid(s: Smoke, idx, q_np, r, tag, ms, reps=3):
         return
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     sorts = [e for e in dev if "sort" in e.key.lower()]
+    from phase_profile import census
+    log(f"[{tag} profile] kernels per query: {census(dev, reps)}")
     log(f"[{tag} profile] sort kernels per query: "
         f"{sum(e.count for e in sorts) / reps:g}"
         + "".join(f"; {e.key[:48]} x{e.count / reps:g} "
@@ -707,6 +800,27 @@ def profile_hybrid(s: Smoke, idx, q_np, r, tag, ms, reps=3):
         f"device time per query: " + "; ".join(
             f"{e.key[:48]} x{e.count // reps} "
             f"{e.self_device_time_total / reps / 1e3:.3f} ms" for e in top))
+
+
+def profile_estimate(s: Smoke, idx, q_np, tag, reps=3):
+    """``torch.profiler`` trace of ``reps`` ``estimate()`` calls (the
+    queries' buckets and Algorithm 2 lines 1-4): device kernels and
+    device ms per call."""
+    torch = s.torch
+    from phase_profile import census
+    from torch.profiler import ProfilerActivity, profile
+    idx.estimate(q_np)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            idx.estimate(q_np)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / reps / 1e3
+    log(f"[{tag} profile] estimate(): device {busy:.4f} ms per call; kernels "
+        f"per call {census(dev, reps)}")
 
 
 def drive(s: Smoke, x_np, q_np, metric, fam, idx_kw, r, tag):
@@ -739,6 +853,7 @@ def drive(s: Smoke, x_np, q_np, metric, fam, idx_kw, r, tag):
         f"synchronised); launches {launches}; near-threshold exceptions "
         f"{near}")
     profile_hybrid(s, idx, q_np, r, tag, ms)
+    profile_estimate(s, idx, q_np, tag)
     return idx, launches, (n_lsh, nq - n_lsh)
 
 
@@ -855,7 +970,8 @@ def linear_kernel_times(s: Smoke, x, q_np, r, metric):
     else:
         name = "linear_scan_hamming"
         qc, x = as_i32(qc).contiguous(), as_i32(x).contiguous()
-        kern = lambda: fused_scan.linear_scan_hamming(thresh, qc, x)  # noqa: E731
+        part = [ops.ScanPart(x)]        # one segment, no epilogue
+        kern = lambda: fused_scan.linear_scan_hamming(thresh, qc, part)  # noqa: E731
         lib = None                  # torch has no popcount
         in_bytes = 4 * (qc.numel() + x.numel())
         nops = 3 * 32 * n * d       # xor, popcount, add per word
@@ -879,6 +995,132 @@ def linear_kernel_times(s: Smoke, x, q_np, r, metric):
         max_abs_err=float((a[0] - b[1]).abs().max()),
         shape=f"Q=32 N={n} {'W' if metric == 'hamming' else 'd'}={d} {metric}",
         **extra)
+
+
+def route_scan_times(s: Smoke, idx, q_np, r, metric, tag):
+    """K3 over all frozen segments of a streaming index, and for Hamming
+    K5 over all its segments, at the shapes its query batch gives them:
+    each against its plain version, and the engine's estimate and linear
+    group against the parent's composition one segment at a time
+    (``torch_cases.route_estimate_per_segment``, one K3 a segment on
+    its gathered registers, then ``finalize_route``; each segment's
+    ``search`` and a concatenation), which they must equal bit
+    for bit.  Times: events around the call (``ms``) and a CUDA graph
+    replay (``device_ms``), L2 flushed, for the kernel, the engine's
+    whole phase and the per-segment composition; bounds from the segment
+    sizes of this run."""
+    np, torch = s.np, s.torch
+    from repro_torch.core.engine import (SegmentEstimate, TableSegment,
+                                         concat_columns, finalize_route)
+    from repro_torch.kernels import fused_scan, hll_merge, ops, ref
+    from repro_torch.u32 import as_i32
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import route_estimate_per_segment
+    q = idx._rows(q_np)
+    qb, tidx = idx._qbuckets(q, 1)
+    segs = idx._segments(tidx)
+    eng = idx._engine
+    frozen = [g for g in segs if isinstance(g, TableSegment)]
+    tables = [g.table_terms() for g in frozen]
+    qb32 = qb.to(torch.int32).contiguous()
+    nq, v = qb32.shape
+    m = tables[0].registers.shape[2]
+    out = {}
+
+    kern = lambda: hll_merge.route_estimate(qb32, tables)  # noqa: E731
+    plain = lambda: ref.route_estimate(qb32, tables)  # noqa: E731
+    whole = lambda: eng.estimate(segs, qb)  # noqa: E731
+    sizes = [g.sizes() for g in frozen]
+
+    def per_seg():
+        coll, cand = route_estimate_per_segment(
+            qb, tables, tidx, lambda r: ops.hll_merge_estimate(r, impl="cuda"))
+        return finalize_route(
+            [SegmentEstimate(coll, cand_est=cand,
+                             n_live=sum(n for n, _ in sizes),
+                             n_scan=sum(n for _, n in sizes))]
+            + [g.estimate_terms(qb) for g in segs
+               if not isinstance(g, TableSegment)], eng.cost_model)
+    (kc, ke), (pc, pe) = kern(), plain()
+    assert torch.equal(kc, pc), f"{tag}: K3 collisions differ"
+    torch.testing.assert_close(ke, pe, rtol=HLL_RTOL, atol=0)
+    a, b = whole(), per_seg()
+    for f in ("collisions", "cand_est", "lsh_cost", "use_lsh"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), \
+            f"{tag}: estimate {f} differs from the per-segment composition"
+    S = len(tables)
+    # the registers, two starts and a dead count per column and segment,
+    # the buckets in, the two sums out
+    bound, by = s.bound_ms(nq * S * v * (m + 12) + 4 * nq * v + 8 * nq,
+                           nq * S * v * m)
+    out["route_estimate"] = dict(
+        ms=s.cuda_ms(kern), device_ms=s.graph_ms(kern),
+        plain_ms=s.cuda_ms(plain), library_ms=None, bound_ms=bound,
+        bound_by=by, max_abs_err=float((ke - pe).abs().max()),
+        estimate_ms=s.cuda_ms(whole), estimate_device_ms=s.graph_ms(whole),
+        per_segment_ms=s.cuda_ms(per_seg),
+        per_segment_device_ms=s.graph_ms(per_seg),
+        shape=f"Q={nq} V={v} m={m} S={S} frozen segments "
+              f"(rows {[g.tables.n for g in frozen]})")
+
+    if metric == "hamming":
+        parts = [g.scan_part() for g in segs]
+        qi = as_i32(q).contiguous()
+        thresh = ops.metric_radius_transform(metric, r)
+        kern = lambda: fused_scan.linear_scan_hamming(thresh, qi, parts)  # noqa: E731
+        plain = lambda: ref.grouped_linear_scan(qi, parts, thresh, metric)  # noqa: E731
+        whole = lambda: eng.search_group(segs, qb, q, float(r),  # noqa: E731
+                                         lsh_route=False)
+        per_seg = lambda: concat_columns([  # noqa: E731
+            g.search(qb, q, float(r), lsh_route=False) for g in segs])
+        (kd, km, ki), b, c = kern(), plain(), per_seg()
+        for u, v_, w in zip((ki, kd, km), b, c):
+            assert torch.equal(u, v_) and torch.equal(u, w), \
+                f"{tag}: K5 differs from the plain / per-segment scan"
+        rows = [p.x.shape[0] for p in parts]
+        n, w = sum(rows), qi.shape[1]
+        # codes, live and ids read once, 9 B a (query, row) out; the xor,
+        # popcount and add of each word at the fp32 CUDA-core rate
+        bound, by = s.bound_ms(4 * (nq + n) * w + 5 * n + 9 * nq * n,
+                               3 * nq * n * w)
+        out["linear_scan_hamming"] = dict(
+            ms=s.cuda_ms(kern), device_ms=s.graph_ms(kern),
+            plain_ms=s.cuda_ms(plain), library_ms=None, bound_ms=bound,
+            bound_by=by, max_abs_err=float((kd - b[1]).abs().max()),
+            group_ms=s.cuda_ms(whole), group_device_ms=s.graph_ms(whole),
+            per_segment_ms=s.cuda_ms(per_seg),
+            per_segment_device_ms=s.graph_ms(per_seg),
+            shape=f"Q={nq} W={w} rows {rows} (sum {n}) hamming")
+        # the delta alone, as the LSH route of the batch scans it
+        xd = parts[-1].x
+        dk = lambda: fused_scan.linear_scan_hamming(  # noqa: E731
+            thresh, qi, [ops.ScanPart(xd)])
+        a, b = dk(), ref.fused_linear_scan(qi, xd, thresh, metric)
+        assert all(torch.equal(u, v) for u, v in zip(a, b[1:] + b[:1])), \
+            f"{tag}: K5 on the delta differs from the plain scan"
+        nd = xd.shape[0]
+        bound, by = s.bound_ms(4 * (nq + nd) * w + 9 * nq * nd,
+                               3 * nq * nd * w)
+        out["linear_scan_hamming"]["delta_lsh"] = dict(
+            ms=s.cuda_ms(dk), device_ms=s.graph_ms(dk), bound_ms=bound,
+            bound_by=by, shape=f"Q={nq} W={w} N={nd} (the delta) hamming")
+    for k, t in out.items():
+        log(f"[{tag}] {k} over all segments: kernel {t['ms']:.4f} ms, "
+            f"device {t['device_ms']:.4f}; bound {t['bound_ms']:.3g} "
+            f"({t['bound_by']}); plain {t['plain_ms']:.4f}; the engine's "
+            f"phase " + (f"{t['estimate_ms']:.4f} / device "
+                         f"{t['estimate_device_ms']:.4f}"
+                         if k == "route_estimate" else
+                         f"{t['group_ms']:.4f} / device "
+                         f"{t['group_device_ms']:.4f}")
+            + f" against the per-segment composition {t['per_segment_ms']:.4f}"
+            f" / device {t['per_segment_device_ms']:.4f} ms; {t['shape']}")
+        if "delta_lsh" in t:
+            dl = t["delta_lsh"]
+            log(f"[{tag}] {k} on the delta alone (the LSH route's scan): "
+                f"{dl['ms']:.4f} ms, device {dl['device_ms']:.4f}; bound "
+                f"{dl['bound_ms']:.3g}; {dl['shape']}")
+    return out
 
 
 def pairwise_times(s: Smoke, q, x, metric):
@@ -947,6 +1189,7 @@ def hamming_times(s: Smoke, q_np, x_np, by_path, tag):
     bound, by = s.bound_ms(4 * (q.numel() + x.numel()) + 4 * nq * n,
                            3 * nq * n * w)
     return dict(ms=s.cuda_ms(lambda: distances.hamming(q, x)),
+                device_ms=s.graph_ms(lambda: distances.hamming(q, x)),
                 plain_ms=s.cuda_ms(lambda: ops.hamming_dist(q, x, impl="ref")),
                 library_ms=None, bound_ms=bound, bound_by=by,
                 max_abs_err=float((a - b).abs().max()),
@@ -1170,9 +1413,13 @@ def drive_streaming(s: Smoke, idx, x_np, q_np, metric, r, *, n_build, batch,
             f"5 {ms:.2f} ms (host clock, synchronised); {len(idx.stack.segments)} "
             f"segments; launches {launches}; near-threshold exceptions {near}")
         profile_hybrid(s, idx, q_np, r, f"{tag} {state}", ms)
+        profile_estimate(s, idx, q_np, f"{tag} {state}")
         out[state] = dict(launches=launches, mix=(int(use.sum()),
                                                   len(use) - int(use.sum())),
                           ms=ms)
+        if state == "churned":
+            out[state]["kernel_times"] = route_scan_times(
+                s, idx, q_np, r, metric, f"{tag} {state}")
         del res, ref_res
         torch.cuda.empty_cache()
     return out
@@ -1267,7 +1514,7 @@ def main() -> int:
     # the main path: the hybrid query at the radius where it mixes routes,
     # so that it runs all three kernels
     main_launches = by_path[f"webspam q{mixed}"]["hybrid"]
-    for k in ("linear_scan_dot", "lsh_scan", "hll_merge_estimate"):
+    for k in ("linear_scan_dot", "lsh_scan", "route_estimate"):
         assert main_launches[k] > 0, f"webspam q{mixed}: kernel {k} was not launched"
     timings["simhash"] = simhash_times(s, main_idx, by_path,
                                        f"webspam q{mixed} simhash_fingerprint")
@@ -1390,9 +1637,9 @@ def main() -> int:
     r4 = radii4[i4]
     fam4 = make_family("hamming", d=64, L=20, r=r4, delta=0.1)
     idx4 = HybridLSHIndex(fam4, seed=0, **kw4).build(x4)
-    name, k5 = linear_kernel_times(s, idx4.x, q4, r4, metric4)
-    timings[name] = k5
-    log_kernel_times(f"mnist q{i4}", {name: k5})
+    _, k5_static = linear_kernel_times(s, idx4.x, q4, r4, metric4)
+    log_kernel_times(f"mnist q{i4} static, one 32-query chunk",
+                     {"linear_scan_hamming": k5_static})
     del idx4
     timings["hamming"] = hamming_times(s, q4, x4, by_path,
                                        "mnist hamming_dist")
@@ -1405,6 +1652,14 @@ def main() -> int:
     for state, v in mnist.items():
         by_path[f"mnist q{i4} streaming {state}"] = v["launches"]
     del dyn4
+    # K3 and K5 at their main-path shape: churned MNIST over all segments
+    mkt = mnist["churned"]["kernel_times"]
+    timings["route_estimate"] = dict(
+        mkt["route_estimate"],
+        covertype_churned=cover["churned"]["kernel_times"]["route_estimate"],
+        webspam_one_segment=timings.pop("hll_merge_estimate"))
+    timings["linear_scan_hamming"] = dict(mkt["linear_scan_hamming"],
+                                          static_one_chunk=k5_static)
 
     # -- 8. summary lines -----------------------------------------------
     # K6 and K7 run on the calibrate paths: their rows' times are at
@@ -1418,11 +1673,9 @@ def main() -> int:
     main_paths = {
         "linear_scan_dot": (f"webspam q{mixed}", "hybrid"),
         "lsh_scan": (f"webspam q{mixed}", "hybrid"),
-        "hll_merge_estimate": (f"webspam q{mixed}", "hybrid"),
+        "route_estimate": (f"mnist q{i4} streaming churned", "hybrid"),
         "linear_scan_l1": (f"covertype q{i3} churned", "hybrid"),
-        "linear_scan_hamming": ((f"mnist q{mixed4}", "hybrid")
-                                if mixed4 is not None else
-                                (f"mnist q{i4} streaming churned", "hybrid")),
+        "linear_scan_hamming": (f"mnist q{i4} streaming churned", "hybrid"),
         "pairwise_dot": ("calibrate cosine", "calibrate"),
         "pairwise_l1": ("calibrate l1", "calibrate"),
         "hamming": ("mnist hamming_dist", "ops"),
@@ -1432,8 +1685,8 @@ def main() -> int:
                                "src/repro/kernels/fused_scan.py:145"),
            "lsh_scan": (csrc + "fused_scan.cu",
                         "src/repro/kernels/fused_scan.py:272"),
-           "hll_merge_estimate": (csrc + "hll_merge.cu",
-                                  "src/repro/kernels/hll_merge.py:43"),
+           "route_estimate": (csrc + "hll_merge.cu",
+                              "src/repro/kernels/hll_merge.py:43"),
            "linear_scan_l1": (csrc + "fused_scan.cu",
                               "src/repro/kernels/fused_scan.py:177"),
            "linear_scan_hamming": (csrc + "fused_scan.cu",

@@ -4,14 +4,15 @@ Every index of the port (the static ``HybridLSHIndex`` and the streaming
 ``DynamicHybridIndex``) is a composition over two concepts:
 
   * ``Segment``     — a searchable unit exposing its routing terms
-                      (exact collisions, HLL registers or exact distinct
-                      counts, tombstone dead counts, live/scan sizes)
-                      and a fixed-shape search over its rows.
-  * ``QueryEngine`` — owns Algorithm 2 once: gather per-segment terms,
-                      combine them into a ``RouteEstimate``
-                      (``finalize_route``), partition the query batch on
-                      the host, and run both strategies over every
-                      segment.
+                      (exact collisions, an HLL estimate or exact
+                      distinct counts, tombstone dead counts, live/scan
+                      sizes) and a fixed-shape search over its rows.
+  * ``QueryEngine`` — owns Algorithm 2 once: estimate every CSR+HLL
+                      segment in one ``ops.route_estimate``, add the
+                      other segments' terms, combine them into a
+                      ``RouteEstimate`` (``finalize_route``), partition
+                      the query batch on the host, and run both
+                      strategies over every segment.
 
 A static segment is one whose dead counts are zero and whose scan size
 equals its live size, so ``finalize_route`` serves both indexes.  The
@@ -34,16 +35,14 @@ import torch
 from repro_torch.core import hll as hll_lib
 from repro_torch.core import search as search_lib
 from repro_torch.core.cost_model import CostModel
-from repro_torch.core.lsh.tables import (LSHTables, bucket_counts,
-                                         gather_registers, table_index)
+from repro_torch.core.lsh.tables import LSHTables
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import EXT_SENTINEL, concat_columns, scan_epilogue
 
 __all__ = ["RouteEstimate", "SegmentEstimate", "Segment", "TableSegment",
            "QueryEngine", "QueryResult", "finalize_route",
            "partition_indices", "compact_results", "EXT_SENTINEL",
            "estimate_routes", "estimate_routes_dynamic"]
-
-EXT_SENTINEL = 2**31 - 1   # masked-out slots in reported buffers
 
 
 # ---------------------------------------------------------------------------
@@ -64,20 +63,20 @@ class RouteEstimate:
 class SegmentEstimate:
     """One segment's contribution to the routing estimate.
 
-    Exactly one of ``registers`` / ``merged_registers`` / ``cand_exact``
-    normally carries the candSize term: CSR+HLL segments report raw
-    ``(Q, L, m)`` registers (so the fused merge+estimate kernel applies),
-    cross-shard merges report pre-merged ``(Q, m)`` registers, and
-    sketch-free segments (the delta) report an exact distinct count.  A
+    Exactly one of ``merged_registers`` / ``cand_exact`` / ``cand_est``
+    normally carries the candSize term: cross-shard merges report
+    pre-merged ``(Q, m)`` registers, sketch-free segments (the delta)
+    report an exact distinct count, and the CSR+HLL segments report their
+    estimates already corrected and summed by ``ops.route_estimate``.  A
     merged estimate may carry both a sketch and an exact term; they are
     summed.
     """
 
     collisions: torch.Tensor                         # (Q,) exact live
     dead_collisions: Optional[torch.Tensor] = None   # (Q,) or None (static)
-    registers: Optional[torch.Tensor] = None         # (Q, L, m) uint8
     merged_registers: Optional[torch.Tensor] = None  # (Q, m)
     cand_exact: Optional[torch.Tensor] = None        # (Q,) exact distinct
+    cand_est: Optional[torch.Tensor] = None          # (Q,) float32, corrected
     n_live: int = 0    # live rows this segment contributes
     n_scan: int = 0    # rows its linear scan computes distances over
 
@@ -86,7 +85,9 @@ class Segment(Protocol):
     """Anything the engine can route over (duck-typed; no inheritance)."""
 
     def estimate_terms(self, qbuckets: torch.Tensor) -> SegmentEstimate:
-        """(Q, L) query buckets -> this segment's routing terms."""
+        """(Q, L) query buckets -> this segment's routing terms
+        (``TableSegment``s have ``table_terms()`` instead: the engine
+        estimates them together)."""
         ...
 
     def search(self, qbuckets: torch.Tensor, q: torch.Tensor, r, *,
@@ -97,17 +98,19 @@ class Segment(Protocol):
 
     # Traced queries (``QueryEngine`` with a tracer) additionally call
     # ``count_candidates(qbuckets) -> (Q,)``: the distinct candidates
-    # this segment's LSH route gathers (cap-truncated).
+    # this segment's LSH route gathers (cap-truncated).  Segments with a
+    # ``scan_part() -> ops.ScanPart`` (both indexes' segments) share one
+    # linear-route scan (``QueryEngine.search_group``).
 
 
 def finalize_route(terms: Sequence[SegmentEstimate], cost_model: CostModel,
-                   *, impl: Optional[str] = None,
-                   n_live: Optional[int] = None,
+                   *, n_live: Optional[int] = None,
                    n_scan: Optional[int] = None) -> RouteEstimate:
     """Combine per-segment terms into the tombstone-aware RouteEstimate.
 
     collisions = sum of exact live collisions; candSize = sum over
-    segments of (HLL estimate - dead collisions, clamped at 0) plus the
+    segments of (HLL estimate - dead collisions, clamped at 0; summed
+    already in ``cand_est`` for the CSR+HLL segments) plus the
     exact distinct counts, clamped by the structural bounds (candSize is
     a distinct count, <= live #collisions and <= n_live).  Static
     segments simply have zero dead counts.  HLL registers are monotone
@@ -132,17 +135,14 @@ def finalize_route(terms: Sequence[SegmentEstimate], cost_model: CostModel,
     coll_f = collisions.to(torch.float32)
     cand = torch.zeros_like(coll_f)
     for t in terms:
-        if t.registers is not None:
-            est = ops.hll_merge_estimate(t.registers, impl=impl)
-        elif t.merged_registers is not None:
+        if t.merged_registers is not None:
             est = hll_lib.estimate_from_registers(t.merged_registers)
-        else:
-            est = None
-        if est is not None:
             if t.dead_collisions is not None:
                 est = torch.clamp(
                     est - t.dead_collisions.to(torch.float32), min=0.0)
             cand = cand + est
+        if t.cand_est is not None:
+            cand = cand + t.cand_est
         if t.cand_exact is not None:
             cand = cand + t.cand_exact.to(torch.float32)
     cand = torch.minimum(cand, torch.clamp(coll_f, max=float(n_live)))
@@ -182,36 +182,35 @@ class TableSegment:
     tidx: Optional[torch.Tensor] = None         # (V,) multi-probe column->table
     x_unit: Optional[torch.Tensor] = None       # cosine: x's unit rows, for K1, K2
 
-    def estimate_terms(self, qbuckets: torch.Tensor) -> SegmentEstimate:
-        counts = bucket_counts(self.tables, qbuckets, tidx=self.tidx)
-        regs = gather_registers(self.tables, qbuckets, tidx=self.tidx)
-        if self.tomb_counts is None:
-            collisions = torch.sum(counts, dim=-1, dtype=torch.int32)
-            dead = None
-        else:
-            lidx = table_index(self.tables, self.tidx)
-            d = self.tomb_counts[lidx, qbuckets.to(torch.int64)]
-            collisions = torch.sum(counts - d, dim=-1, dtype=torch.int32)
-            dead = torch.sum(d, dim=-1, dtype=torch.int32)
+    def sizes(self) -> Tuple[int, int]:
+        """(n_live, n_scan): the live rows and the rows a linear scan
+        computes distances over."""
         n_rows = self.tables.n if self.x is None else self.x.shape[0]
-        n_live = self.tables.n if self.n_live is None else self.n_live
-        n_scan = n_rows if self.n_scan is None else self.n_scan
-        return SegmentEstimate(collisions=collisions, dead_collisions=dead,
-                               registers=regs, n_live=n_live, n_scan=n_scan)
+        return (self.tables.n if self.n_live is None else self.n_live,
+                n_rows if self.n_scan is None else self.n_scan)
+
+    def table_terms(self) -> ops.TableTerms:
+        """What ``ops.route_estimate`` reads of this segment."""
+        return ops.TableTerms(self.tables.starts, self.tables.registers,
+                              self.tomb_counts)
+
+    def scan_part(self) -> ops.ScanPart:
+        """What ``ops.grouped_linear_scan`` scans of this segment."""
+        return ops.ScanPart(self.x, self.live, self.ext_ids)
 
     def search(self, qbuckets: torch.Tensor, q: torch.Tensor, r, *,
                lsh_route: bool):
         if self.x is None:
             raise ValueError("estimate-only segment has no rows")
         n = self.x.shape[0]
-        if lsh_route:
-            qc = self.q_chunk or min(32, q.shape[0])
-            ids, dists, mask = search_lib.lsh_search(
-                self.x, self.tables, qbuckets, q, r, self.metric, self.cap,
-                q_chunk=qc, tidx=self.tidx, impl=self.impl, x_unit=self.x_unit)
-        else:
-            ids, dists, mask = search_lib.linear_search(
-                self.x, q, r, self.metric, impl=self.impl, x_unit=self.x_unit)
+        if not lsh_route:      # row n in column n: live / ext broadcast
+            return scan_epilogue(*search_lib.linear_search(
+                self.x, q, r, self.metric, impl=self.impl,
+                x_unit=self.x_unit), self.live, self.ext_ids)
+        qc = self.q_chunk or min(32, q.shape[0])
+        ids, dists, mask = search_lib.lsh_search(
+            self.x, self.tables, qbuckets, q, r, self.metric, self.cap,
+            q_chunk=qc, tidx=self.tidx, impl=self.impl, x_unit=self.x_unit)
         if self.live is not None or self.ext_ids is not None:
             safe = ids.to(torch.int64).clamp(0, n - 1)
             if self.live is not None:
@@ -337,18 +336,45 @@ class QueryEngine:
     def estimate(self, segments: Sequence[Segment],
                  qbuckets: torch.Tensor) -> RouteEstimate:
         """Algorithm 2 lines 1-4 over the whole segment list; ``qbuckets``
-        is (Q, L), or (Q, V) virtual-table columns under multi-probe."""
-        return finalize_route([s.estimate_terms(qbuckets) for s in segments],
-                              self.cost_model, impl=self.impl)
+        is (Q, L), or (Q, V) virtual-table columns under multi-probe.
+
+        The ``TableSegment``s (the frozen segments, in stack order) go
+        through one ``ops.route_estimate`` (one kernel launch on CUDA);
+        the other segments (the delta) add their own terms after that
+        sum."""
+        frozen = [s for s in segments if isinstance(s, TableSegment)]
+        terms = [s.estimate_terms(qbuckets) for s in segments
+                 if not isinstance(s, TableSegment)]
+        if frozen:
+            coll, cand = ops.route_estimate(
+                qbuckets, [s.table_terms() for s in frozen],
+                tidx=frozen[0].tidx, impl=self.impl)
+            sizes = [s.sizes() for s in frozen]
+            terms.insert(0, SegmentEstimate(
+                collisions=coll, cand_est=cand,
+                n_live=sum(n for n, _ in sizes),
+                n_scan=sum(n for _, n in sizes)))
+        return finalize_route(terms, self.cost_model)
 
     def search_group(self, segments: Sequence[Segment],
                      qbuckets: torch.Tensor, q: torch.Tensor, r, *,
                      lsh_route: bool):
         """Search every segment for one routed group; concatenate the
-        sentinel-padded ``(ids, dists, mask)`` buffers along columns."""
-        parts = [s.search(qbuckets, q, r, lsh_route=lsh_route)
-                 for s in segments]
-        return _concat(parts)
+        sentinel-padded ``(ids, dists, mask)`` buffers along columns.
+        Where it is one kernel launch (Hamming on CUDA) or the plain
+        version, the linear route of segments that have a ``scan_part()``
+        (the ``TableSegment``s and the delta) is one
+        ``ops.grouped_linear_scan`` over all of them."""
+        metric = segments[0].metric
+        if (not lsh_route
+                and all(hasattr(s, "scan_part") for s in segments)
+                and (metric == "hamming"
+                     or ops.resolve_impl(self.impl, q.device) == "ref")):
+            return ops.grouped_linear_scan(
+                q, [s.scan_part() for s in segments], r, metric,
+                impl=self.impl)
+        return concat_columns([s.search(qbuckets, q, r, lsh_route=lsh_route)
+                               for s in segments])
 
     def _route(self, route: RouteEstimate, nq: int, force: Optional[str]):
         if force == "lsh":
@@ -436,7 +462,7 @@ class QueryEngine:
                                           lsh_route=lsh_route))
                     sync()
                     seg_t.append((f"seg{si}", time.perf_counter() - ts))
-                out = _concat(parts)
+                out = concat_columns(parts)
                 seg_seconds[label] = seg_t
             else:
                 out = self.search_group(segments, qb, q, float(r),
@@ -477,13 +503,6 @@ class QueryEngine:
                            lsh_out=lsh_out, lin_out=lin_out, n_queries=nq)
 
 
-def _concat(parts):
-    """Concatenate per-segment ``(ids, dists, mask)`` along columns."""
-    if len(parts) == 1:
-        return parts[0]
-    return tuple(torch.cat([p[i] for p in parts], dim=-1) for i in range(3))
-
-
 # ---------------------------------------------------------------------------
 # Compatibility wrappers (the pre-engine estimator entry points)
 # ---------------------------------------------------------------------------
@@ -491,9 +510,8 @@ def estimate_routes(tables: LSHTables, qbuckets: torch.Tensor,
                     cost_model: CostModel, n: int,
                     impl: Optional[str] = None) -> RouteEstimate:
     """O(m*L) per query, independent of bucket sizes (the paper's point)."""
-    seg = TableSegment(tables=tables, n_live=n, n_scan=n)
-    return finalize_route([seg.estimate_terms(qbuckets)], cost_model,
-                          impl=impl)
+    return QueryEngine(cost_model, impl).estimate(
+        [TableSegment(tables=tables, n_live=n, n_scan=n)], qbuckets)
 
 
 def estimate_routes_dynamic(tables: LSHTables, qbuckets: torch.Tensor,
@@ -504,9 +522,11 @@ def estimate_routes_dynamic(tables: LSHTables, qbuckets: torch.Tensor,
                             n_scan: Optional[int] = None,
                             impl: Optional[str] = None) -> RouteEstimate:
     """Tombstone-corrected Algorithm 2 for a main+delta segment pair."""
-    main = TableSegment(tables=tables, tomb_counts=tomb_counts)
+    coll, cand = ops.route_estimate(
+        qbuckets, [ops.TableTerms(tables.starts, tables.registers,
+                                  tomb_counts)], impl=impl)
+    main = SegmentEstimate(collisions=coll, cand_est=cand)
     delta = SegmentEstimate(collisions=delta_collisions,
                             cand_exact=delta_distinct)
-    return finalize_route([main.estimate_terms(qbuckets), delta], cost_model,
-                          impl=impl, n_live=n_live,
+    return finalize_route([main, delta], cost_model, n_live=n_live,
                           n_scan=n_live if n_scan is None else n_scan)

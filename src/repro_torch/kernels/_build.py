@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_layouts_checked = set()
 
 
 def nvcc() -> str:
@@ -92,6 +93,22 @@ def launch(lib: str, name: str, argtypes: Sequence, *args) -> None:
     err = fn(*args)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def check_layout(lib: str, entry: str, struct) -> None:
+    """Raise unless the entry point ``entry`` of ``csrc/<lib>.cu`` (the
+    ``sizeof`` of a C argument struct) equals ``ctypes.sizeof(struct)``,
+    the Python mirror that a launch passes by address.  Asked once per
+    process."""
+    if (lib, entry) in _layouts_checked:
+        return
+    fn = getattr(load(lib), entry)
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    if fn() != ctypes.sizeof(struct):
+        raise RuntimeError(f"{lib}.cu: {entry}() = {fn()} bytes, the ctypes "
+                           f"mirror {ctypes.sizeof(struct)}")
+    _layouts_checked.add((lib, entry))
 
 
 def check(t: torch.Tensor, name: str, dtype, shape) -> None:

@@ -124,26 +124,58 @@
 //    one of ids and one 32-bit store of 4 masks where aligned.
 //
 // ---------------------------------------------------------------------------
-// linear_scan_hamming and hamming
-// Replace: repro/kernels/fused_scan.py, linear_scan_hamming_pallas (body
-// _linear_hamming_kernel), and repro/kernels/hamming.py, hamming_pallas
-// (body _kernel).  XOR and __popc over the W packed 32-bit words of each
-// (query, row) pair, summed as int32.  linear_scan_hamming writes it as
-// float32 (exact for distances up to 2^24), the mask float(d) <= thresh,
-// as the reference casts it, and the ids as above; hamming writes the
-// (Q, N) int32 matrix alone (template DIST_ONLY).  Any W: the TPU kernels
-// put a whole code in VMEM whatever W is, and so take any W too.
+// grouped_hamming_scan (K5) and hamming (K8)
+// Replace: repro/kernels/fused_scan.py, linear_scan_hamming_pallas (:202,
+// body _linear_hamming_kernel), and repro/kernels/hamming.py, hamming_pallas
+// (:33, body _kernel).  XOR and __popc over the W packed 32-bit words of each
+// (query, row) pair, summed as int32.  K5 writes it as float32 (exact for
+// distances up to 2^24), the mask float(d) <= thresh, as the reference casts
+// it, and the ids; K8 writes the (Q, N) int32 matrix alone (DIST_ONLY).  Any
+// W: the TPU kernels put a whole code in VMEM whatever W is, and so take any
+// W too.
 //
-// Bound on an H100 SXM: device memory, and in practice launch latency.  At
-// the MNIST shape (W = 2, N = 59,900) the scan of one chunk of Q = 32
-// reads 0.5 MB of codes and writes 17.3 MB (about 5 us at 3.35 TB/s); the
-// matrix of Q = 100 writes 24.0 MB (about 7 us).  Design: one corpus row
-// per thread, the block's 32 query codes in shared memory, read as
-// broadcasts, the 32 per-query sums in registers, and a warp's writes
-// consecutive in n, so they coalesce.  The words are walked in chunks of
-// 8: each chunk of the 32 query codes is staged in shared memory and the
-// row's chunk is held in registers.  Words past W in the last chunk are
-// skipped (the chunk's word count is the same for every thread).
+// K5 is the linear route of a whole routed group over every segment of the
+// index in one launch, where the reference runs one kernel per segment and
+// per 32-query chunk and then concatenates.  Each segment (every frozen
+// segment, then the delta) writes its own columns [col, col + n) of the
+// (Q, ld) outputs, with the epilogue of repro/core/engine.py's
+// TableSegment.search and repro/streaming/delta.py's DeltaView.search:
+// mask = (float(d) <= thresh) & live[n], ids = mask ? ext[n] : EXT_SENTINEL
+// on a streaming index (live and ext given), ids = n on a static one.  The
+// segment table travels by value in the kernel's parameters
+// (__grid_constant__): no copy to the device per batch.  A group of more than
+// kHamMaxSegs segments takes more launches.  K8 is the one-segment case
+// with no epilogue.
+//
+// Bound on an H100 SXM: device memory (the outputs), and at small sizes
+// launch latency.  At the churned MNIST index (W = 2, Q = 100, 61,441 rows
+// over five segments) K5 reads 0.8 MB of codes, live flags and ids and
+// writes 9 B a (query, row) pair, 55.3 MB: 0.0167 ms at 3.35 TB/s; the
+// matrix of K8 at Q = 100, N = 59,900 writes 24.0 MB (0.0073 ms).
+// Design:
+//  * Grid: the row tiles of all segments laid end to end (512 rows a tile)
+//    x even shares of the queries, at most 32 each (Q = 100: 4 of 25),
+//    and more shares where the tiles x shares would not make kHamFillPerSm
+//    blocks an SM (the delta's 9 tiles at Q = 100: 30 shares of 3-4); a
+//    block finds its segment from the tiles' prefix in the parameter
+//    struct.  All Q queries go in one launch.
+//  * The block's query codes are staged in shared memory, read as
+//    broadcasts.  Each thread owns 4 adjacent rows: at W = 1, 2 and 4 it
+//    holds their 4 W contiguous words in registers, loaded with 16-byte
+//    loads; at other W it rereads them for each query from L1.
+//  * For each query the thread stores 4 distances and 4 ids as one 16-byte
+//    streaming store each (st.global.cs: nothing rereads the outputs) and 4
+//    masks as one 32-bit store: a warp writes 512, 512 and 128 contiguous
+//    bytes.  The wrapper pads the output rows to a multiple of 4 columns
+//    (ld), and the streaming index pads every frozen segment to a power of
+//    two of at least 8 rows, so all stores but the delta's last partial
+//    group of 4 are vector stores; elsewhere (a misaligned row start, a
+//    ragged end) the thread stores scalars.
+//  * What holds it back (measured, PERF.md): the card's write rate, not a
+//    choice of the design.  Fewer queries a block (16, 8), 64 or 256
+//    threads a block, or plain stores all run within 3 % of it, and it
+//    takes 1.05 times what PyTorch's fill kernel takes to write the same
+//    bytes (0.0281 against 0.0268 ms at churned MNIST).
 //
 // ---------------------------------------------------------------------------
 // lsh_scan
@@ -887,57 +919,175 @@ int l1_tile(const L1Args& a, L1Plan& p, cudaStream_t s, bool launch) {
   }
 }
 
-constexpr int kHamRows = 256;   // corpus rows per block, one per thread
-constexpr int kHamQ = 32;       // queries per block
-constexpr int kHamWords = 8;    // words of each code staged per step
-static_assert(kHamQ * kHamWords == kHamRows, "one staged query word per thread");
+// ---- the Hamming scan: K5 over a group of segments, and K8 ----------------
 
-// DIST_ONLY: write the int32 distances only (hamming); mask and ids are
-// then null and unwritten.  Otherwise dist is float32 (linear_scan_hamming).
-template <bool DIST_ONLY>
-__global__ void __launch_bounds__(kHamRows)
-linear_scan_hamming_kernel(const uint32_t* __restrict__ q,
-                           const uint32_t* __restrict__ x, float thresh,
-                           void* __restrict__ dist, uint8_t* __restrict__ mask,
-                           int32_t* __restrict__ ids, int Q, int N, int W) {
-  __shared__ uint32_t qs[kHamQ][kHamWords];
-  const int n = blockIdx.x * kHamRows + threadIdx.x;
-  const int q0 = blockIdx.y * kHamQ;
-  const int nq = min(kHamQ, Q - q0);
-  const int si = threadIdx.x / kHamWords;   // the query word this thread stages
-  const int sw = threadIdx.x % kHamWords;
-  int c[kHamQ];
+constexpr int kHamThreads = 128;
+constexpr int kHamRowsPerThread = 4;
+constexpr int kHamTile = kHamThreads * kHamRowsPerThread;   // rows a block
+constexpr int kHamQ = 32;                          // queries a block, at most
+constexpr int kHamFillPerSm = 2;   // blocks an SM the grid aims at, at least
+constexpr int kHamMaxSegs = 64;   // segments a launch; 2.6 KB of parameters
+constexpr int32_t kExtSentinel = 0x7fffffff;   // engine.EXT_SENTINEL
+
+struct HamSeg {
+  const uint32_t* x;     // (n, W) packed codes
+  const uint8_t* live;   // (>= n,) 0/1, or null: every row live
+  const int32_t* ext;    // (>= n,) external ids, or null: report the row index
+  int64_t col;           // the segment's first output column
+  int n;                 // rows
+  int tile0;             // its first row tile (blockIdx.x); set by the launcher
+};
+
+struct HamArgs {
+  const uint32_t* q;     // (Q, W)
+  void* dist;            // (Q, ld) f32; int32 when mask is null (hamming)
+  uint8_t* mask;         // (Q, ld), or null: distances only
+  int32_t* ids;          // (Q, ld)
+  int64_t ld;            // row stride of the outputs, in elements
+  float thresh;
+  int Q, W, nseg;
+  int tiles;             // row tiles of all segments; set by the launcher
+  HamSeg seg[kHamMaxSegs];
+};
+
+// One block: 512 rows of one segment (4 adjacent rows a thread) x one of
+// gridDim.y even shares of the queries (at most kHamQ).  WR > 0: W == WR
+// and a thread's 4 rows (4 * WR contiguous words) are held in registers, loaded with 16-byte loads; WR == 0: any W, the
+// rows' words reread (from L1) for each query.  DIST_ONLY: int32
+// distances only (hamming).
+template <bool DIST_ONLY, int WR>
+__global__ void __launch_bounds__(kHamThreads)
+hamming_scan_kernel(const __grid_constant__ HamArgs a) {
+  extern __shared__ uint32_t qs[];   // the block's query codes, (nq, W)
+  const int tile = blockIdx.x;
+  int s = 0;
+  while (s + 1 < a.nseg && a.seg[s + 1].tile0 <= tile) ++s;
+  const HamSeg& g = a.seg[s];
+  const int W = WR > 0 ? WR : a.W;
+  const int q0 = static_cast<int>(static_cast<int64_t>(blockIdx.y) * a.Q / gridDim.y);
+  const int nq = static_cast<int>(static_cast<int64_t>(blockIdx.y + 1) * a.Q / gridDim.y) - q0;
+  const uint32_t* qsrc = a.q + static_cast<int64_t>(q0) * W;
+  for (int i = threadIdx.x; i < nq * W; i += kHamThreads) qs[i] = qsrc[i];
+  __syncthreads();
+  const int n0 = (tile - g.tile0) * kHamTile + threadIdx.x * kHamRowsPerThread;
+  if (n0 >= g.n) return;
+  const int nr = min(kHamRowsPerThread, g.n - n0);
+  const uint32_t* xr = g.x + static_cast<int64_t>(n0) * W;
+  uint32_t xv[WR > 0 ? kHamRowsPerThread * WR : 1];
+  if constexpr (WR > 0) {
+    if (nr == kHamRowsPerThread && (reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
 #pragma unroll
-  for (int i = 0; i < kHamQ; ++i) c[i] = 0;
-  for (int w0 = 0; w0 < W; w0 += kHamWords) {
-    const int nw = min(kHamWords, W - w0);
-    __syncthreads();   // every thread is done with the previous chunk
-    qs[si][sw] = (si < nq && sw < nw)
-                     ? q[static_cast<int64_t>(q0 + si) * W + w0 + sw] : 0u;
-    __syncthreads();
-    uint32_t xr[kHamWords];
-#pragma unroll
-    for (int w = 0; w < kHamWords; ++w)
-      xr[w] = (n < N && w < nw) ? x[static_cast<int64_t>(n) * W + w0 + w] : 0u;
-#pragma unroll
-    for (int i = 0; i < kHamQ; ++i)
-#pragma unroll
-      for (int w = 0; w < kHamWords; ++w)
-        if (w < nw) c[i] += __popc(xr[w] ^ qs[i][w]);
-  }
-  if (n >= N) return;
-#pragma unroll
-  for (int i = 0; i < kHamQ; ++i) {
-    if (i >= nq) continue;
-    const int64_t o = static_cast<int64_t>(q0 + i) * N + n;
-    if (DIST_ONLY) {
-      static_cast<int32_t*>(dist)[o] = c[i];
+      for (int k = 0; k < WR; ++k) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr) + k);
+        xv[4 * k] = v.x; xv[4 * k + 1] = v.y; xv[4 * k + 2] = v.z; xv[4 * k + 3] = v.w;
+      }
     } else {
-      const float v = static_cast<float>(c[i]);
-      static_cast<float*>(dist)[o] = v;
-      mask[o] = v <= thresh ? 1 : 0;
-      ids[o] = n;
+#pragma unroll
+      for (int k = 0; k < kHamRowsPerThread * WR; ++k)
+        xv[k] = k < nr * WR ? __ldg(xr + k) : 0u;
     }
+  }
+  bool live[kHamRowsPerThread];
+  int32_t ext[kHamRowsPerThread];
+#pragma unroll
+  for (int r = 0; r < kHamRowsPerThread; ++r) {
+    live[r] = r < nr && (g.live == nullptr || g.live[n0 + r] != 0);
+    ext[r] = (r < nr && g.ext != nullptr) ? g.ext[n0 + r] : n0 + r;
+  }
+  for (int i = 0; i < nq; ++i) {
+    const uint32_t* qi = qs + i * W;
+    int d[kHamRowsPerThread] = {0, 0, 0, 0};
+    if constexpr (WR > 0) {
+#pragma unroll
+      for (int w = 0; w < WR; ++w) {
+        const uint32_t qw = qi[w];
+#pragma unroll
+        for (int r = 0; r < kHamRowsPerThread; ++r) d[r] += __popc(xv[r * WR + w] ^ qw);
+      }
+    } else {
+      for (int w = 0; w < W; ++w) {
+        const uint32_t qw = qi[w];
+#pragma unroll
+        for (int r = 0; r < kHamRowsPerThread; ++r)
+          if (r < nr) d[r] += __popc(__ldg(xr + r * W + w) ^ qw);
+      }
+    }
+    const int64_t o = static_cast<int64_t>(q0 + i) * a.ld + g.col + n0;
+    const bool vec = nr == kHamRowsPerThread && (o & 3) == 0;
+    if constexpr (DIST_ONLY) {
+      int32_t* out = static_cast<int32_t*>(a.dist) + o;
+      if (vec) {
+        __stcs(reinterpret_cast<int4*>(out), make_int4(d[0], d[1], d[2], d[3]));
+      } else {
+        for (int r = 0; r < nr; ++r) out[r] = d[r];
+      }
+    } else {
+      float dv[kHamRowsPerThread];
+      int32_t iv[kHamRowsPerThread];
+      uint32_t mk = 0;
+#pragma unroll
+      for (int r = 0; r < kHamRowsPerThread; ++r) {
+        dv[r] = static_cast<float>(d[r]);
+        const bool m = dv[r] <= a.thresh && live[r];
+        mk |= static_cast<uint32_t>(m) << (8 * r);
+        iv[r] = (g.ext == nullptr || m) ? ext[r] : kExtSentinel;
+      }
+      float* dist = static_cast<float*>(a.dist) + o;
+      if (vec) {
+        __stcs(reinterpret_cast<float4*>(dist), make_float4(dv[0], dv[1], dv[2], dv[3]));
+        __stcs(reinterpret_cast<int4*>(a.ids + o), make_int4(iv[0], iv[1], iv[2], iv[3]));
+        __stcs(reinterpret_cast<unsigned int*>(a.mask + o), mk);
+      } else {
+        for (int r = 0; r < nr; ++r) {
+          dist[r] = dv[r];
+          a.ids[o + r] = iv[r];
+          a.mask[o + r] = static_cast<uint8_t>((mk >> (8 * r)) & 1u);
+        }
+      }
+    }
+  }
+}
+
+template <bool DIST_ONLY, int WR>
+int run_hamming(const HamArgs& a, int shares, cudaStream_t s) {
+  auto kernel = hamming_scan_kernel<DIST_ONLY, WR>;
+  const size_t smem = sizeof(uint32_t) * kHamQ * a.W;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(a.tiles, shares), kHamThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Lay the row tiles of the segments end to end, share out the queries,
+// then launch.
+int hamming_scan(HamArgs a, cudaStream_t s) {
+  if (a.W < 1 || a.nseg < 1 || a.nseg > kHamMaxSegs || a.ld < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int64_t tiles = 0;
+  for (int i = 0; i < a.nseg; ++i) {
+    if (a.seg[i].n < 0) return static_cast<int>(cudaErrorInvalidValue);
+    a.seg[i].tile0 = static_cast<int>(tiles);
+    tiles += (static_cast<int64_t>(a.seg[i].n) + kHamTile - 1) / kHamTile;
+  }
+  if (a.Q <= 0 || tiles == 0) return 0;
+  // At most kHamQ queries a share, and more shares (down to one query
+  // each) where the row tiles alone leave SMs idle: a one-segment scan of
+  // the 4,097-row delta is 9 tiles.
+  const int64_t fill = static_cast<int64_t>(kHamFillPerSm) * device_info().sms;
+  const int64_t shares = std::max<int64_t>(
+      (a.Q + kHamQ - 1) / kHamQ, std::min<int64_t>(a.Q, (fill + tiles - 1) / tiles));
+  if (tiles > 0x7fffffff || shares > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  a.tiles = static_cast<int>(tiles);
+  const int y = static_cast<int>(shares);
+  const bool dist_only = a.mask == nullptr;
+  switch (a.W) {
+    case 1: return dist_only ? run_hamming<true, 1>(a, y, s) : run_hamming<false, 1>(a, y, s);
+    case 2: return dist_only ? run_hamming<true, 2>(a, y, s) : run_hamming<false, 2>(a, y, s);
+    case 4: return dist_only ? run_hamming<true, 4>(a, y, s) : run_hamming<false, 4>(a, y, s);
+    default: return dist_only ? run_hamming<true, 0>(a, y, s) : run_hamming<false, 0>(a, y, s);
   }
 }
 
@@ -1401,32 +1551,33 @@ extern "C" int l1_tile_plan(const void* q, const void* x, int Q, int N, int d,
   return err;
 }
 
-// q: (Q, W), x: (N, W) packed 32-bit codes (int32 bit views read as
-// unsigned), contiguous, W >= 1.  Outputs dist (Q, N) f32, mask (Q, N) u8,
-// ids (Q, N) i32.
-extern "C" int linear_scan_hamming(const void* q, const void* x, float thresh,
-                                   void* dist, void* mask, void* ids, int Q,
-                                   int N, int W, void* stream) {
-  if (Q <= 0 || N <= 0) return 0;
-  if (W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + kHamRows - 1) / kHamRows, (Q + kHamQ - 1) / kHamQ);
-  linear_scan_hamming_kernel<false><<<grid, kHamRows, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(x), thresh,
-      dist, static_cast<uint8_t*>(mask), static_cast<int32_t*>(ids), Q, N, W);
-  return static_cast<int>(cudaGetLastError());
+// The Hamming scan of a group of segments (K5): a points to HamArgs in host
+// memory, copied into the launch's parameters (tile0 and tiles are set
+// here).  q: (Q, W) and each segment's x: (n, W) packed 32-bit codes (int32
+// bit views read as unsigned), contiguous, W >= 1; dist (Q, ld) f32, mask
+// (Q, ld) u8, ids (Q, ld) i32, segment s in columns [col, col + n).
+extern "C" int grouped_hamming_scan(const void* a, void* stream) {
+  return hamming_scan(*static_cast<const HamArgs*>(a),
+                      static_cast<cudaStream_t>(stream));
 }
 
-// q: (Q, W), x: (N, W) packed 32-bit codes (int32 bit views read as
-// unsigned), contiguous, W >= 1.  Output out (Q, N) int32.
+// What kernels/fused_scan.py's ctypes mirror of HamArgs is checked against.
+extern "C" int grouped_hamming_args_bytes() { return sizeof(HamArgs); }
+
+// The Hamming matrix (K8): q (Q, W), x (N, W) packed 32-bit codes (int32
+// bit views read as unsigned), contiguous, W >= 1.  Output out (Q, N) int32.
 extern "C" int hamming(const void* q, const void* x, void* out, int Q, int N,
                        int W, void* stream) {
-  if (Q <= 0 || N <= 0) return 0;
-  if (W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + kHamRows - 1) / kHamRows, (Q + kHamQ - 1) / kHamQ);
-  linear_scan_hamming_kernel<true><<<grid, kHamRows, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(x), 0.f,
-      out, nullptr, nullptr, Q, N, W);
-  return static_cast<int>(cudaGetLastError());
+  HamArgs a{};
+  a.q = static_cast<const uint32_t*>(q);
+  a.dist = out;
+  a.ld = N;
+  a.Q = Q;
+  a.W = W;
+  a.nseg = 1;
+  a.seg[0].x = static_cast<const uint32_t*>(x);
+  a.seg[0].n = N;
+  return hamming_scan(a, static_cast<cudaStream_t>(stream));
 }
 
 // metric: 0 l2, 1 l1, 2 cosine on unit corpus rows (x, q float32), 3

@@ -6,7 +6,9 @@
   * ``linear_scan_l1`` — the same pass for L1 (sum of |q - x|, on the
     CUDA cores).  Replaces ``linear_scan_l1_pallas``.
   * ``linear_scan_hamming`` — the same pass over packed 32-bit codes
-    (XOR + popcount).  Replaces ``linear_scan_hamming_pallas``.
+    (XOR + popcount), for every segment of a routed group in one launch,
+    with the streaming index's live / external-id epilogue.  Replaces
+    ``linear_scan_hamming_pallas``.
   * ``lsh_scan`` — the LSH route's verification: the candidates' sort,
     dedup, row gather, rowwise l2/l1/cosine/Hamming distance and threshold
     over the unsorted (Q, C) candidates, in one kernel.  Replaces
@@ -92,26 +94,78 @@ def linear_scan_l1(thresh: float, q: torch.Tensor, x: torch.Tensor):
     return dist, mask, ids
 
 
-def linear_scan_hamming(thresh: float, q: torch.Tensor, x: torch.Tensor):
-    """(Q, W) x (N, W) int32 bit views of packed uint32 codes -> (dists
-    f32, mask bool, ids i32), (Q, N): the Hamming distance (exact in
-    float32), the mask ``float(dist) <= thresh``.  W >= 1."""
+class _HamSeg(ctypes.Structure):
+    _fields_ = [("x", _P), ("live", _P), ("ext", _P), ("col", ctypes.c_int64),
+                ("n", _I), ("tile0", _I)]
+
+
+HAM_MAX_SEGMENTS = 64     # kHamMaxSegs: segments a launch of the Hamming scan
+
+
+class _HamArgs(ctypes.Structure):
+    _fields_ = [("q", _P), ("dist", _P), ("mask", _P), ("ids", _P),
+                ("ld", ctypes.c_int64), ("thresh", _F), ("Q", _I), ("W", _I),
+                ("nseg", _I), ("tiles", _I),
+                ("seg", _HamSeg * HAM_MAX_SEGMENTS)]
+
+
+def linear_scan_hamming(thresh: float, q: torch.Tensor, parts):
+    """The linear route over a group of segments, in one launch: (Q, W)
+    int32 bit views of packed uint32 query codes against each part's
+    ``x`` (n_s, W) -> (dists f32, mask bool, ids i32), each (Q, sum n_s),
+    part s in its own columns, in order.
+
+    ``parts``: ``ref.ScanPart``s (x, live, ext).  The distance is the
+    Hamming distance (exact in float32), the mask ``float(dist) <= thresh``
+    and ``live[n]`` where the part has ``live``; ids are ``ext[n]`` where
+    masked in and ``ref.EXT_SENTINEL`` elsewhere where the part has
+    ``ext``, else the row index n.  The outputs are views of buffers whose
+    rows are padded to a multiple of 4 columns, so that the kernel's
+    16-byte stores stay aligned.
+    """
     nq, w = q.shape
-    nn = x.shape[0]
     _build.check(q, "q", torch.int32, (nq, w))
-    _build.check(x, "x", torch.int32, (nn, w))
     if w < 1:
         raise ValueError("linear_scan_hamming needs at least one word per code")
-    dist, mask, ids = _linear_outputs(nq, nn, q.device)
-    if nq == 0 or nn == 0:
-        return dist, mask, ids
-    _build.launch("fused_scan", "linear_scan_hamming",
-                  [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
-                  q.data_ptr(), x.data_ptr(), float(thresh), dist.data_ptr(),
-                  mask.data_ptr(), ids.data_ptr(), nq, nn, w,
-                  _build.stream(q))
-    linear_scan_hamming.launches += 1
-    return dist, mask, ids
+    for p in parts:
+        n = p.x.shape[0]
+        _build.check(p.x, "x", torch.int32, (n, w))
+        if p.live is not None:
+            _build.check(p.live, "live", torch.bool, p.live.shape)
+            if p.live.ndim != 1 or p.live.shape[0] < n:
+                raise ValueError(f"live: want at least {n} entries")
+        if p.ext is not None:
+            _build.check(p.ext, "ext", torch.int32, p.ext.shape)
+            if p.ext.ndim != 1 or p.ext.shape[0] < n:
+                raise ValueError(f"ext: want at least {n} entries")
+    total = sum(p.x.shape[0] for p in parts)
+    ld = -(-total // 4) * 4
+    dist, mask, ids = _linear_outputs(nq, ld, q.device)
+    out = tuple(t[:, :total] for t in (dist, mask, ids))
+    col = 0
+    for lo in range(0, len(parts), HAM_MAX_SEGMENTS):
+        group = parts[lo:lo + HAM_MAX_SEGMENTS]
+        a = _HamArgs(q=q.data_ptr(), dist=dist.data_ptr(),
+                     mask=mask.data_ptr(), ids=ids.data_ptr(), ld=ld,
+                     thresh=float(thresh), Q=nq, W=w, nseg=len(group))
+        rows = 0
+        for i, p in enumerate(group):
+            n = p.x.shape[0]
+            a.seg[i] = _HamSeg(p.x.data_ptr(), _ptr(p.live), _ptr(p.ext),
+                               col, n, 0)
+            col += n
+            rows += n
+        if nq == 0 or rows == 0:
+            continue
+        _build.check_layout("fused_scan", "grouped_hamming_args_bytes", _HamArgs)
+        _build.launch("fused_scan", "grouped_hamming_scan", [_P, _P],
+                      ctypes.addressof(a), _build.stream(q))
+        linear_scan_hamming.launches += 1
+    return out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def lsh_scan(thresh: float, x: torch.Tensor, q: torch.Tensor,

@@ -1,23 +1,116 @@
-"""The HLL merge + estimate kernel (``csrc/hll_merge.cu``), the step the
-paper adds on the query path (Algorithm 2, line 2).
+"""The route-estimate kernel (``csrc/hll_merge.cu``), the step the paper
+adds on the query path (Algorithm 2, lines 1-2).
 
-Per query: max-merge the (L, m) gathered registers, then the HLL
-estimator with small/large-range corrections.  Replaces
-``repro.kernels.hll_merge.hll_merge_estimate_pallas``; its plain version
-is ``ref.hll_merge_estimate``.
+  * ``route_estimate`` — per query, over every frozen segment of an index
+    in one launch: the exact bucket collisions (tombstone-corrected) and
+    the sum of the segments' HLL candSize estimates, each the max-merge of
+    the hit buckets' registers and the estimator with its small/large-range
+    corrections, less the segment's dead collisions.  Its plain version is
+    ``ref.route_estimate``.
+  * ``hll_merge_estimate`` — the same kernel on (Q, L, m) registers
+    gathered by the caller (``ops.hll_merge_estimate``): one segment,
+    bucket = query, no collisions.  Its plain version is
+    ``ref.hll_merge_estimate``.
+
+Replaces ``repro.kernels.hll_merge.hll_merge_estimate_pallas``, with the
+per-segment gathers and sums around it in ``repro.core.engine``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.hll import _alpha
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import TableTerms
 from repro_torch.kernels.ref import hll_merge_estimate as hll_merge_estimate_ref
+from repro_torch.kernels.ref import route_estimate as route_estimate_ref
 
-__all__ = ["hll_merge_estimate", "hll_merge_estimate_ref"]
+__all__ = ["route_estimate", "hll_merge_estimate", "route_estimate_ref",
+           "hll_merge_estimate_ref", "ROUTE_MAX_SEGMENTS"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+
+ROUTE_MAX_SEGMENTS = 64   # kRouteMaxSegs: segments a launch
+
+
+class _RouteSeg(ctypes.Structure):
+    _fields_ = [("starts", _P), ("regs", _P), ("tomb", _P), ("tstride", _I64),
+                ("bstride", _I64), ("B", _I)]
+
+
+class _RouteArgs(ctypes.Structure):
+    _fields_ = [("qb", _P), ("tidx", _P), ("coll", _P), ("cand", _P),
+                ("Q", _I), ("V", _I), ("m", _I), ("nseg", _I),
+                ("coef", ctypes.c_float), ("accumulate", _I),
+                ("seg", _RouteSeg * ROUTE_MAX_SEGMENTS)]
+
+
+def _coef(m: int) -> float:
+    return float(np.float32(_alpha(m) * m * m))
+
+
+def _check_m(m: int) -> None:
+    if m & (m - 1) or not 0 < m <= 1024:
+        raise ValueError(f"m must be a power of two <= 1024, got {m}")
+
+
+def route_estimate(qbuckets: torch.Tensor, tables: Sequence[TableTerms],
+                   tidx: Optional[torch.Tensor] = None):
+    """(Q, V) int32 CUDA buckets and the frozen segments' tables, in stack
+    order -> (collisions (Q,) int32, cand (Q,) float32) summed over them.
+
+    ``tables``: ``ref.TableTerms`` (starts (L, B + 1) int32, registers
+    (L, B, m) uint8, tomb_counts (L, B) int32 or None), every one with the
+    same L and m.  ``tidx``: (V,) int32 column -> table map, or None when
+    column j is table j (V = L).  One launch for up to
+    ``ROUTE_MAX_SEGMENTS`` segments; a longer stack takes more, each
+    continuing the sums of the last.
+    """
+    nq, v = qbuckets.shape
+    _build.check(qbuckets, "qbuckets", torch.int32, (nq, v))
+    if not tables:
+        raise ValueError("route_estimate needs at least one segment")
+    L, _, m = tables[0].registers.shape
+    _check_m(m)
+    if tidx is not None:
+        _build.check(tidx, "tidx", torch.int32, (v,))
+    elif v != L:
+        raise ValueError(f"qbuckets has {v} columns for {L} tables and no tidx")
+    for t in tables:
+        b = t.registers.shape[1]
+        _build.check(t.registers, "registers", torch.uint8, (L, b, m))
+        _build.check(t.starts, "starts", torch.int32, (L, b + 1))
+        if t.tomb_counts is not None:
+            _build.check(t.tomb_counts, "tomb_counts", torch.int32, (L, b))
+    dev = qbuckets.device
+    coll = torch.empty(nq, dtype=torch.int32, device=dev)
+    cand = torch.empty(nq, dtype=torch.float32, device=dev)
+    if nq == 0:
+        return coll, cand
+    _build.check_layout("hll_merge", "route_estimate_args_bytes", _RouteArgs)
+    for lo in range(0, len(tables), ROUTE_MAX_SEGMENTS):
+        group = tables[lo:lo + ROUTE_MAX_SEGMENTS]
+        a = _RouteArgs(qb=qbuckets.data_ptr(),
+                       tidx=None if tidx is None else tidx.data_ptr(),
+                       coll=coll.data_ptr(), cand=cand.data_ptr(), Q=nq, V=v,
+                       m=m, nseg=len(group), coef=_coef(m),
+                       accumulate=int(lo > 0))
+        for i, t in enumerate(group):
+            b = t.registers.shape[1]
+            a.seg[i] = _RouteSeg(
+                t.starts.data_ptr(), t.registers.data_ptr(),
+                None if t.tomb_counts is None else t.tomb_counts.data_ptr(),
+                b * m, m, b)
+        _build.launch("hll_merge", "route_estimate", [_P, _P],
+                      ctypes.addressof(a), _build.stream(qbuckets))
+        route_estimate.launches += 1
+    return coll, cand
 
 
 def hll_merge_estimate(regs: torch.Tensor) -> torch.Tensor:
@@ -28,21 +121,18 @@ def hll_merge_estimate(regs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"want (Q, L, m) uint8, got {tuple(regs.shape)} "
                          f"{regs.dtype}")
     q, L, m = regs.shape
-    if m & (m - 1) or not 0 < m <= 1024:
-        raise ValueError(f"m must be a power of two <= 1024, got {m}")
+    _check_m(m)
     regs = regs.contiguous()
     out = torch.empty(q, dtype=torch.float32, device=regs.device)
     if q == 0:
         return out
-    coef = float(np.float32(_alpha(m) * m * m))
     _build.launch("hll_merge", "hll_merge_estimate",
-                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p],
-                  regs.data_ptr(), out.data_ptr(), q, L, m, coef,
+                  [_P, _P, _I, _I, _I, ctypes.c_float, _P],
+                  regs.data_ptr(), out.data_ptr(), q, L, m, _coef(m),
                   _build.stream(regs))
     hll_merge_estimate.launches += 1
     return out
 
 
+route_estimate.launches = 0
 hll_merge_estimate.launches = 0

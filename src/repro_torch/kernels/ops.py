@@ -12,7 +12,7 @@ Nothing falls back: a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -21,11 +21,13 @@ from repro_torch.kernels import fused_scan as _fs
 from repro_torch.kernels import hll_merge as _hllm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import simhash as _sim
+from repro_torch.kernels.ref import ScanPart, TableTerms
 from repro_torch.u32 import as_i32, as_u32
 
 __all__ = ["pairwise_dist", "hamming_dist", "simhash_fingerprint",
            "hll_merge_estimate", "pad_to", "metric_radius_transform",
            "fused_linear_scan", "fused_lsh_scan", "fused_lsh_scan_unsorted",
+           "grouped_linear_scan", "route_estimate", "ScanPart", "TableTerms",
            "resolve_impl"]
 
 IMPLS = ("ref", "cuda")
@@ -143,7 +145,7 @@ def fused_linear_scan(q: torch.Tensor, x: torch.Tensor, r, metric: str,
         return _ref.fused_linear_scan(q, x, thresh, metric)
     if metric == "hamming":
         dists, mask, ids = _fs.linear_scan_hamming(
-            thresh, as_i32(q).contiguous(), as_i32(x).contiguous())
+            thresh, as_i32(q).contiguous(), [ScanPart(as_i32(x).contiguous())])
         return ids, dists, mask
     if metric == "l1":
         dists, mask, ids = _fs.linear_scan_l1(
@@ -235,3 +237,53 @@ def hll_merge_estimate(regs: torch.Tensor,
     if resolve_impl(impl, regs.device) == "ref":
         return _ref.hll_merge_estimate(regs)
     return _hllm.hll_merge_estimate(regs)
+
+
+def grouped_linear_scan(q: torch.Tensor, parts: Sequence[ScanPart], r,
+                        metric: str, impl: Optional[str] = None):
+    """The linear route of one routed group over every segment of an
+    index: (ids, dists, mask), each (Q, sum n), part s in its own
+    columns, in order.
+
+    ``parts``: ``ScanPart``s (x, live, ext).  Each part reports what
+    ``fused_linear_scan`` reports over its rows, with ``live[n]`` in the
+    mask and, where it has ``ext``, ``ext[n]`` as the id where masked in
+    and ``ref.EXT_SENTINEL`` elsewhere.  What runs:
+
+      * CUDA, hamming — one kernel launch over all the parts and queries
+        (``fused_scan.linear_scan_hamming``);
+      * CPU, or ``impl="ref"`` — the plain version,
+        ``ref.grouped_linear_scan``, any metric.
+
+    CUDA l2 / cosine / l1 raise: their segments are searched one by one
+    (``engine.TableSegment.search``, K1 or K4 per 32-query chunk).
+    """
+    impl = resolve_impl(impl, q.device)
+    if impl == "ref":
+        return _ref.grouped_linear_scan(q, parts, metric_radius_transform(
+            metric, r), metric)
+    if metric != "hamming":
+        raise ValueError(f"grouped_linear_scan on CUDA is Hamming only, "
+                         f"not {metric!r}: search the segments one by one")
+    dists, mask, ids = _fs.linear_scan_hamming(
+        metric_radius_transform(metric, r), as_i32(q).contiguous(),
+        [p._replace(x=as_i32(p.x).contiguous()) for p in parts])
+    return ids, dists, mask
+
+
+def route_estimate(qbuckets: torch.Tensor, tables: Sequence[TableTerms],
+                   tidx: Optional[torch.Tensor] = None,
+                   impl: Optional[str] = None):
+    """Algorithm 2 lines 1-2 over the frozen segments of an index:
+    (Q, V) query buckets and each segment's ``TableTerms`` (starts,
+    registers, tomb_counts or None), in stack order -> (collisions (Q,)
+    int32, cand (Q,) float32): the tombstone-corrected bucket sizes and
+    the sum, from 0 in segment order, of each segment's HLL estimate less
+    its dead collisions (clamped at 0).  ``tidx``: (V,) column -> table
+    map under multi-probe.  On CUDA one kernel launch
+    (``hll_merge.route_estimate``)."""
+    if resolve_impl(impl, qbuckets.device) == "ref":
+        return _ref.route_estimate(qbuckets, tables, tidx)
+    return _hllm.route_estimate(
+        qbuckets.to(torch.int32).contiguous(), tables,
+        None if tidx is None else tidx.to(torch.int32).contiguous())

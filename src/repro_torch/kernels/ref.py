@@ -11,9 +11,29 @@ tensors holding uint32 values; both are read through ``as_u32``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional, Sequence
+
 import torch
 
 from repro_torch.u32 import MASK32, as_u32
+
+EXT_SENTINEL = 2**31 - 1   # masked-out slots in reported buffers
+
+
+class TableTerms(NamedTuple):
+    """What the route estimate reads of one frozen segment."""
+
+    starts: torch.Tensor                  # (L, B + 1) int32 CSR offsets
+    registers: torch.Tensor               # (L, B, m) uint8 per-bucket HLLs
+    tomb_counts: Optional[torch.Tensor]   # (L, B) int32 dead counts, or None
+
+
+class ScanPart(NamedTuple):
+    """One segment of a grouped linear scan."""
+
+    x: torch.Tensor                       # (n, d) rows, or (n, W) codes
+    live: Optional[torch.Tensor] = None   # (>= n,) bool, or None: all live
+    ext: Optional[torch.Tensor] = None    # (>= n,) int32 ids, or None: row index
 
 
 def popcount_u32(v: torch.Tensor) -> torch.Tensor:
@@ -183,3 +203,66 @@ def hll_merge_estimate(regs: torch.Tensor) -> torch.Tensor:
     from repro_torch.core import hll as hll_lib   # core imports kernels
     merged = hll_lib.merge_registers(regs.to(torch.int32), axis=1)
     return hll_lib.estimate_cardinality(merged, int(regs.shape[-1]))
+
+
+def route_estimate(qbuckets: torch.Tensor, tables: Sequence[TableTerms],
+                   tidx: Optional[torch.Tensor] = None):
+    """(Q, V) buckets over the frozen segments' tables, in stack order ->
+    (collisions (Q,) int32, cand (Q,) float32).
+
+    Per segment, as the reference's ``TableSegment.estimate_terms`` and
+    ``finalize_route`` compose it: the bucket sizes less the dead counts,
+    summed; the HLL estimate of the hit buckets' merged registers, less
+    the dead counts and clamped at 0 where the segment has tombstones;
+    the estimates added in segment order from 0.
+    """
+    lidx = (torch.arange(qbuckets.shape[1], device=qbuckets.device)
+            if tidx is None else tidx.to(torch.int64))[None, :]
+    b = qbuckets.to(torch.int64)
+    coll = torch.zeros(qbuckets.shape[0], dtype=torch.int32,
+                       device=qbuckets.device)
+    cand = torch.zeros(qbuckets.shape[0], dtype=torch.float32,
+                       device=qbuckets.device)
+    for t in tables:
+        counts = t.starts[lidx, b + 1] - t.starts[lidx, b]
+        est = hll_merge_estimate(t.registers[lidx, b])
+        if t.tomb_counts is not None:
+            dead = t.tomb_counts[lidx, b]
+            counts = counts - dead
+            est = torch.clamp(
+                est - torch.sum(dead, dim=-1, dtype=torch.int32)
+                .to(torch.float32), min=0.0)
+        coll = coll + torch.sum(counts, dim=-1, dtype=torch.int32)
+        cand = cand + est
+    return coll, cand
+
+
+def scan_epilogue(ids: torch.Tensor, dists: torch.Tensor, mask: torch.Tensor,
+                  live: Optional[torch.Tensor], ext: Optional[torch.Tensor]):
+    """A segment's linear-scan buffers (Q, n), row n in column n -> what
+    it reports: the mask also needs ``live[n]``; ids become ``ext[n]``
+    where masked in and ``EXT_SENTINEL`` elsewhere (when ``ext`` is
+    given).  The epilogue of both indexes' linear routes, and of K5."""
+    n = dists.shape[-1]
+    if live is not None:
+        mask = mask & live[:n]
+    if ext is not None:
+        ids = torch.where(mask, ext[:n], torch.full_like(ids, EXT_SENTINEL))
+    return ids, dists, mask
+
+
+def grouped_linear_scan(q: torch.Tensor, parts: Sequence[ScanPart], thresh,
+                        metric: str):
+    """The linear route over a group of segments: per part
+    ``fused_linear_scan`` and ``scan_epilogue``, concatenated along
+    columns in order.  Returns (ids, dists, mask), each (Q, sum n)."""
+    return concat_columns([scan_epilogue(
+        *fused_linear_scan(q, p.x, thresh, metric), p.live, p.ext)
+        for p in parts])
+
+
+def concat_columns(parts):
+    """Concatenate per-segment ``(ids, dists, mask)`` along columns."""
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat([p[i] for p in parts], dim=-1) for i in range(3))

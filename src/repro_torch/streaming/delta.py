@@ -26,8 +26,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.engine import EXT_SENTINEL, SegmentEstimate
+from repro_torch.core.engine import SegmentEstimate
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import scan_epilogue
 
 __all__ = ["DeltaSegment", "DeltaView", "make_delta", "insert", "kill",
            "collision_stats", "search"]
@@ -111,11 +112,16 @@ class DeltaView:
 
     def search(self, qbuckets: torch.Tensor, q: torch.Tensor, r, *,
                lsh_route: bool):
-        ids, dists, mask = search(self.delta, qbuckets, q, r, self.metric,
-                                  require_collision=lsh_route,
-                                  impl=self.impl, tidx=self.tidx)
-        return (torch.where(mask, ids, torch.full_like(ids, EXT_SENTINEL)),
-                dists, mask)
+        return scan_epilogue(*search(self.delta, qbuckets, q, r, self.metric,
+                                     require_collision=lsh_route,
+                                     impl=self.impl, tidx=self.tidx),
+                             None, self.delta.ids)
+
+    def scan_part(self) -> ops.ScanPart:
+        """What ``ops.grouped_linear_scan`` scans of the delta: all C + 1
+        rows, masked by ``live``, reported by external id."""
+        d = self.delta
+        return ops.ScanPart(d.x, d.live, d.ids)
 
     def count_candidates(self, qbuckets: torch.Tensor) -> torch.Tensor:
         """(Q,) distinct colliding delta rows — exact, the delta keeps

@@ -4,8 +4,10 @@ Imports neither JAX nor ``repro``, so it runs on a GPU machine without
 them:  ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Every test skips (with its reason) where there is no CUDA device: the
 kernels have no CPU mode.  Tolerances as in ``test_torch_kernels.py``;
-HLL estimates at rtol 1e-5 (float32 sums in another order); Hamming
-matrices exact; SimHash bits as ``torch_cases.simhash_flips`` allows.
+HLL estimates at rtol 1e-5 against the plain version (float32 sums in
+another order) and bit for bit against the per-segment composition of the
+same kernel; Hamming matrices and scans exact; SimHash bits as
+``torch_cases.simhash_flips`` allows.
 """
 import numpy as np
 import pytest
@@ -15,11 +17,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
                                  hll_merge, ops, simhash)
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
-from torch_cases import (DOT_CASES, L1_CASES, LSH_CASES,  # noqa: E402
-                         RADII, TOL, as_tensor, dist64,
-                         dot_inputs, handcrafted_ids, hll_regs, l1_inputs,
-                         lsh_dist64, lsh_inputs, masks_outside_band_agree,
-                         on_device, pair, simhash_flips, unit_rows_np)
+from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
+from torch_cases import (DOT_CASES, GROUPED_CASES, L1_CASES,  # noqa: E402
+                         LSH_CASES, RADII, ROUTE_CASES, TOL, as_tensor,
+                         dist64, dot_inputs, grouped_parts, handcrafted_ids,
+                         hll_regs, l1_inputs, lsh_dist64, lsh_inputs,
+                         masks_outside_band_agree, on_device, pair,
+                         route_estimate_per_segment, route_tables,
+                         simhash_flips, unit_rows_np)
 
 RNG = np.random.default_rng(0)
 
@@ -187,6 +192,69 @@ def test_cuda_hll_merge_matches_plain(cuda, q, L, m, kind):
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-5)
 
 
+def _on(a, cuda):
+    return None if a is None else torch.from_numpy(a).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,L,T,m,S,kind", ROUTE_CASES)
+def test_cuda_route_estimate_matches_plain(cuda, q, L, T, m, S, kind):
+    """K3 over S segments: collisions exact and the estimate within 1e-5
+    of the plain version; bit for bit the sum the engine composed one
+    segment at a time from the kernel's one-segment case; one launch per
+    64 segments."""
+    qb, tidx, segs = route_tables(q, L, T, m, S, kind, RNG)
+    qb, tidx = _on(qb, cuda), _on(tidx, cuda)
+    tables = [ops.TableTerms(*(_on(a, cuda) for a in seg)) for seg in segs]
+    before = hll_merge.route_estimate.launches
+    coll, cand = ops.route_estimate(qb, tables, tidx, impl="cuda")
+    assert hll_merge.route_estimate.launches == before + -(-S // 64)
+    pc, pe = ops.route_estimate(qb, tables, tidx, impl="ref")
+    assert torch.equal(coll, pc)
+    np.testing.assert_allclose(cand.cpu().numpy(), pe.cpu().numpy(), rtol=1e-5)
+    wc, we = route_estimate_per_segment(
+        qb, tables, tidx, lambda r: ops.hll_merge_estimate(r, impl="cuda"))
+    assert torch.equal(coll, wc) and torch.equal(cand, we)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,w,sizes,kind", GROUPED_CASES)
+def test_cuda_grouped_hamming_scan_matches_plain(cuda, q, w, sizes, kind):
+    """K5 over a group of segments, all queries in one launch per 64
+    segments: ids, distances and masks equal the plain version's (per
+    segment the plain scan, the live / external-id epilogue, and a
+    concatenation); a segment of dead rows reports nothing."""
+    qa, parts, t = grouped_parts(q, w, sizes, kind, RNG)
+    qt = torch.from_numpy(qa.view(np.int32)).to(cuda)
+    tparts = [ops.ScanPart(torch.from_numpy(x.view(np.int32)).to(cuda),
+                           _on(live, cuda), _on(ext, cuda))
+              for x, live, ext in parts]
+    before = fused_scan.linear_scan_hamming.launches
+    a = ops.grouped_linear_scan(qt, tparts, t, "hamming", impl="cuda")
+    assert fused_scan.linear_scan_hamming.launches == before + -(-len(sizes) // 64)
+    b = ops.grouped_linear_scan(qt, tparts, t, "hamming", impl="ref")
+    assert tuple(a[0].shape) == (q, sum(sizes))
+    for u, v in zip(a, b):
+        assert u.dtype == v.dtype and torch.equal(u, v)
+    if kind == "dead":
+        assert not bool(a[2][:, :sizes[0]].any())
+        assert bool((a[0][:, :sizes[0]] == EXT_SENTINEL).all())
+    assert bool(b[2].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "cosine", "l1"])
+def test_cuda_grouped_linear_scan_is_hamming_only(cuda, metric):
+    """On CUDA the grouped scan is the Hamming kernel: other metrics raise
+    (the engine searches their segments one by one) and launch nothing."""
+    x = torch.from_numpy(RNG.normal(size=(40, 8)).astype(np.float32)).to(cuda)
+    before = fused_scan.linear_scan_hamming.launches
+    with pytest.raises(ValueError, match="Hamming only"):
+        ops.grouped_linear_scan(x[:3], [ops.ScanPart(x)], 1.0, metric,
+                                impl="cuda")
+    assert fused_scan.linear_scan_hamming.launches == before
+
+
 @pytest.mark.gpu
 def test_cuda_index_default_device(cuda):
     from repro_torch.core import HybridLSHIndex
@@ -195,9 +263,9 @@ def test_cuda_index_default_device(cuda):
     idx = HybridLSHIndex(make_family("l2", d=16, L=4, r=2.0),
                          num_buckets=64).build(x)
     assert idx.x.is_cuda and idx.tables.perm.is_cuda
-    before = hll_merge.hll_merge_estimate.launches
+    before = hll_merge.route_estimate.launches
     res = idx.query(x[:20], 2.0)
-    assert hll_merge.hll_merge_estimate.launches == before + 1
+    assert hll_merge.route_estimate.launches == before + 1
     for i in range(20):
         assert i in res.neighbors(i)
 
@@ -207,7 +275,9 @@ def test_cuda_index_default_device(cuda):
 def test_cuda_churned_dynamic_index_matches_plain(cuda, metric):
     """A small churned DynamicHybridIndex (freezes, a merge, deletes in
     segments and the delta) through the kernels and through the plain
-    versions reports the same sets on every route."""
+    versions reports the same sets on every route, with one K3 launch a
+    query batch over all segments and, for Hamming, one K5 launch a
+    linear group and one for the delta of an LSH group."""
     from repro_torch.core.lsh import make_family
     from repro_torch.streaming import CompactionPolicy, DynamicHybridIndex
     if metric == "hamming":
@@ -226,10 +296,17 @@ def test_cuda_churned_dynamic_index_matches_plain(cuda, metric):
     plain.load_state_dict(idx.state_dict())
     kernel = getattr(fused_scan, LINEAR_KERNEL[metric])
     q = x[::45]
+    assert len(idx.stack.segments) >= 2     # one K3 launch over both
     for force in (None, "lsh", "linear"):
         before = kernel.launches
+        k3 = hll_merge.route_estimate.launches
         a = idx.query(q, r, force=force)
-        assert kernel.launches > before       # the delta scan, at least
+        assert hll_merge.route_estimate.launches == k3 + 1
+        if metric == "hamming":
+            assert kernel.launches == before + (len(a.lin_idx) > 0) \
+                + (len(a.lsh_idx) > 0)
+        else:
+            assert kernel.launches > before   # the delta scan, at least
         b = plain.query(q, r, force=force)
         assert a.neighbor_sets() == b.neighbor_sets(), force
 

@@ -21,6 +21,7 @@ from repro_torch.core import engine as tengine  # noqa: E402
 from repro_torch.core.lsh import make_family  # noqa: E402
 from repro_torch.data import clustered_dataset, paper_dataset, query_split  # noqa: E402
 from repro_torch.interop import params_from_numpy, tables_from_numpy  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REL = 1e-5          # rows this close (relative) to the threshold may flip
@@ -174,22 +175,26 @@ def test_query_result_accessors_and_memory_stats():
 @pytest.mark.parametrize("n_segments", [1, 3])
 def test_finalize_route_matches_repro(n_segments):
     """Collisions and HLL registers of one or several segments combine
-    as in repro, candSize clamped by the live rows."""
+    as in repro, candSize clamped by the live rows.  The port's segments
+    hand ``finalize_route`` their HLL estimates (``cand_est``, as
+    ``ops.route_estimate`` does), repro's their registers."""
     rng = np.random.default_rng(3 + n_segments)
     q, L, m = 12, 4, 32
     parts = [(rng.integers(0, 400, q).astype(np.int32),
               rng.integers(0, 8, (q, L, m)).astype(np.uint8), n_live)
              for n_live in (300, 200, 7)[:n_segments]]
 
-    def terms(mod, cast):
-        return [mod.SegmentEstimate(collisions=cast(c), registers=cast(g),
-                                    n_live=n, n_scan=n + 5)
-                for c, g, n in parts]
-
     cm = jcore.CostModel(alpha=1.0, beta=6.0)
-    je = jengine.finalize_route(terms(jengine, jnp.asarray), cm)
-    te = tengine.finalize_route(terms(tengine, torch.from_numpy),
-                                tcore.CostModel(alpha=1.0, beta=6.0))
+    je = jengine.finalize_route(
+        [jengine.SegmentEstimate(collisions=jnp.asarray(c),
+                                 registers=jnp.asarray(g), n_live=n,
+                                 n_scan=n + 5) for c, g, n in parts], cm)
+    te = tengine.finalize_route(
+        [tengine.SegmentEstimate(
+            collisions=torch.from_numpy(c),
+            cand_est=tops.hll_merge_estimate(torch.from_numpy(g)),
+            n_live=n, n_scan=n + 5) for c, g, n in parts],
+        tcore.CostModel(alpha=1.0, beta=6.0))
     np.testing.assert_array_equal(te.collisions.numpy(),
                                   np.asarray(je.collisions))
     np.testing.assert_allclose(te.cand_est.numpy(), np.asarray(je.cand_est),

@@ -305,12 +305,14 @@ def test_l1_and_hamming_wrappers_launch_on_cuda_only(metric):
     if metric == "hamming":
         q, x = (torch.from_numpy(a.view(np.int32)) for a in (qa, xa))
         fn = fused_scan.linear_scan_hamming
+        args = (q, [tops.ScanPart(x)])      # a group of one segment
     else:
         q, x = _t(qa), _t(xa)
         fn = fused_scan.linear_scan_l1
+        args = (q, x)
     before = fn.launches
     with pytest.raises(ValueError, match="CUDA"):
-        fn(1.0, q, x)
+        fn(1.0, *args)
     with pytest.raises(ValueError):
         tops.fused_linear_scan(q, x, 1.0, metric, impl="cuda")
     assert fn.launches == before

@@ -233,3 +233,108 @@ def lsh_dist64(metric, qa, xa, ids_sorted):
         rows = ids_sorted[i][first[i]]
         out[i, first[i]] = dist64(metric, qa[i:i + 1], xa[rows])[0]
     return out
+
+
+# The route estimate (K3, ops.route_estimate): (Q, L, T, m, S, kind).  V = L
+# (T = 1) and V = L T probed columns (T > 1, a column -> table map); m = 16
+# to 1,024 (threads a block); S = 1 to 65 segments (65: past the 64 of one
+# launch's parameter struct, two launches); kinds (route_tables): "static"
+# (no tombstones), "churned" (tombstones in every segment), "dead" (the
+# second segment's rows all dead: its estimate clamps to 0).
+ROUTE_CASES = [(1, 4, 1, 16, 1, "static"), (33, 20, 1, 64, 5, "churned"),
+               (100, 20, 1, 64, 4, "churned"), (100, 20, 1, 64, 1, "static"),
+               (100, 6, 4, 32, 3, "churned"), (33, 5, 2, 1024, 2, "dead"),
+               (7, 2, 1, 128, 65, "churned"), (5, 3, 1, 256, 2, "static"),
+               (33, 4, 2, 512, 6, "dead")]
+
+
+def route_tables(q, L, T, m, S, kind, rng):
+    """numpy inputs of a route estimate: (Q, L T) int32 buckets, the
+    (L T,) int32 column -> table map (None where T = 1), and S segments of
+    (starts (L, B + 1) int32, registers (L, B, m) uint8, tomb_counts
+    (L, B) int32 or None), B = 64 buckets of 0-40 rows.  The registers
+    of one segment are sparse (most merged estimates take the small-range
+    correction), those of the next dense."""
+    B = 64
+    segs = []
+    for s in range(S):
+        sizes = rng.integers(0, 41, (L, B))
+        starts = np.concatenate([np.zeros((L, 1), np.int64),
+                                 np.cumsum(sizes, axis=1)], 1).astype(np.int32)
+        # ranks 1 + geometric, in 10 % of the registers of even segments
+        # (the merge leaves zeros: linear counting) and in all of odd ones
+        regs = np.minimum(rng.geometric(0.5, (L, B, m)), 31)
+        regs *= rng.random((L, B, m)) < (0.1 if s % 2 == 0 else 1.0)
+        regs = regs.astype(np.uint8)
+        tomb = None
+        if kind != "static":
+            tomb = rng.integers(0, sizes + 1).astype(np.int32)
+            if kind == "dead" and s == 1:
+                tomb = sizes.astype(np.int32)
+        segs.append((starts, regs, tomb))
+    qb = rng.integers(0, B, (q, L * T)).astype(np.int32)
+    tidx = None if T == 1 else np.repeat(np.arange(L), T).astype(np.int32)
+    return qb, tidx, segs
+
+
+# The grouped Hamming scan (K5, ops.grouped_linear_scan): (Q, W, rows of
+# each segment, kind).  Q = 1, 5, 7, 33, 100 (a last block of 1-32
+# queries); W = 1, 2, 4 (codes held in registers), 3, 8, 9, 16; odd sums of
+# rows (a delta of C + 1 rows last), frozen segments padded to powers of
+# two, 71 segments (past the 64 of one launch: two launches); kinds
+# (grouped_parts): "static" (no live, no external ids: ids are row
+# indices), "stream" (live and external ids on every segment), "dead"
+# (stream, the first segment's rows all dead: sentinel ids, mask 0).
+GROUPED_CASES = [(1, 2, (1,), "static"), (33, 1, (8, 16, 129), "stream"),
+                 (100, 2, (8192, 4096, 4096, 2048, 4097), "stream"),
+                 (33, 3, (64, 8, 257), "stream"), (100, 8, (512, 513), "dead"),
+                 (7, 9, (16, 31), "stream"), (33, 16, (100,), "static"),
+                 (5, 4, (8,) * 70 + (9,), "stream"),
+                 (100, 2, (59900,), "static"), (1, 4, (1024, 3), "dead")]
+
+
+def grouped_parts(q, w, sizes, kind, rng):
+    """numpy inputs of a grouped scan: (Q, W) uint32 query codes, one
+    (x (n, W) uint32, live (n + 1,) bool or None, ext (n,) int32 or None)
+    per segment, and a threshold at an attained distance (the median of
+    the first segment's distances to query 0)."""
+    qa = rng.integers(0, 2**32, (q, w), dtype=np.uint32)
+    parts, base = [], 0
+    for s, n in enumerate(sizes):
+        x = rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+        x[: n // 7] ^= qa[0] & 0xFF00FF00         # near rows: both masks
+        live = ext = None
+        if kind != "static":
+            live = rng.random(n + 1) < 0.8
+            live[n] = False
+            if kind == "dead" and s == 0:
+                live[:] = False
+            ext = (base + 1000 + rng.permutation(n)).astype(np.int32)
+        base += n
+        parts.append((x, live, ext))
+    t = float(np.median(dist64("hamming", qa[:1], parts[0][0])))
+    return qa, parts, t
+
+
+def route_estimate_per_segment(qb, tables, tidx, merge):
+    """The route estimate composed one segment at a time, as the engine
+    composed it before ``ops.route_estimate``: each segment's (Q, V, m)
+    registers gathered and estimated by ``merge`` ((Q, V, m) uint8 ->
+    (Q,) float32), its dead counts subtracted and clamped at 0, the
+    estimates added in segment order from 0.  Returns (collisions, cand)."""
+    lidx = (torch.arange(qb.shape[1], device=qb.device) if tidx is None
+            else tidx.to(torch.int64))[None, :]
+    b = qb.to(torch.int64)
+    coll = torch.zeros(qb.shape[0], dtype=torch.int32, device=qb.device)
+    cand = torch.zeros(qb.shape[0], dtype=torch.float32, device=qb.device)
+    for starts, regs, tomb in tables:
+        counts = starts[lidx, b + 1] - starts[lidx, b]
+        est = merge(regs[lidx, b].contiguous())
+        if tomb is not None:
+            dead = tomb[lidx, b]
+            counts = counts - dead
+            est = torch.clamp(est - torch.sum(dead, dim=-1, dtype=torch.int32)
+                              .to(torch.float32), min=0.0)
+        coll = coll + torch.sum(counts, dim=-1, dtype=torch.int32)
+        cand = cand + est
+    return coll, cand
