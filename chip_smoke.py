@@ -9,10 +9,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      and log each kernel's registers, static shared memory and spills;
   2. each kernel (K1-K9) against its plain PyTorch version on hand-made
      edge cases (the dot-form tile of K1 and K6, the fused K2, the L1
-     tile of K4 and K7, the route estimate K3 and the grouped Hamming
-     scan K5 on the GPU tests' cases, ``tests/torch_cases.py``
-     ``DOT_CASES``, ``LSH_SHAPES`` x ``LSH_DIMS``, ``L1_CASES``,
-     ``ROUTE_CASES`` and ``GROUPED_CASES``);
+     tile of K4 and K7, the route estimate K3, the grouped Hamming
+     scan K5 and the SimHash kernel K9 on the GPU tests' cases,
+     ``tests/torch_cases.py`` ``DOT_CASES``, ``LSH_SHAPES`` x
+     ``LSH_DIMS``, ``L1_CASES``, ``ROUTE_CASES``, ``GROUPED_CASES`` and
+     ``SIMHASH_CASES``);
   3. ``calibrate`` on the card for cosine (d = 254), l2 (d = 32) and l1
      (d = 54): beta/alpha beside the paper's presets, the distance
      kernel's launches inside each call (K6 or K7, a warm-up and 5);
@@ -46,9 +47,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      per-segment composition (each segment's terms or search, then a sum
      or a concatenation), timed beside it;
   8. a ``{"kernels": [...]}`` JSON line with each kernel's launches, times,
-     plain and library times and bound (for K1 and K6 the larger of the
-     bytes and three TF32 passes on the tensor cores, both terms and the
-     CUDA-core term beside it, and the launch layout; for K4 and K7 two
+     plain and library times and bound (for K1, K6 and K9 the larger of
+     the bytes and three TF32 passes on the tensor cores, both terms and
+     the CUDA-core term beside it, and the launch layout; for K4 and K7 two
      FP32 instructions a term; K2 from the unsorted candidates, its
      library time ``torch.sort`` of them alone; for K2, K4 and K7 also the
      device time of a CUDA graph replay, ``device_ms``); then the last
@@ -182,10 +183,11 @@ class Smoke:
         return self.bound_ms(nbytes, 2.0 * nq * n * d, rate=self.fp32 / 2)
 
     def bound_dot_ms(self, nbytes, nq, n, d):
-        """The bound of the dot-form tile (K1, K6): the larger of the bytes
-        and its 3 x 2 Q N d TF32 tensor-core operations (three passes
-        make the fp32-exact product), with both terms and the CUDA-core
-        term (2 Q N d at the fp32 rate) for the record."""
+        """The bound of the dot-form tile (K1, K6; K9 with its L k columns
+        as the queries): the larger of the bytes and its 3 x 2 Q N d TF32
+        tensor-core operations (three passes make the fp32-exact
+        product), with both terms and the CUDA-core term (2 Q N d at the
+        fp32 rate) for the record."""
         tb = nbytes / self.bw * 1e3
         tt = 3 * 2.0 * nq * n * d / self.tf32 * 1e3
         return (max(tb, tt), "bytes" if tb >= tt else "operations",
@@ -420,6 +422,7 @@ def phase_edge_cases(s: Smoke):
         assert not bool(a[0].any())
         flips += s.simhash_flips(a, b, xa, ops.pad_projection(ra, L, k),
                                  f"K9 n={n} d={d} L={L} k={k}")
+    flips += simhash_edge_cases(s, rng)
     torch.cuda.synchronize()
     log(f"[edge] K1 / K6 (the dot-form tile, l2 and cosine: Q = 1-129, N = 1 "
         f"and ragged tiles, d = 1, 3, 32, 37, 54, 254, 256, x[1:] and 4-byte "
@@ -447,10 +450,38 @@ def phase_edge_cases(s: Smoke):
     log("[edge] K1 (l2, cosine), K2 (sorted ids, l2, l1, cosine, hamming), "
         "K3, K5 (W = 1, 2, 3, 8, 9, 16; ties; zero codes), K6 / K7 "
         "(Q or N = 1, d = 37 and 254, zero rows, f16), K8 (W = 1, 2, 3, 8, "
-        "9, 16) and K9 (k = 1, 4, 8, 16, 21, 31, 32, 40, 64) match their "
-        "plain versions on "
+        "9, 16) and K9 (k = 1, 4, 8, 16, 21, 31, 32, 40, 64; SIMHASH_CASES: "
+        "both loaders, 4-byte offset and x[1:] views, d = 1, 3, 7, 1,000, "
+        "ragged tiles, rows beside +Inf rows) match their plain versions on "
         f"the hand-made cases; K9 bits within {ref.SIMHASH_EPS:g} of 0 that "
         f"differ: {flips}")
+
+
+def simhash_edge_cases(s, rng):
+    """K9 on the GPU tests' ``SIMHASH_CASES`` (``tests/torch_cases.py``):
+    the loader the plan picks, one launch, bits within the band of the
+    plain version's on every row but the +Inf rows.  Returns the number
+    of bits that differ."""
+    torch = s.torch
+    from repro_torch.kernels import ops, simhash
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import SIMHASH_CASES, simhash_inputs
+    flips = 0
+    for n, d, L, k, view, inf_rows, mode in SIMHASH_CASES:
+        what = f"K9 n={n} d={d} L={L} k={k} {view} inf={inf_rows}"
+        x, r = simhash_inputs(n, d, L, k, view, inf_rows, rng, s.dev)
+        got = simhash.plan(x, L, k)["mode"]
+        assert got == mode, f"{what}: loader {got}, want {mode}"
+        a, launches = s.path(lambda: ops.simhash_fingerprint(x, r, L, k,
+                                                             impl="cuda"))
+        assert launches == {c: int(c == "simhash") for c in launches}, what
+        b = ops.simhash_fingerprint(x, r, L, k, impl="ref")
+        assert not bool(a[0].any()), what
+        keep = torch.ones(n, dtype=torch.bool, device=s.dev)
+        keep[list(inf_rows)] = False
+        flips += s.simhash_flips(a[keep], b[keep], x[keep],
+                                 ops.pad_projection(r, L, k), what)
+    return flips
 
 
 def dot_edge_cases(s, rng):
@@ -1217,27 +1248,37 @@ def simhash_times(s: Smoke, idx, by_path, tag):
     flips_codes = s.simhash_flips(a, fam.codes(idx.params, x), x, rp,
                                   f"{tag} K9=family.codes")
     del a
-    # the work of the family's L k real columns: x, R and the words moved
-    bound, by = s.bound_ms(4 * (n * d + d * L * k + n * L * words),
-                           2 * n * d * L * k)
+    # the least time for the work of the family's L k real columns: x, R
+    # and the words moved once, against 3 x 2 N d L k TF32 operations on
+    # the tensor cores (three passes make the fp32-exact product)
+    bound, by, terms = s.bound_dot_ms(4 * (n * d + d * L * k + n * L * words),
+                                      L * k, n, d)
     R = R.contiguous()
-    out = dict(ms=s.cuda_ms(lambda: simhash.simhash(x, rp, L, k)),
+    rc = simhash.compact_projection(rp, L, k)
+    out = dict(ms=s.cuda_ms(lambda: simhash.simhash(x, rp, L, k, rc=rc)),
+               device_ms=s.graph_ms(lambda: simhash.simhash(x, rp, L, k,
+                                                            rc=rc)),
+               layout_ms=s.cuda_ms(lambda: simhash.compact_projection(rp, L,
+                                                                      k)),
                ops_ms=s.cuda_ms(lambda: ops.simhash_fingerprint(x, R, L, k)),
                plain_ms=s.cuda_ms(lambda: ops.simhash_fingerprint(
                    x, R, L, k, impl="ref")),
                library_ms=None,
                matmul_ms=s.cuda_ms(lambda: torch.matmul(x, R)),
                matmul_padded_ms=s.cuda_ms(lambda: torch.matmul(x, rp)),
-               bound_ms=bound, bound_by=by, max_abs_err=flips,
+               bound_ms=bound, bound_by=by, **terms, max_abs_err=flips,
                max_abs_err_unit="bits that differ from the plain version",
                bits_differing_from_codes=flips_codes,
-               lanes_per_word=simhash.lanes_per_word(k),
+               compact_columns=int(rc.shape[0] * rc.shape[1]),
+               plan=simhash.plan(x, L, k),
                shape=f"N={n} d={d} L={L} k={k} words={words}")
     log(f"[{tag}] K9 bits within {ref.SIMHASH_EPS:g} of 0 that differ: "
         f"{flips} from the plain version, {flips_codes} from the index's "
-        f"bucket codes; {out['lanes_per_word']} lane columns a word; the "
-        f"projection only: torch.matmul(x, R) {out['matmul_ms']:.4f} ms, "
-        f"torch.matmul(x, r_padded) {out['matmul_padded_ms']:.4f} ms")
+        f"bucket codes; {out['compact_columns']} compact columns, plan "
+        f"{out['plan']}; K9 {out['ms']:.4f} ms (device {out['device_ms']:.4f})"
+        f", compact_projection {out['layout_ms']:.4f}, ops {out['ops_ms']:.4f}"
+        f"; the projection only: torch.matmul(x, R) {out['matmul_ms']:.4f} "
+        f"ms, torch.matmul(x, r_padded) {out['matmul_padded_ms']:.4f} ms")
     return out
 
 

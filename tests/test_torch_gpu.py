@@ -19,12 +19,12 @@ from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
 from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
 from torch_cases import (DOT_CASES, GROUPED_CASES, L1_CASES,  # noqa: E402
-                         LSH_CASES, RADII, ROUTE_CASES, TOL, as_tensor,
-                         dist64, dot_inputs, grouped_parts, handcrafted_ids,
-                         hll_regs, l1_inputs, lsh_dist64, lsh_inputs,
-                         masks_outside_band_agree, on_device, pair,
-                         route_estimate_per_segment, route_tables,
-                         simhash_flips, unit_rows_np)
+                         LSH_CASES, RADII, ROUTE_CASES, SIMHASH_CASES, TOL,
+                         as_tensor, dist64, dot_inputs, grouped_parts,
+                         handcrafted_ids, hll_regs, l1_inputs, lsh_dist64,
+                         lsh_inputs, masks_outside_band_agree, on_device,
+                         pair, route_estimate_per_segment, route_tables,
+                         simhash_flips, simhash_inputs, unit_rows_np)
 
 RNG = np.random.default_rng(0)
 
@@ -392,6 +392,25 @@ def test_cuda_simhash_matches_plain(cuda, L, k, n, d):
     assert a.dtype == torch.int64 and a.shape == (n, L, (k + 31) // 32)
     assert not bool(a[0].any())
     simhash_flips(a, b, x, ops.pad_projection(r, L, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,L,k,view,inf_rows,mode", SIMHASH_CASES)
+def test_cuda_simhash_edge_cases(cuda, n, d, L, k, view, inf_rows, mode):
+    """Both loaders, offset views, d = 1, 3, 7 and 1,000, ragged tiles:
+    one launch, bits as test_cuda_simhash_matches_plain allows; rows
+    beside a row of +Inf match too (its own bits are NaN's or Inf's)."""
+    x, r = simhash_inputs(n, d, L, k, view, inf_rows, RNG, cuda)
+    assert simhash.plan(x, L, k)["mode"] == mode
+    before = simhash.simhash.launches
+    a = ops.simhash_fingerprint(x, r, L, k, impl="cuda")
+    b = ops.simhash_fingerprint(x, r, L, k, impl="ref")
+    assert simhash.simhash.launches == before + 1
+    assert a.dtype == torch.int64 and a.shape == (n, L, (k + 31) // 32)
+    assert not bool(a[0].any())
+    keep = torch.ones(n, dtype=torch.bool, device=cuda)
+    keep[list(inf_rows)] = False
+    simhash_flips(a[keep], b[keep], x[keep], ops.pad_projection(r, L, k))
 
 
 @pytest.mark.gpu

@@ -28,7 +28,7 @@ from repro_torch.core import cost_model as tcost  # noqa: E402
 from repro_torch.kernels import distances, simhash  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from torch_cases import TOL  # noqa: E402
+from torch_cases import TOL, simhash_packed_as_kernel  # noqa: E402
 
 RNG = np.random.default_rng(0)
 JAX_IMPLS = ["pallas_interpret", "ref"]
@@ -126,6 +126,55 @@ def test_simhash_fingerprint_matches_repro(jimpl, L, k):
     assert got.dtype == torch.int64 and tuple(got.shape) == (130, L, words)
     assert int(got.min()) >= 0 and int(got.max()) < 2**32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# the (L, k) cases of test_torch_gpu.py::test_cuda_simhash_matches_plain
+SIMHASH_LK = [(3, 8), (5, 31), (2, 32), (4, 40), (1, 64), (20, 21), (7, 1),
+              (20, 4), (3, 16)]
+
+
+@pytest.mark.parametrize("jimpl", JAX_IMPLS)
+@pytest.mark.parametrize("L,k", SIMHASH_LK)
+def test_simhash_compact_projection_packs_the_fingerprint(jimpl, L, k):
+    """The kernel's compact, permuted projection, projected and packed as
+    its epilogue packs the ballots, is the fingerprint bit for bit."""
+    x, r = _pts(130, 48), _pts(48, L * k)
+    rp = tops.pad_projection(_t(r), L, k)
+    lay = simhash.layout(L, k)
+    rc = simhash.compact_projection(rp, L, k)
+    assert rc.dtype == torch.float32 and rc.is_contiguous()
+    assert tuple(rc.shape) == (lay.groups, 16 * lay.nfw, 48)
+    got = simhash_packed_as_kernel(_t(x), rc, L, k)
+    assert torch.equal(got, tref.simhash_fingerprint(_t(x), rp, L,
+                                                     (k + 31) // 32))
+    want = jops.simhash_fingerprint(jnp.asarray(x), jnp.asarray(r), L=L, k=k,
+                                    impl=jimpl)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("L,k", SIMHASH_LK)
+def test_simhash_compact_columns_hold_each_real_column_once(L, k):
+    """Every real column of the padded projection appears once; the rest
+    of a word's nibbles are its zero padding; a group fits 128 columns and
+    a warp's half holds whole words."""
+    lay = simhash.layout(L, k)
+    cols = simhash.compact_columns(L, k)
+    words = (k + 31) // 32
+    real = {t * 32 + b for t in range(lay.tw)
+            for b in range(min(32, k - 32 * (t % words)))}
+    got = cols[cols >= 0].tolist()
+    assert len(got) == len(set(got)) and real <= set(got)
+    assert all(c % 32 < 4 * lay.npw and c // 32 < lay.tw for c in got)
+    assert 1 <= lay.nfw <= 8 and 2 * lay.nfw >= lay.wh * lay.npw
+    assert lay.groups * lay.wg >= lay.tw and 2 * lay.wh >= lay.wg
+
+
+def test_simhash_layout_at_webspam_and_wide_words():
+    """Webspam's L = 20, k = 4: 80 columns (not 640) in one group, 5
+    fragments a warp's half; k = 21 takes 32 columns a word, 5 groups."""
+    assert simhash.layout(20, 4) == simhash.Layout(1, 20, 10, 5, 1, 20)
+    assert int((simhash.compact_columns(20, 4) >= 0).sum()) == 80
+    assert simhash.layout(20, 21) == simhash.Layout(8, 4, 2, 8, 5, 20)
 
 
 @pytest.mark.parametrize("k,want", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8),

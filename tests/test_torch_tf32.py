@@ -1,5 +1,6 @@
 """The precision of the dot-form CUDA tile (K1 ``linear_scan_dot``, K6
-``pairwise_dot``), emulated in numpy on the CPU.
+``pairwise_dot``) and of the SimHash kernel (K9), emulated in numpy on
+the CPU.
 
 The tile multiplies on the tensor cores in TF32.  It splits each float32
 input v into hi = tf32(v) and lo = tf32(v - hi), where tf32 is
@@ -9,7 +10,11 @@ hi.hi' in float32, eight k at a time.  These tests emulate that
 arithmetic on the Webspam (cosine, d = 254) and Corel (l2, d = 32)
 analogues and hold every distance within 1e-5 * max(1, |t|) of float64
 at the radii ``chip_smoke.py`` picks: the band inside which a reported
-set may differ.  One TF32 pass does not stay inside it.  No JAX, no card.
+set may differ.  One TF32 pass does not stay inside it.  K9 makes the
+same split in integer adds (the tensor cores ignore a TF32 operand's 13
+low bits) and sums the same three passes: its projections of the Webspam
+analogue stay within 1e-5 * sum_i |x_i r_i| of float64, the band inside
+which a SimHash bit may differ.  No JAX, no card.
 """
 import numpy as np
 import pytest
@@ -140,3 +145,42 @@ def test_split_reconstructs_to_2_pow_minus_22():
     assert not (lo.view(np.uint32) & 0x1FFF).any()
     rest = v.astype(np.float64) - hi.astype(np.float64) - lo.astype(np.float64)
     assert (np.abs(rest) <= 2.0 ** -22 * np.abs(v)).all()
+
+
+def k9_split(v):
+    """``simhash.cu``'s split_tf32 as the tensor cores read it: hi's bits
+    plus half the unit of the 13 dropped bits, lo the same of v - hi's
+    value; each operand's 13 low bits ignored."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    mask = np.uint32(0xFFFFE000)
+    hi = (bits + np.uint32(0x1000)) & mask
+    rest = (np.asarray(v, np.float32) - hi.view(np.float32)).view(np.uint32)
+    return hi.view(np.float32), ((rest + np.uint32(0x1000)) & mask).view(np.float32)
+
+
+def test_k9_integer_split_is_the_tile_split():
+    v = np.random.default_rng(1).normal(size=100_000).astype(np.float32)
+    v[:7] = [0.0, -0.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 2.0 - 2.0 ** -23,
+             1e-30, -3.5e20]
+    for got, want in zip(k9_split(v), split_tf32(v)):
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.fixture(scope="module")
+def simhash_emulated():
+    """(float64 projections, sum_i |x_i r_i|, {passes: the emulated
+    kernel's projections}) of 4,000 Webspam-analogue rows onto 80
+    Gaussian hyperplanes (L = 20, k = 4)."""
+    x, _ = paper_dataset("webspam", scale=4100 / 350000, seed=0)
+    x = x[:4000]
+    r = np.random.default_rng(1).normal(size=(x.shape[1], 80)).astype(np.float32)
+    x64, r64 = x.astype(np.float64), r.astype(np.float64)
+    return (x64 @ r64, np.abs(x64) @ np.abs(r64),
+            {p: dot_tf32(x, np.ascontiguousarray(r.T), p) for p in (1, 3)})
+
+
+@pytest.mark.parametrize("passes,inside", [(3, True), (1, False)])
+def test_simhash_projections_and_the_band(simhash_emulated, passes, inside):
+    want, scale, got = simhash_emulated
+    err = (np.abs(got[passes].astype(np.float64) - want) / scale).max()
+    assert (err <= BAND) == inside, (passes, err)

@@ -338,3 +338,61 @@ def route_estimate_per_segment(qb, tables, tidx, merge):
         coll = coll + torch.sum(counts, dim=-1, dtype=torch.int32)
         cand = cand + est
     return coll, cand
+
+
+# (n, d, L, k, view, rows set to +Inf, the loader simhash.plan picks on an
+# H100) for K9 beyond test_cuda_simhash_matches_plain's grid: x 4 bytes
+# into its buffer ("flat": every tile's span off 16 B, its last floats
+# loaded apart) or x[1:] ("rows"), with both loaders; d = 1, 3, 7 (one
+# partial k step); d = 1,000 (R in d-panels), with 5 column groups at
+# k = 21; N one row past 5 tiles; rows of +Inf, whose neighbours (the
+# previous row's last k step reads them) must still match.
+SIMHASH_CASES = [(1000, 254, 20, 4, "flat", (), "bulk"),
+                 (999, 254, 20, 21, "flat", (), "chunk"),
+                 (333, 254, 20, 4, "rows", (), "bulk"),
+                 (513, 1, 20, 4, None, (), "bulk"),
+                 (300, 3, 3, 8, None, (), "bulk"),
+                 (129, 7, 7, 1, None, (), "bulk"),
+                 (300, 1000, 20, 21, None, (), "chunk"),
+                 (200, 1000, 20, 4, None, (), "chunk"),
+                 (321, 254, 20, 4, None, (), "bulk"),
+                 (300, 254, 20, 4, None, (37, 63, 64, 299), "bulk"),
+                 (300, 254, 20, 21, None, (37, 64), "chunk"),
+                 (300, 37, 3, 8, None, (5,), "bulk")]
+
+
+def simhash_inputs(n, d, L, k, view, inf_rows, rng, device):
+    """float32 (n, d) points on ``device`` (``on_device``'s view) with
+    row 0 zero and ``inf_rows`` +Inf, and a (d, L k) projection."""
+    xa = rng.normal(size=(n, d)).astype(np.float32)
+    xa[0] = 0.0
+    xa[list(inf_rows)] = np.inf
+    r = torch.from_numpy(rng.normal(size=(d, L * k)).astype(np.float32))
+    return on_device(xa, view, device), r.to(device)
+
+
+def simhash_packed_as_kernel(x, rc, L, k):
+    """What ``csrc/simhash.cu`` packs, in plain PyTorch: the signs of x
+    against each compact column of ``rc`` ((groups, 16 nfw, d)), read
+    back as its epilogue reads its ballots (slot s = 2 f + e of a warp
+    half is nibble s % npw of the half's word s // npw, lane t its bit
+    t).  (N, L, words) int64."""
+    from repro_torch.kernels.simhash import layout
+    lay = layout(L, k)
+    n = x.shape[0]
+    out = torch.zeros((n, lay.tw), dtype=torch.int64)
+    for y in range(lay.groups):
+        bits = ((x.to(torch.float32) @ rc[y].T) > 0).to(torch.int64)
+        for half in range(2):
+            for w in range(lay.wh):
+                local = half * lay.wh + w
+                if local >= min(lay.wg, lay.tw - y * lay.wg):
+                    continue
+                word = torch.zeros(n, dtype=torch.int64)
+                for j in range(lay.npw):
+                    s = w * lay.npw + j
+                    for t in range(4):
+                        col = half * 8 * lay.nfw + 8 * (s // 2) + 2 * t + s % 2
+                        word |= bits[:, col] << (4 * j + t)
+                out[:, y * lay.wg + local] = word
+    return out.reshape(n, L, lay.tw // L)
