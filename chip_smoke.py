@@ -37,16 +37,34 @@ Phases (each raises on failure, so any failure exits non-zero):
      level-0 freezes, a level merge staged by the ``CompactionDriver``
      worker while the control thread queries), 1 % of the ids deleted,
      then queried through the kernels and the plain versions, held
-     against a fresh static index on the surviving rows, fully
-     compacted and checked again;
+     against a fresh static index on the surviving rows; then its
+     durability: the churned state checkpointed (``state_dict()``, a full
+     save, incremental step 1 inside the driver's consistent cut with the
+     worker running, one more batch and 16 deletes, step 2 reusing the
+     frozen levels' chunks, step 3 killed at ``pre_commit`` and swept by
+     a restarted manager) and restored to a fresh index on the card,
+     held against the live index (digests, counts, sets and kernel
+     launches on every path), timed; then fully compacted and checked
+     again;
   7. the MNIST analogue (59,900 64-bit codes, Hamming): the static index
      at its mixing radius, K8 on the 100 queries x the codes, and a
-     churned streaming index.  On both churned streaming indexes (CoverType,
-     MNIST) K3 over all frozen segments, and on MNIST K5 over all segments,
-     against their plain versions and bit for bit against the engine's
-     per-segment composition (each segment's terms or search, then a sum
-     or a concatenation), timed beside it;
-  8. a ``{"kernels": [...]}`` JSON line with each kernel's launches, times,
+     churned streaming index, saved and restored once the same way.  On
+     both churned streaming indexes (CoverType, MNIST) K3 over all frozen
+     segments, and on MNIST K5 over all segments, against their plain
+     versions and bit for bit against the engine's per-segment
+     composition (each segment's terms or search, then a sum or a
+     concatenation), timed beside it.  Then three MNIST tenants
+     (``serve.CollectionManager``: one family, engine and compaction
+     driver, a ``ShapeBucketScheduler`` with quota weights 1 / 2 / 4 and
+     a ``ResultCache``): churned, served in forced batches (sets held
+     against each tenant's whole batch and a plain index), a repeat pass
+     from the cache, a version bump that misses, the collection tree
+     saved incrementally and restored into a fresh manager, one tenant
+     dropped and re-created;
+  8. a ``[durability]`` JSON line with the checkpoint and restore times
+     and bytes of both churned indexes and the tenants, beside the card's
+     name and power limit; a ``{"kernels": [...]}`` JSON line with each
+     kernel's launches, times,
      plain and library times and bound (for K1, K6 and K9 the larger of
      the bytes and three TF32 passes on the tensor cores, both terms and
      the CUDA-core term beside it, and the launch layout; for K4 and K7 two
@@ -122,8 +140,8 @@ class Smoke:
     def __init__(self):
         import numpy as np
         import torch
-        from repro_torch.kernels import (distances, fused_scan, hll_merge,
-                                         simhash)
+        from repro_torch.kernels import (distances, fused_scan, hamming,
+                                         hll_merge, simhash)
         self.np, self.torch = np, torch
         self.dev = torch.device("cuda")
         self.counters = {"linear_scan_dot": fused_scan.linear_scan_dot,
@@ -134,7 +152,7 @@ class Smoke:
                          "hll_merge_estimate": hll_merge.hll_merge_estimate,
                          "pairwise_dot": distances.pairwise_dot,
                          "pairwise_l1": distances.pairwise_l1,
-                         "hamming": distances.hamming,
+                         "hamming": hamming.hamming,
                          "simhash": simhash.simhash}
         name = torch.cuda.get_device_name(0)
         self.bw, self.fp32, self.tf32 = PEAKS["pcie" if "PCIe" in name else "sxm"]
@@ -1207,7 +1225,7 @@ def hamming_times(s: Smoke, q_np, x_np, by_path, tag):
     read just after), exact against its plain version; ms, plain ms and
     bound."""
     np, torch = s.np, s.torch
-    from repro_torch.kernels import distances, ops
+    from repro_torch.kernels import hamming, ops
     q = torch.from_numpy(np.ascontiguousarray(q_np).view(np.int32)).to(s.dev)
     x = torch.from_numpy(np.ascontiguousarray(x_np).view(np.int32)).to(s.dev)
     (nq, w), n = q.shape, x.shape[0]
@@ -1219,8 +1237,8 @@ def hamming_times(s: Smoke, q_np, x_np, by_path, tag):
     # the int ops (xor, popcount, add per word) at the fp32 CUDA-core rate
     bound, by = s.bound_ms(4 * (q.numel() + x.numel()) + 4 * nq * n,
                            3 * nq * n * w)
-    return dict(ms=s.cuda_ms(lambda: distances.hamming(q, x)),
-                device_ms=s.graph_ms(lambda: distances.hamming(q, x)),
+    return dict(ms=s.cuda_ms(lambda: hamming.hamming(q, x)),
+                device_ms=s.graph_ms(lambda: hamming.hamming(q, x)),
                 plain_ms=s.cuda_ms(lambda: ops.hamming_dist(q, x, impl="ref")),
                 library_ms=None, bound_ms=bound, bound_by=by,
                 max_abs_err=float((a - b).abs().max()),
@@ -1358,7 +1376,7 @@ def pick_streaming_radius(s: Smoke, x_np, q_np, metric, radii, make_idx,
 
 
 def drive_streaming(s: Smoke, idx, x_np, q_np, metric, r, *, n_build, batch,
-                    tag, seed=0):
+                    tag, seed=0, durability=None):
     """Churn a built streaming index and check it on every path.
 
     Inserts rows ``n_build:`` in batches of ``batch`` while a
@@ -1369,9 +1387,11 @@ def drive_streaming(s: Smoke, idx, x_np, q_np, metric, r, *, n_build, batch,
     through the kernels against a plain index loaded from the kernel
     index's ``state_dict()`` (``check_results``), no deleted id reported,
     and the linear sets equal to those of a fresh static index built on
-    the surviving rows (external ids mapped).  Returns the per-path
-    launch counts of both states, the hybrid route mixes and the
-    hybrid query times."""
+    the surviving rows (external ids mapped).  ``durability`` ("steps"
+    or "once") runs ``drive_durability`` on the churned state, before
+    the compaction.  Returns the per-path launch counts of both states,
+    the hybrid route mixes and the hybrid query times (and the
+    durability numbers)."""
     np, torch = s.np, s.torch
     from repro_torch.core import HybridLSHIndex
     from repro_torch.streaming import CompactionDriver, DynamicHybridIndex
@@ -1463,7 +1483,431 @@ def drive_streaming(s: Smoke, idx, x_np, q_np, metric, r, *, n_build, batch,
                 s, idx, q_np, r, metric, f"{tag} {state}")
         del res, ref_res
         torch.cuda.empty_cache()
+        if state == "churned" and durability is not None:
+            out["durability"], gone = drive_durability(
+                s, idx, x_np, q_np, metric, r, kw, dead, f"{tag} durability",
+                steps=durability == "steps", batch=batch, seed=seed)
+            dead = np.union1d(dead, gone)
+            live = np.setdiff1d(np.arange(n), dead)
+            dead_set |= set(gone)
+            torch.cuda.empty_cache()
     return out
+
+
+class InjectedCrash(RuntimeError):
+    """The fault the durability phase injects into a save."""
+
+
+def crash_at_pre_commit(point, **info):
+    """A ``CheckpointManager`` fault hook: the process dies just before
+    the COMMITTED marker of a save."""
+    if point == "pre_commit":
+        raise InjectedCrash(f"injected crash at {point} {info}")
+
+
+def snapshot(s: Smoke, mgr, drv, idx, step):
+    """``save_index(step, idx, incremental=True, blocking=False)`` inside
+    the driver's consistent cut (the host copy and the digest hints on
+    this thread, the worker excluded), then the writer joined.  Returns
+    the cut's seconds (what the serving thread pays), the writer's, the
+    whole save's, and the chunks and bytes written and reused."""
+    before = mgr.stats()
+    t0 = time.perf_counter()
+    drv.consistent_cut(lambda: mgr.save_index(step, idx, incremental=True,
+                                              blocking=False))
+    cut = time.perf_counter() - t0
+    mgr.wait()
+    total = time.perf_counter() - t0
+    after = mgr.stats()
+    out = {k: after[k] - before[k] for k in ("chunks_written", "chunks_reused",
+                                             "bytes_written", "bytes_reused")}
+    return dict(out, cut_s=cut, write_s=after["last_save_seconds"],
+                total_s=total)
+
+
+INDEX_COUNTS = ("n_live", "n_main", "n_main_dead", "delta_count",
+                "delta_live", "segments", "levels")
+
+
+def restore_and_check(s: Smoke, mgr, live, kw, q_np, r, metric, tag):
+    """Restore the newest committed step into a fresh index on the card
+    (drawn from another seed: the params come from the checkpoint) and
+    hold it against the live index: equal ``state_digests()`` and
+    counts, and on every path exactly the live index's sets and kernel
+    launches (``check_path_launches`` on both).  Returns the restored
+    index and its seconds: the restore (read + load to the card), the
+    read alone, and the first hybrid query after it."""
+    torch = s.torch
+    from repro_torch.streaming import DynamicHybridIndex
+    live_res, live_launches = query_paths(s, live, q_np, r, metric,
+                                          f"{tag} live", delta=True)
+    fresh = DynamicHybridIndex(live.family, seed=1, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = mgr.restore_index(fresh)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first = fresh.query(q_np, r)
+    for o in (first.lsh_out, first.lin_out):
+        if o is not None:
+            o[2].sum().item()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    assert step == mgr.latest_step(), (tag, step)
+    assert fresh.params[next(iter(fresh.params))].device.type == s.dev.type
+    assert fresh.state_digests() == live.state_digests(), tag
+    a, b = live.index_stats(), fresh.index_stats()
+    for k in INDEX_COUNTS:
+        assert a[k] == b[k], (tag, k, a[k], b[k])
+    res, launches = query_paths(s, fresh, q_np, r, metric, f"{tag} restored",
+                                delta=True)
+    for f, path in PATHS.items():
+        assert res[f].neighbor_sets() == live_res[f].neighbor_sets(), (tag, f)
+        assert launches[path] == live_launches[path], (tag, path)
+    log(f"[{tag}] restored step {step}: digests, counts, sets and kernel "
+        f"launches on every path equal the live index's; launches {launches}")
+    return fresh, dict(restore_s=t_restore,
+                       read_s=mgr.stats()["last_restore_seconds"],
+                       first_hybrid_ms=t_first * 1e3, launches=launches)
+
+
+def drive_durability(s: Smoke, idx, x_np, q_np, metric, r, kw, dead, tag, *,
+                     steps, batch, seed):
+    """Checkpoint the churned streaming index and restore it to the card.
+
+    Always: ``state_dict()`` timed (the device-to-host copy), a full
+    ``save_index`` timed, step 1 saved incrementally inside the
+    ``CompactionDriver``'s consistent cut with the worker running, and
+    restored into a fresh index (``restore_and_check``).  With
+    ``steps``: before the restore, one more batch inserted (rows of
+    deleted ids, under new ids) and 16 ids deleted, step 2 saved the
+    same way (it must write well under step 1's bytes and reuse at least
+    the leaves of the frozen segments both steps hold), and step 3 saved
+    by a manager whose fault hook kills it at ``pre_commit``: a new
+    manager on the directory sweeps the torn step and serves step 2.
+    Afterwards the inserted batch is deleted again.  Writes into a
+    temporary directory and removes it.  Returns the numbers and the
+    corpus ids deleted here."""
+    import shutil
+    import tempfile
+    np, torch = s.np, s.torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.streaming import CompactionDriver
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    drv = CompactionDriver(idx, budget_rows=idx.policy.step_rows)
+    gone, nums = [], {}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = idx.state_dict()
+        nums["state_dict_s"] = time.perf_counter() - t0
+        nums["state_bytes"] = tree_nbytes(state)
+        del state
+        full = CheckpointManager(str(root / "full"))
+        t0 = time.perf_counter()
+        full.save_index(1, idx, blocking=True)
+        nums["full_save_s"] = time.perf_counter() - t0
+        shutil.rmtree(root / "full")
+
+        mgr = CheckpointManager(str(root / "inc"))
+        drv.start()
+        nums["step1"] = snapshot(s, mgr, drv, idx, 1)
+        uids1 = {f.uid for f in idx.stack.segments}
+        if steps:
+            rng = np.random.default_rng(seed + 100)
+            added = idx.insert(x_np[dead[:batch]])
+            drv.notify()
+            live = np.setdiff1d(np.arange(len(x_np)), dead)
+            gone = rng.choice(live, 16, replace=False).tolist()
+            assert idx.delete(gone) == len(gone)
+            nums["step2"] = snapshot(s, mgr, drv, idx, 2)
+            kept = uids1 & {f.uid for f in idx.stack.segments}
+            st1, st2 = nums["step1"], nums["step2"]
+            assert st2["bytes_written"] < st1["bytes_written"] / 3, nums
+            assert st2["chunks_reused"] >= 6 * len(kept), (nums, kept)
+            try:
+                CheckpointManager(str(root / "inc"),
+                                  fault_hook=crash_at_pre_commit).save_index(
+                    3, idx, incremental=True, blocking=True)
+                raise AssertionError(f"{tag}: the injected crash never fired")
+            except InjectedCrash:
+                pass
+            mgr = CheckpointManager(str(root / "inc"))      # the restart
+            nums["litter_swept"] = mgr.stats()["litter_swept"]
+            assert nums["litter_swept"] >= 1 and mgr.latest_step() == 2, nums
+        drv.stop()
+        restored, nums["restore"] = restore_and_check(s, mgr, idx, kw, q_np, r,
+                                                      metric, tag)
+        del restored
+        if steps:
+            assert idx.delete(added.tolist()) == len(added)
+    finally:
+        drv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    st1 = nums["step1"]
+    rs = nums["restore"]
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] {idx.index_stats()['segments']} segments; state_dict() "
+        f"{nums['state_dict_s']:.3f} s for {nums['state_bytes'] / 1e6:.1f} MB "
+        f"(device to host); full save {nums['full_save_s']:.3f} s; "
+        f"incremental step 1: cut {st1['cut_s']:.3f} s (host copy + digest "
+        f"hints, worker excluded), writer {st1['write_s']:.3f} s, total "
+        f"{st1['total_s']:.3f} s, {st1['bytes_written'] / 1e6:.1f} MB written "
+        f"in {st1['chunks_written']} chunks")
+    if steps:
+        st2 = nums["step2"]
+        log(f"[{tag}] step 2 (a batch of {batch} inserted, 16 ids deleted): "
+            f"cut {st2['cut_s']:.3f} s, writer {st2['write_s']:.3f} s, total "
+            f"{st2['total_s']:.3f} s, {st2['bytes_written'] / 1e6:.2f} MB "
+            f"written in {st2['chunks_written']} chunks, "
+            f"{st2['bytes_reused'] / 1e6:.1f} MB reused in "
+            f"{st2['chunks_reused']} chunks; step 3 killed at pre_commit, "
+            f"{nums['litter_swept']} torn item(s) swept, restart serves step 2")
+    log(f"[{tag}] restore {rs['restore_s']:.3f} s (read {rs['read_s']:.3f} s, "
+        f"the rest the load to the card); first hybrid query after restore "
+        f"{rs['first_hybrid_ms']:.2f} ms (host clock, synchronised); the "
+        f"phase took {nums['phase_s']:.1f} s")
+    return nums, gone
+
+
+def tree_nbytes(tree):
+    """Bytes of the arrays in a nested dict (a ``state_dict()``)."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    return tree.nbytes
+
+
+def serve_pass(mgr, sched, cache, q_np, r, assign):
+    """Submit query ``i`` to collection ``assign[i]``; drain with
+    ``next_batch(force=True)``; per batch and tenant, answer cache hits
+    and query the tenant's index once on its misses (the results go
+    into the cache, keyed by the index version).  Returns each query's
+    reported set, the batches' per-tenant sizes and padded sizes, and
+    the cache hits and misses of the pass."""
+    before = cache.stats()
+    for i, name in enumerate(assign):
+        assert sched.submit(i, collection=name) is not None
+    served, batches = {}, []
+    while True:
+        take, padded = sched.next_batch(force=True)
+        if not take:
+            break
+        by = {}
+        for req in take:
+            by.setdefault(req.collection, []).append(req)
+        batches.append(({k: len(v) for k, v in sorted(by.items())}, padded))
+        for name, reqs in by.items():
+            index = mgr.get(name).index
+            cache.purge_stale(index.version, collection=name)
+            todo = []
+            for req in reqs:
+                key = cache.key(index.version, r, q_np[req.payload][None],
+                                collection=name)
+                hit = cache.get(key)
+                if hit is None:
+                    todo.append((req.payload, key))
+                else:
+                    served[req.payload] = set(hit[0][0].tolist())
+            if todo:
+                res = index.query(q_np[[i for i, _ in todo]], r)
+                for j, (i, key) in enumerate(todo):
+                    ids, dists = res.reported(j)
+                    cache.put(key, [ids], [dists])
+                    served[i] = set(ids.tolist())
+                mgr.note_query(name, len(todo), len(res.lin_idx))
+    after = cache.stats()
+    return (served, batches, after["hits"] - before["hits"],
+            after["misses"] - before["misses"])
+
+
+def drive_tenants(s: Smoke, x_np, q_np, fam, r, kw, tag, seed=3):
+    """Three collections over one family, one ``QueryEngine`` and one
+    ``CompactionDriver``; a ``ShapeBucketScheduler`` with quotas of
+    weight 1 / 2 / 4 and a ``ResultCache``.
+
+    The codes are split into three tenants; each is built on 3,000 rows
+    and churned through its delta with the shared worker staging the
+    merges (its fairness counters printed), and 1 % of each tenant's ids
+    are deleted.  The queries, query i to tenant i mod 3, are submitted
+    and served in forced batches; each tenant's sets equal those of its
+    own whole batch on every path (launches asserted) and a plain
+    (``impl="ref"``) index loaded from its ``state_dict()``
+    (``check_results``).  A second pass is all cache hits; an insert into
+    one tenant bumps its version, and the next pass misses its queries
+    only.  The tree ``{"collections": mgr.state_dict()}`` is saved
+    incrementally with the digest hints under ``collections/``;
+    ``collection_names`` reads the tenants from the manifest, and a
+    fresh ``CollectionManager`` loaded from the step reports equal sets
+    and launches on every path.  Dropping one tenant purges its cache
+    entries and queued requests, and a re-created namesake starts at
+    version 0."""
+    import shutil
+    import tempfile
+    np, torch = s.np, s.torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import QueryEngine
+    from repro_torch.obs import Observability
+    from repro_torch.serve import (CollectionManager, ResultCache,
+                                   ShapeBucketScheduler, TenantQuota)
+    from repro_torch.streaming import CompactionDriver, DynamicHybridIndex
+    names, weights = ("a", "b", "c"), (1.0, 2.0, 4.0)
+    metric = fam.metric
+    obs = Observability.create(enabled=True)
+    params = fam.init(torch.Generator().manual_seed(seed), device=s.dev)
+    engine = QueryEngine(kw["cost_model"], tracer=obs.tracer)
+
+    def factory(o):
+        return DynamicHybridIndex(fam, params=params, engine=engine, obs=o,
+                                  **kw)
+
+    sched = ShapeBucketScheduler(max_batch=32, min_bucket=8)
+    cache = ResultCache(max_bytes=1 << 26)
+    drv = CompactionDriver(budget_rows=kw["policy"].step_rows, obs=obs)
+    mgr = CollectionManager(factory, obs=obs, scheduler=sched, cache=cache,
+                            driver=drv)
+    rng = np.random.default_rng(seed)
+    parts = dict(zip(names, np.array_split(rng.permutation(len(x_np)), 3)))
+    rows = {k: x_np[v] for k, v in parts.items()}
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tenants_"))
+    try:
+        for name, w in zip(names, weights):
+            col = mgr.create(name, quota=TenantQuota(weight=w), attach=False)
+            col.index.build(rows[name][:3000])
+            mgr.attach_driver(name)
+        drv.start()
+        t0 = time.perf_counter()
+        for lo in range(3000, max(len(v) for v in rows.values()), 2048):
+            for name in names:
+                if lo < len(rows[name]):
+                    mgr.get(name).index.insert(rows[name][lo:lo + 2048])
+                    drv.notify()
+            drv.drain()
+        deadline = time.perf_counter() + 60.0
+        while (any(mgr.get(n).index.has_compaction_work for n in names)
+               and time.perf_counter() < deadline):
+            drv.drain()
+            time.sleep(0.01)
+        t_churn = time.perf_counter() - t0
+        for name in names:
+            n_t = len(rows[name])
+            gone = rng.choice(n_t, n_t // 100, replace=False).tolist()
+            assert mgr.get(name).index.delete(gone) == len(gone)
+        drv.flush()
+        dst = drv.stats()
+        assert dst["worker_errors"] == 0 and dst["applied"] >= 3, dst
+        assert all(dst["fairness"].get(n, 0) > 0 for n in names), dst
+        mst = mgr.stats()
+        log(f"[{tag}] {len(x_np)} codes split {[len(rows[n]) for n in names]}; "
+            f"churned in {t_churn:.2f} s; shared driver: "
+            f"{dst['stage_calls']} worker gathers, {dst['prepares']} "
+            f"pre-builds, {dst['applied']} merges applied, fairness (worker "
+            f"ops per tenant) {dst['fairness']}; tenants " + "; ".join(
+                f"{n}: {c['n_live']} live, {c['segments']} segments, "
+                f"version {c['version']}"
+                for n, c in mst["collections"].items()))
+
+        assign = [names[i % 3] for i in range(len(q_np))]
+        served, batches, hits, misses = serve_pass(mgr, sched, cache, q_np, r,
+                                                   assign)
+        assert len(served) == len(q_np) and hits == 0, (hits, misses)
+        first = batches[0][0]        # weighted-fair: slots follow the weights
+        assert sum(first.values()) == 32 and \
+            first["a"] < first["b"] < first["c"], batches
+        for name in names:
+            mine = [i for i, n in enumerate(assign) if n == name]
+            idx = mgr.get(name).index
+            res, _ = query_paths(s, idx, q_np[mine], r, metric,
+                                 f"{tag} {name}", delta=True)
+            whole = res[None].neighbor_sets()
+            assert all(served[i] == whole[j] for j, i in enumerate(mine)), name
+            plain = DynamicHybridIndex(fam, params=idx.params, impl="ref",
+                                       **kw).load_state_dict(idx.state_dict())
+            ref_res = {f: plain.query(q_np[mine], r, force=f) for f in PATHS}
+            _, near = check_results(s, res, ref_res, rows[name], q_np[mine],
+                                    metric, r, f"{tag} {name}")
+            log(f"[{tag} {name}] {len(mine)} queries: served sets equal the "
+                f"whole batch's; kernel = plain on every path "
+                f"(near-threshold exceptions {near})")
+        again, _, hits2, misses2 = serve_pass(mgr, sched, cache, q_np, r,
+                                              assign)
+        assert again == served and (hits2, misses2) == (len(q_np), 0), \
+            (hits2, misses2)
+        v0 = mgr.get("a").index.version
+        mgr.get("a").index.insert(q_np[:16])
+        assert mgr.get("a").index.version > v0
+        _, _, hits3, misses3 = serve_pass(mgr, sched, cache, q_np, r,
+                                          assign)
+        n_a = assign.count("a")
+        assert (hits3, misses3) == (len(q_np) - n_a, n_a), (hits3, misses3)
+        waits = {n: (t["batched"], t["queue_wait_max_s"])
+                 for n, t in sched.stats()["tenants"].items()}
+        log(f"[{tag}] batches of the first pass (per tenant, padded): "
+            f"{batches}; repeat pass {hits2} hits / {misses2} misses; after "
+            f"an insert into a (version {v0} -> "
+            f"{mgr.get('a').index.version}) {hits3} hits / {misses3} misses; "
+            f"cache {cache.stats()}; scheduler (batched, max queue wait s) "
+            f"per tenant {waits}")
+
+        ck = CheckpointManager(str(root))
+        hints = {f"collections/{k}": v
+                 for k, v in mgr.state_digests().items()}
+        t0 = time.perf_counter()
+        drv.consistent_cut(lambda: ck.save_incremental(
+            1, {"collections": mgr.state_dict()}, digests=hints,
+            blocking=False))
+        t_cut = time.perf_counter() - t0
+        ck.wait()
+        t_save = time.perf_counter() - t0
+        assert ck.collection_names(1) == list(names), ck.collection_names(1)
+        fresh = CollectionManager(factory)
+        tree, _ = ck.restore_tree()
+        fresh.load_state_dict(tree["collections"])
+        assert fresh.names() == list(names)
+        for name in names:
+            a, b = mgr.get(name).index, fresh.get(name).index
+            assert b.state_digests() == a.state_digests(), name
+            ra, la = query_paths(s, a, q_np, r, metric, f"{tag} {name} live",
+                                 delta=True)
+            rb, lb = query_paths(s, b, q_np, r, metric,
+                                 f"{tag} {name} restored", delta=True)
+            for f, path in PATHS.items():
+                assert rb[f].neighbor_sets() == ra[f].neighbor_sets(), (name, f)
+                assert lb[path] == la[path], (name, path)
+        cst = ck.stats()
+        log(f"[{tag}] collection tree saved in {t_save:.3f} s (cut "
+            f"{t_cut:.3f} s), {cst['bytes_written'] / 1e6:.1f} MB in "
+            f"{cst['chunks_written']} chunks; collection_names "
+            f"{ck.collection_names(1)}; a fresh manager restored in "
+            f"{ck.stats()['last_restore_seconds']:.3f} s (read) reports "
+            f"equal sets and launches on every path")
+        del fresh, tree
+
+        for i in range(5):
+            sched.submit(i, collection="c")
+        entries = cache.stats()["entries"]
+        mgr.drop("c")
+        ev = [e for e in obs.events.events()
+              if e["kind"] == "collection_drop"][-1]
+        assert ev["dropped_requests"] == 5 and ev["purged_cache_entries"] > 0, ev
+        assert "c" not in sched.stats()["tenants"] and not sched.queue
+        assert entries - cache.stats()["entries"] == ev["purged_cache_entries"]
+        recreated = mgr.create("c")
+        assert recreated.index.version == 0
+        assert cache.get(cache.key(0, r, q_np[2][None], collection="c")) is None
+        t_phase = time.perf_counter() - t_phase
+        log(f"[{tag}] dropped c: {ev['dropped_requests']} queued requests and "
+            f"{ev['purged_cache_entries']} cache entries purged; re-created c "
+            f"at version {recreated.index.version}; the phase took "
+            f"{t_phase:.1f} s")
+        return dict(churn_s=t_churn, fairness=dst["fairness"],
+                    tree_save_s=t_save, tree_bytes=cst["bytes_written"],
+                    phase_s=t_phase)
+    finally:
+        drv.stop()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def log_kernel_times(tag, kt):
@@ -1649,9 +2093,12 @@ def main() -> int:
     timings[name] = k4
     log_kernel_times(f"covertype q{i3}", {name: k4})
     cover = drive_streaming(s, idx3, x3, q3, metric3, r3, n_build=n_build3,
-                            batch=4096, tag=f"covertype q{i3}", seed=1)
-    for state, v in cover.items():
-        by_path[f"covertype q{i3} {state}"] = v["launches"]
+                            batch=4096, tag=f"covertype q{i3}", seed=1,
+                            durability="steps")
+    for state in ("churned", "compacted"):
+        by_path[f"covertype q{i3} {state}"] = cover[state]["launches"]
+    by_path[f"covertype q{i3} restored"] = cover["durability"]["restore"][
+        "launches"]
     del idx3
     torch.cuda.empty_cache()
 
@@ -1689,10 +2136,22 @@ def main() -> int:
                               policy=CompactionPolicy(step_rows=4096),
                               **kw4).build(x4[:32768])
     mnist = drive_streaming(s, dyn4, x4, q4, metric4, r4, n_build=32768,
-                            batch=2048, tag=f"mnist q{i4} streaming", seed=2)
-    for state, v in mnist.items():
-        by_path[f"mnist q{i4} streaming {state}"] = v["launches"]
+                            batch=2048, tag=f"mnist q{i4} streaming", seed=2,
+                            durability="once")
+    for state in ("churned", "compacted"):
+        by_path[f"mnist q{i4} streaming {state}"] = mnist[state]["launches"]
+    by_path[f"mnist q{i4} streaming restored"] = mnist["durability"][
+        "restore"]["launches"]
     del dyn4
+    torch.cuda.empty_cache()
+    # -- 7b. three MNIST tenants: shared engine, driver, scheduler, cache -
+    tenants = drive_tenants(
+        s, x4, q4, fam4, r4,
+        dict(kw4, delta_capacity=4096,
+             policy=CompactionPolicy(step_rows=4096)), f"mnist q{i4} tenants")
+    log("[durability] " + json.dumps(
+        {"card": smi, "covertype": cover["durability"],
+         "mnist": mnist["durability"], "tenants": tenants}))
     # K3 and K5 at their main-path shape: churned MNIST over all segments
     mkt = mnist["churned"]["kernel_times"]
     timings["route_estimate"] = dict(

@@ -4,15 +4,12 @@
     Replaces ``repro.kernels.distances.pairwise_dot_pallas``.
   * ``pairwise_l1`` — the (Q, N) L1 distance matrix.  Replaces
     ``pairwise_l1_pallas``.
-  * ``hamming`` — the (Q, N) int32 Hamming distance matrix of packed
-    32-bit codes, any number of words.  Replaces
-    ``repro.kernels.hamming.hamming_pallas``.
 
 Each is a linear scan's kernel with a distances-only epilogue, so they
-live in the same source.  ``cost_model.calibrate`` times the first two
-through ``ops.pairwise_dist``; ``ops.hamming_dist`` runs the third.
-Their plain versions are ``ref.pairwise_sql2``, ``ref.pairwise_cosine``,
-``ref.pairwise_l1`` and ``ref.hamming``.
+live in the same source (the Hamming matrix, ``kernels/hamming.py``,
+too).  ``cost_model.calibrate`` times them through
+``ops.pairwise_dist``.  Their plain versions are ``ref.pairwise_sql2``,
+``ref.pairwise_cosine`` and ``ref.pairwise_l1``.
 """
 from __future__ import annotations
 
@@ -24,7 +21,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_scan import LINEAR_MODES
 
-__all__ = ["pairwise_dot", "pairwise_l1", "hamming"]
+__all__ = ["pairwise_dot", "pairwise_l1"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,25 +76,5 @@ def pairwise_l1(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def hamming(qc: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
-    """(Q, W) x (N, W) int32 bit views of packed uint32 codes -> (Q, N)
-    int32 Hamming distances.  W >= 1."""
-    nq, w = qc.shape
-    nn = xc.shape[0]
-    _build.check(qc, "qc", torch.int32, (nq, w))
-    _build.check(xc, "xc", torch.int32, (nn, w))
-    if w < 1:
-        raise ValueError("hamming needs at least one word per code")
-    out = torch.empty((nq, nn), dtype=torch.int32, device=qc.device)
-    if nq == 0 or nn == 0:
-        return out
-    _build.launch("fused_scan", "hamming", [_P, _P, _P, _I, _I, _I, _P],
-                  qc.data_ptr(), xc.data_ptr(), out.data_ptr(), nq, nn, w,
-                  _build.stream(qc))
-    hamming.launches += 1
-    return out
-
-
 pairwise_dot.launches = 0
 pairwise_l1.launches = 0
-hamming.launches = 0

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import distances as _dist
 from repro_torch.kernels import fused_scan as _fs
+from repro_torch.kernels import hamming as _ham
 from repro_torch.kernels import hll_merge as _hllm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import simhash as _sim
@@ -101,7 +102,7 @@ def hamming_dist(qc: torch.Tensor, xc: torch.Tensor,
     views) -> (Q, N) int32 Hamming distances."""
     if resolve_impl(impl, qc.device) == "ref":
         return _ref.hamming(qc, xc)
-    return _dist.hamming(as_i32(qc).contiguous(), as_i32(xc).contiguous())
+    return _ham.hamming(as_i32(qc).contiguous(), as_i32(xc).contiguous())
 
 
 def pad_projection(r: torch.Tensor, L: int, k: int) -> torch.Tensor:

@@ -29,7 +29,8 @@ from repro_torch.streaming.delta import DeltaSegment, DeltaView, make_delta
 from repro_torch.streaming.driver import CompactionDriver
 from repro_torch.streaming.index import DynamicHybridIndex
 from repro_torch.streaming.segment import (FrozenSegment, MainSegment,
-                                           SegmentStack, freeze_segment)
+                                           SegmentStack, build_main,
+                                           freeze_segment)
 from repro_torch.streaming.tombstones import Tombstones, make_tombstones
 
 __all__ = ["DynamicHybridIndex", "CompactionDriver",
@@ -37,5 +38,5 @@ __all__ = ["DynamicHybridIndex", "CompactionDriver",
            "PlacementPolicy", "KeepLocalPlacement", "RoundRobinPlacement",
            "LoadBalancePlacement", "make_placement_policy",
            "DeltaSegment", "DeltaView", "make_delta", "MainSegment",
-           "FrozenSegment", "SegmentStack", "freeze_segment",
+           "FrozenSegment", "SegmentStack", "build_main", "freeze_segment",
            "Tombstones", "make_tombstones"]

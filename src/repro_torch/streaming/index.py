@@ -42,6 +42,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import host_copy
 from repro_torch.core import multiprobe as mp
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.engine import (QueryEngine, QueryResult, RouteEstimate,
@@ -172,6 +173,23 @@ class DynamicHybridIndex:
         """Bank the current stack's version before replacing it, so the
         combined version never runs backwards."""
         self._version_base += self.stack.version + 1
+
+    # ------------------------------------------------- compat properties
+    @property
+    def main(self) -> Optional[MainSegment]:
+        """The sole frozen segment, when the stack holds exactly one
+        (the pre-stack "main segment" view; None otherwise)."""
+        if len(self.stack.segments) == 1:
+            return self.stack.segments[0].seg
+        return None
+
+    @property
+    def tomb(self) -> Optional[tomb_lib.Tombstones]:
+        """The sole frozen segment's tombstones (None unless the stack
+        holds exactly one segment)."""
+        if len(self.stack.segments) == 1:
+            return self.stack.segments[0].tomb
+        return None
 
     # ------------------------------------------------------------- build
     def _rows(self, x) -> torch.Tensor:
@@ -584,7 +602,9 @@ class DynamicHybridIndex:
     def state_dict(self) -> Dict[str, Dict[str, np.ndarray]]:
         """Stack + delta state as nested numpy arrays, with the keys and
         dtypes of the reference's ``state_dict`` (packed codes as
-        uint32), so either package can load the other's.  Staged merge
+        uint32), so either package can load the other's.  Every leaf is
+        a host copy that shares no memory with the index (the delta is
+        updated in place), taken before this returns.  Staged merge
         progress is volatile: a pending merge's inputs are still
         complete segments."""
         L = self.family.L
@@ -594,13 +614,13 @@ class DynamicHybridIndex:
             t = f.seg.tables
             segments[f"{i:04d}"] = {
                 "x": rows_to_numpy(f.seg.x),
-                "ids": _np(f.seg.ids),
-                "bucket_ids": _np(f.seg.bucket_ids),
-                "perm": _np(t.perm),
-                "starts": _np(t.starts),
-                "registers": _np(t.registers),
-                "live": _np(f.tomb.live),
-                "tomb_counts": _np(f.tomb.counts),
+                "ids": host_copy(f.seg.ids),
+                "bucket_ids": host_copy(f.seg.bucket_ids),
+                "perm": host_copy(t.perm),
+                "starts": host_copy(t.starts),
+                "registers": host_copy(t.registers),
+                "live": host_copy(f.tomb.live),
+                "tomb_counts": host_copy(f.tomb.counts),
                 "meta": {"uid": np.int64(f.uid),
                          "level": np.int64(f.level),
                          "n_rows": np.int64(f.n_rows),
@@ -609,12 +629,12 @@ class DynamicHybridIndex:
         delta = (self.delta if self.delta is not None
                  else delta_lib.make_delta(self.delta_capacity, 1, L))
         return {
-            "params": {k: _np(v) for k, v in self.params.items()},
+            "params": {k: host_copy(v) for k, v in self.params.items()},
             "segments": segments,
             "delta": {"x": rows_to_numpy(delta.x),
-                      "bucket_ids": _np(delta.bucket_ids),
-                      "ids": _np(delta.ids),
-                      "live": _np(delta.live),
+                      "bucket_ids": host_copy(delta.bucket_ids),
+                      "ids": host_copy(delta.ids),
+                      "live": host_copy(delta.live),
                       "count": np.asarray(delta.count, np.int32)},
             # delta_d == 0 marks "never populated": the saved delta row
             # width is a placeholder and must not survive a restore.
@@ -635,7 +655,9 @@ class DynamicHybridIndex:
 
     def load_state_dict(self, state) -> "DynamicHybridIndex":
         """Restore stack + delta state saved by ``state_dict`` — this
-        package's or the reference's (numpy, or arrays numpy can read)."""
+        package's or the reference's (numpy, or arrays numpy can read).
+        A pre-stack state (one ``"main"`` subtree, no segment meta)
+        loads as one frozen segment, as in the reference."""
         dev = self.device
         self.params = params_from_numpy(
             {k: np.asarray(v) for k, v in state["params"].items()}, dev)
@@ -649,7 +671,20 @@ class DynamicHybridIndex:
         def flag(a):
             return torch.from_numpy(np.array(a, bool)).to(dev)
 
-        segs = state.get("segments") or {}
+        segs = dict(state.get("segments") or {})
+        ms = state.get("main")
+        if ms is not None and np.asarray(ms["x"]).shape[0] > 0:
+            # pre-stack checkpoint format (one "main" segment, exact
+            # rows, no meta): migrate it to a single frozen segment —
+            # ignoring it would silently restore an empty index
+            n = int(np.asarray(ms["x"]).shape[0])
+            segs["main"] = {
+                **ms,
+                "meta": {"uid": np.int64(0), "level": np.int64(
+                    self.policy.level_for(n, self.delta_capacity)),
+                    "n_rows": np.int64(n),
+                    "n_live": np.asarray(ms["live"], bool)[:n].sum()},
+            }
         for key in sorted(segs):
             s = segs[key]
             meta = s["meta"]

@@ -35,14 +35,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.manager import array_digest
+from repro_torch.checkpoint.manager import array_digest, host_copy
 from repro_torch.core.engine import _pad_size
 from repro_torch.core.lsh.tables import LSHTables, build_tables
 from repro_torch.kernels.ref import unit_rows as _unit_rows
 from repro_torch.obs.metrics import WorkPhases, time_block
 from repro_torch.streaming import tombstones as tomb_lib
 
-__all__ = ["MainSegment", "FrozenSegment", "freeze_segment",
+__all__ = ["MainSegment", "build_main", "FrozenSegment", "freeze_segment",
            "frozen_digests", "mark_rows_dead", "rows_to_numpy", "MergeTask",
            "MergeResult", "SegmentStack"]
 
@@ -50,9 +50,9 @@ _HASH_CHUNK = 65536
 
 
 def rows_to_numpy(x: torch.Tensor) -> np.ndarray:
-    """Rows as the reference stores them: float32, or packed codes as
-    uint32 (the port keeps them as int32 bit views)."""
-    a = x.detach().cpu().numpy()
+    """Rows as the reference stores them, as a host copy: float32, or
+    packed codes as uint32 (the port keeps them as int32 bit views)."""
+    a = host_copy(x)
     return a.view(np.uint32) if a.dtype == np.int32 else a
 
 
@@ -73,6 +73,22 @@ class MainSegment:
     @property
     def n(self) -> int:
         return int(self.x.shape[0])
+
+
+def build_main(x: torch.Tensor, ext_ids, bucket_fn, params,
+               num_buckets: int, m: int, chunk: int = 65536) -> MainSegment:
+    """Algorithm 1 on an exact (unpadded) row block; kept for callers
+    that manage their own padding.  ``x``: (n, d) rows on the segment's
+    device (packed codes as int32 bit views); ``ext_ids``: (n,) ids."""
+    n = int(x.shape[0])
+    bucket_ids = torch.cat([bucket_fn(params, x[lo:lo + chunk])
+                            for lo in range(0, n, chunk)]).to(torch.int32)
+    tables = build_tables(torch.arange(n, dtype=torch.int32, device=x.device),
+                          bucket_ids, num_buckets, m)
+    return MainSegment(
+        x=x, ids=torch.as_tensor(ext_ids).to(device=x.device,
+                                             dtype=torch.int32),
+        bucket_ids=bucket_ids, tables=tables)
 
 
 @dataclasses.dataclass

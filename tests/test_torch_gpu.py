@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
-                                 hll_merge, ops, simhash)
+                                 hamming, hll_merge, ops, simhash)
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
 from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
 from torch_cases import (DOT_CASES, GROUPED_CASES, L1_CASES,  # noqa: E402
@@ -367,10 +367,10 @@ def test_cuda_hamming_dist_is_exact(cuda, w, q, n):
     xa[0] = qa[0]
     qt = torch.from_numpy(qa.view(np.int32)).to(cuda)
     xt = torch.from_numpy(xa.view(np.int32)).to(cuda)
-    before = distances.hamming.launches
+    before = hamming.hamming.launches
     a = ops.hamming_dist(qt, xt, impl="cuda")
     b = ops.hamming_dist(qt, xt, impl="ref")
-    assert distances.hamming.launches == before + 1
+    assert hamming.hamming.launches == before + 1
     assert a.dtype == torch.int32 and torch.equal(a, b)
     assert int(a[0, 0]) == 0
 
@@ -423,3 +423,93 @@ def test_cuda_calibrate_runs_the_distance_kernel(cuda, metric, d):
     cm = calibrate(d, metric, n_probe=1024)
     assert kernel.launches == before + 6      # one warm-up and 5 timed
     assert cm.alpha == 1.0 and np.isfinite(cm.beta) and cm.beta >= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of card-resident state
+# ---------------------------------------------------------------------------
+def _churned_l1_index(device, seed=0):
+    from repro_torch.core.lsh import make_family
+    from repro_torch.streaming import CompactionPolicy, DynamicHybridIndex
+    x = np.random.default_rng(seed).normal(size=(900, 16)).astype(np.float32)
+    kw = dict(num_buckets=128, m=32, cap=512, delta_capacity=128,
+              policy=CompactionPolicy(fanout=2))
+    fam = make_family("l1", d=16, L=6, r=4.0)
+    idx = DynamicHybridIndex(fam, seed=0, device=device, **kw).build(x[:500])
+    idx.insert(x[500:860])
+    idx.delete(list(range(0, 500, 7)) + list(range(840, 860)))
+    return idx, x, fam, kw
+
+
+@pytest.mark.gpu
+def test_cuda_restore_puts_every_leaf_on_the_card(cuda, tmp_path):
+    """``restore(template)`` (device "cuda" by default) returns every
+    leaf as a tensor on the card, bfloat16 included, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    g = torch.Generator().manual_seed(0)
+    state = {"w": torch.randn(4, 8, generator=g).to(cuda),
+             "h": torch.randn(3, generator=g).to(torch.bfloat16).to(cuda),
+             "blocks": (torch.arange(5, device=cuda),
+                        np.arange(3, dtype=np.int32)),
+             "step": np.int64(7)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_incremental(1, state, blocking=True)
+    restored, step = mgr.restore(state)
+    assert step == 1
+    leaves = [restored["w"], restored["h"], *restored["blocks"],
+              restored["step"]]
+    assert all(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+               for t in leaves)
+    assert torch.equal(restored["w"], state["w"])
+    assert restored["h"].dtype == torch.bfloat16
+    assert torch.equal(restored["h"].view(torch.int16),
+                       state["h"].view(torch.int16))
+    assert int(restored["step"]) == 7 and restored["step"].shape == ()
+
+
+@pytest.mark.gpu
+def test_cuda_churned_index_save_restore_same_sets(cuda, tmp_path):
+    """A churned index saved from the card (inside a consistent cut,
+    with the compaction driver running) and restored to the card
+    reports the same sets on every route, with equal digests."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.streaming import CompactionDriver, DynamicHybridIndex
+    idx, x, fam, kw = _churned_l1_index(cuda)
+    drv = CompactionDriver(idx).start()
+    mgr = CheckpointManager(str(tmp_path))
+    drv.consistent_cut(lambda: mgr.save_index(1, idx, incremental=True,
+                                              blocking=False))
+    mgr.wait()
+    drv.stop(flush=False)
+    restored = DynamicHybridIndex(fam, seed=1, device=cuda, **kw)
+    assert mgr.restore_index(restored) == 1
+    assert restored.params["a"].device == idx.params["a"].device
+    assert restored.state_digests() == idx.state_digests()
+    q = x[::45]
+    for force in (None, "lsh", "linear"):
+        assert (restored.query(q, 9.0, force=force).neighbor_sets()
+                == idx.query(q, 9.0, force=force).neighbor_sets()), force
+
+
+@pytest.mark.gpu
+def test_cuda_save_then_insert_writes_the_state_before_it(cuda, tmp_path):
+    """The host copy happens before ``save_index`` returns: an in-place
+    ``insert`` into the card's delta right after a non-blocking save
+    does not reach the saved step."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.streaming import DynamicHybridIndex
+    idx, x, fam, kw = _churned_l1_index(cuda)
+    before = idx.state_dict()
+    count = idx.delta.count
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_index(1, idx, incremental=True, blocking=False)
+    idx.insert(x[860:880])                   # index_put_ into the delta
+    assert idx.delta.count == count + 20
+    mgr.wait()
+    tree, _ = mgr.restore_tree()
+    for leaf in ("x", "ids", "live", "bucket_ids", "count"):
+        np.testing.assert_array_equal(tree["delta"][leaf],
+                                      before["delta"][leaf], err_msg=leaf)
+    restored = DynamicHybridIndex(fam, seed=1, device=cuda, **kw)
+    mgr.restore_index(restored)
+    assert restored.n == idx.n - 20 and restored.delta.count == count

@@ -269,6 +269,6 @@ def test_port_imports_no_jax_and_no_repro():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "repro"):
+                if top in ("jax", "jaxlib", "repro", "ml_dtypes"):
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {name}")
     assert not bad, bad

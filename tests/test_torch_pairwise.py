@@ -25,7 +25,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import cost_model as tcost  # noqa: E402
-from repro_torch.kernels import distances, simhash  # noqa: E402
+from repro_torch.kernels import distances, hamming, simhash  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from torch_cases import TOL, simhash_packed_as_kernel  # noqa: E402
@@ -279,7 +279,7 @@ def test_new_wrappers_launch_on_cuda_only():
     qc, xc = _codes(4, 2), _codes(20, 2)
     r = _pts(16, 2 * 8)
     counters = (distances.pairwise_dot, distances.pairwise_l1,
-                distances.hamming, simhash.simhash)
+                hamming.hamming, simhash.simhash)
     before = [fn.launches for fn in counters]
     for metric in ("l2", "l1", "cosine"):
         with pytest.raises(ValueError):
@@ -295,7 +295,7 @@ def test_new_wrappers_launch_on_cuda_only():
     with pytest.raises(ValueError, match="CUDA"):
         distances.pairwise_l1(_t(qa), _t(xa))
     with pytest.raises(ValueError, match="CUDA"):
-        distances.hamming(q32, x32)
+        hamming.hamming(q32, x32)
     with pytest.raises(ValueError, match="CUDA"):
         simhash.simhash(_t(xa), tops.pad_projection(_t(r), 2, 8), 2, 8)
     assert [fn.launches for fn in counters] == before

@@ -137,7 +137,7 @@ def main() -> int:
         print("route_scan_ab: needs a CUDA device", file=sys.stderr)
         return 1
     from dot_tile_ab import build, cuda_ms, graph_ms
-    from repro_torch.kernels import _build, distances, fused_scan, hll_merge, ref
+    from repro_torch.kernels import _build, fused_scan, hamming, hll_merge, ref
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
@@ -181,7 +181,7 @@ def main() -> int:
                 (lambda: fused_scan.linear_scan_hamming(thresh, q, parts), None),
             **{c: (new_scan(*a), old_scan(*a)) for c, a in one_seg.items()},
             f"K8 Q={Q} N={xm.shape[0]} W={W}":
-                (lambda: distances.hamming(q, xm),) * 2},
+                (lambda: hamming.hamming(q, xm),) * 2},
     }
     n = sum(p.x.shape[0] for p in parts)
     outs = [torch.empty((Q, n), dtype=dt, device=dev)
