@@ -8,7 +8,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel)
      and log each kernel's registers, static shared memory and spills;
   2. each kernel (K1-K9) against its plain PyTorch version on hand-made
-     edge cases (the dot-form tile of K1 and K6, the fused K2, the L1
+     edge cases (K1 and K2 also at the retrieval service's d = 4,096) (the dot-form tile of K1 and K6, the fused K2, the L1
      tile of K4 and K7, the route estimate K3, the grouped Hamming
      scan K5 and the SimHash kernel K9 on the GPU tests' cases,
      ``tests/torch_cases.py`` ``DOT_CASES``, ``LSH_SHAPES`` x
@@ -61,7 +61,20 @@ Phases (each raises on failure, so any failure exits non-zero):
      from the cache, a version bump that misses, the collection tree
      saved incrementally and restored into a fresh manager, one tenant
      dropped and re-created;
-  8. a ``[durability]`` JSON line with the checkpoint and restore times
+  8. the retrieval encoder and ``RetrievalService`` at Yi-6B's full width
+     and depth (12.12 GB of bf16 weights drawn on the card from seed 0;
+     ``drive_retrieval``): two documents' bf16 embeddings against float32
+     ones from the same weights, radii at the 0.005 and 0.03 quantiles of
+     random-pair cosine distances, 8,192 documents of 32 tokens indexed
+     (d = 4,096), 64 queries at each radius on every path against a plain
+     index of the same state (launches asserted), 100 requests of 1-4
+     rows through ``submit`` / ``drain_batches`` and again from the
+     cache, 1,024 documents added and 256 removed, the service
+     checkpointed and restored into a fresh one (equal sets and launches),
+     then ``generate`` (4 x 16 tokens) held against a prefill's argmax; a
+     ``[retrieval]`` JSON line with the embed, index, prefill and decode
+     times, tokens/s and memory;
+  9. a ``[durability]`` JSON line with the checkpoint and restore times
      and bytes of both churned indexes and the tenants, beside the card's
      name and power limit; a ``{"kernels": [...]}`` JSON line with each
      kernel's launches, times,
@@ -107,9 +120,10 @@ THRESH_EPS = 1e-5
 TOL = dict(rtol=3e-4, atol=3e-4)      # distances, kernel vs plain
 HLL_RTOL = 1e-5
 # Published H100 peaks (NVIDIA data sheet, dense): memory bytes/s, fp32
-# FLOP/s on the CUDA cores, TF32 FLOP/s on the tensor cores.  SXM unless
-# the card names itself PCIe.
-PEAKS = {"sxm": (3.35e12, 67e12, 495e12), "pcie": (2.0e12, 51e12, 378e12)}
+# FLOP/s on the CUDA cores, TF32 and bf16 FLOP/s on the tensor cores.  SXM
+# unless the card names itself PCIe.
+PEAKS = {"sxm": (3.35e12, 67e12, 495e12, 989e12),
+         "pcie": (2.0e12, 51e12, 378e12, 756e12)}
 
 
 def log(*a):
@@ -155,7 +169,8 @@ class Smoke:
                          "hamming": hamming.hamming,
                          "simhash": simhash.simhash}
         name = torch.cuda.get_device_name(0)
-        self.bw, self.fp32, self.tf32 = PEAKS["pcie" if "PCIe" in name else "sxm"]
+        self.bw, self.fp32, self.tf32, self.bf16 = PEAKS[
+            "pcie" if "PCIe" in name else "sxm"]
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8,
                                      device=self.dev)
 
@@ -443,13 +458,15 @@ def phase_edge_cases(s: Smoke):
     flips += simhash_edge_cases(s, rng)
     torch.cuda.synchronize()
     log(f"[edge] K1 / K6 (the dot-form tile, l2 and cosine: Q = 1-129, N = 1 "
-        f"and ragged tiles, d = 1, 3, 32, 37, 54, 254, 256, x[1:] and 4-byte "
+        f"and ragged tiles, d = 1, 3, 32, 37, 54, 254, 256, 4,095, 4,096 "
+        f"(Q = 64, N = 8,192: the retrieval service's), x[1:] and 4-byte "
         f"offset views, zero rows, rows within 1e-4 of the threshold; "
         f"{dot_flips} masks differ from the plain version, all within "
         f"{THRESH_EPS:g} of the threshold)")
     log(f"[edge] K2 fused (sort, dedup, gather, verify from unsorted ids: "
         f"ids at split boundaries, one split, one repeated id, C = 1-60,001, "
-        f"n = 1-80,000, d = 1-254, W = 1-129, cosine on x and on unit rows): "
+        f"n = 1-80,000, d = 1-254 and 4,095-4,096 (Q = 64, C = 2,560, "
+        f"n = 8,192), W = 1-129, cosine on x and on unit rows): "
         f"ids equal torch.sort's; "
         f"{lsh_flips} masks differ, all within {THRESH_EPS:g} of the "
         f"threshold")
@@ -973,9 +990,12 @@ def kernel_times(s: Smoke, idx, q_np, r, metric):
     both = a[2] & b[2]
     err = float((a[1][both] - b[1][both]).abs().max()) if bool(both.any()) else 0.0
     distinct = int(dedupe_sorted(b[0], n)[1].sum())
+    rows_read = int(torch.unique(cands[cands < n]).numel())
     flops_per = 2 if metric == "cosine" else 3     # x.q on unit rows: one FMA
-    # ids in, the distinct rows gathered, the query rows, 9 B a slot out
-    bound, by = s.bound_ms(4 * 32 * c + distinct * d * 4 + 4 * 32 * d
+    # ids in, each row the chunk needs read once (queries that share a row
+    # share its read), the query rows, 9 B a slot out; a distance for each
+    # distinct (query, row) pair
+    bound, by = s.bound_ms(4 * 32 * c + rows_read * d * 4 + 4 * 32 * d
                            + 9 * 32 * c, flops_per * distinct * d)
     lib = lambda: torch.sort(cands, dim=-1)  # noqa: E731
     out["lsh_scan"] = dict(
@@ -984,7 +1004,8 @@ def kernel_times(s: Smoke, idx, q_np, r, metric):
         library_call="torch.sort of the candidates alone",
         bound_ms=bound, bound_by=by, max_abs_err=err,
         plan=fused_scan.lsh_scan_plan(xk, 32, c),
-        shape=f"Q=32 C={c} distinct={distinct} d={d} {metric}")
+        shape=f"Q=32 C={c} distinct={distinct} rows={rows_read} d={d} "
+              f"{metric}")
 
     # K3: HLL merge + estimate over the whole batch's registers
     regs = gather_registers(idx.tables, idx.bucket_ids(q_all)).contiguous()
@@ -1910,6 +1931,416 @@ def drive_tenants(s: Smoke, x_np, q_np, fam, r, kw, tag, seed=3):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the retrieval encoder and RetrievalService at Yi-6B's full width and depth
+# ---------------------------------------------------------------------------
+RETRIEVAL_ARCH = "yi-6b"
+RETRIEVAL_DOCS = 8192        # 128 batches of 64 documents of 32 tokens
+RETRIEVAL_SEQ = 32
+RETRIEVAL_BATCH = 64
+EMBED_COS = 0.999            # bf16 embeddings vs float32 ones, a row
+GREEDY_MARGIN = 1e-2         # of the logit range: greedy == prefill argmax
+
+
+def rows_by_id(idx, rows):
+    """Write each live or dead row of a streaming index into ``rows``
+    (numpy, indexed by external id) from its ``state_dict()``."""
+    import numpy as np
+    st = idx.state_dict()
+    parts = [(seg["x"][:int(seg["meta"]["n_rows"])],
+              seg["ids"][:int(seg["meta"]["n_rows"])])
+             for seg in st["segments"].values()]
+    count = int(st["delta"]["count"])
+    parts.append((st["delta"]["x"][:count], st["delta"]["ids"][:count]))
+    for x, ids in parts:
+        rows[np.asarray(ids, np.int64)] = x
+    return rows
+
+
+def served_sets(out, uids):
+    """Each query row's reported id set, in submission order."""
+    return [set(ids.tolist()) for u in uids for ids in out[u].ids]
+
+
+def retrieval_queries(s: Smoke, svc, plain, emb, r, rows, gone, tag):
+    """The service's index on every path (launches asserted) against the
+    plain index on the same embeddings: sets equal off the threshold
+    band, LSH within linear, no removed id.  Returns the results, the
+    launches and the near-threshold counts."""
+    q_np = emb.cpu().numpy()
+    res, launches = query_paths(s, svc.index, emb, r, "cosine", tag,
+                                delta=True)
+    ref_res = {f: plain.query(emb, r, force=f) for f in PATHS}
+    sets, near = check_results(s, res, ref_res, rows, q_np, "cosine", r, tag)
+    for f, v in sets.items():
+        for i, ids in v.items():
+            assert not ids & gone, f"{tag} force={f}: query {i} reports a removed id"
+    return res, launches, near
+
+
+def drive_retrieval(s: Smoke, by_path):
+    """``RetrievalService`` and ``generate`` on Yi-6B at its full width and
+    depth (32 layers, d_model 4,096, 32 heads, GQA kv 4, d_ff 11,008,
+    vocab 64,000, bf16; random weights from seed 0, drawn on the card).
+
+    1. the model drawn leaf by leaf; its bytes, seconds and peak memory;
+       the bf16 embeddings of two documents against float32 ones from the
+       same weights (cosine >= EMBED_COS a row);
+    2. two radii at the 0.005 and 0.03 quantiles of random-pair cosine
+       distances of a 1,024-document sample;
+    3. the service (``RetrievalConfig`` defaults: L 20, B 4,096, m 64,
+       cap 128, beta/alpha 10, delta 4,096) indexes 8,192 documents of 32
+       tokens;
+    4. 64 queries at each radius on every path against a plain
+       (``impl="ref"``) index of the same state; K1, K2 and K3 timed at
+       d = 4,096 (``kernel_times`` on a static index of the corpus, the
+       same family and draws); 100 requests of 1-4 rows
+       through ``submit`` / ``drain_batches`` (each coalesced batch's sets
+       against the plain index on the embeddings the service computed, its
+       launches against its route split, the drain's equal to their sum),
+       then the same requests again, all from the cache; 1,024 documents
+       added, 256 removed, ``compaction_tick`` until False (the plain
+       index fed the same rows and deletes); the queries again;
+    5. the service checkpointed (the "cut" barrier) under TMPDIR and
+       restored into a fresh service: equal sets and launches on every
+       path;
+    6. ``generate`` (batch 4, prompt 32, 16 new tokens), then a prefill of
+       the prompt and the first 15 tokens: greedy tokens equal its argmax
+       wherever its top-2 margin exceeds GREEDY_MARGIN of the logit range.
+    Returns the ``[retrieval]`` record."""
+    import copy
+    import dataclasses
+    import shutil
+    import tempfile
+    np, torch, dev = s.np, s.torch, s.dev
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import HybridLSHIndex
+    from repro_torch.data import lm_batch
+    from repro_torch.models import (ParallelConfig, forward_embed,
+                                    hidden_states, init_params)
+    from repro_torch.serve import (RetrievalConfig, RetrievalService,
+                                   generate, make_serve_prefill,
+                                   make_serve_step)
+    from repro_torch.streaming import DynamicHybridIndex
+    t_phase = time.perf_counter()
+    cfg = get_config(RETRIEVAL_ARCH)
+    par = ParallelConfig(attn_chunk_q=64, attn_chunk_k=64)
+    rec = {"card": None, "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model}
+
+    def batch(seed, step, b=RETRIEVAL_BATCH, seq=RETRIEVAL_SEQ):
+        out = lm_batch(seed, step, batch=b, seq=seq, vocab=cfg.vocab,
+                       device=dev)
+        out.pop("labels")
+        return out
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- 1. the model ---------------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, rec["init_s"] = synced(lambda: init_params(cfg, 0, device=dev))
+    rec["param_bytes"] = params.nbytes()
+    rec["init_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    assert rec["param_bytes"] == 2 * cfg.num_params() + 2 * cfg.d_model * (
+        2 * cfg.n_layers + 1), rec["param_bytes"]
+    log(f"[retrieval] {cfg.name}: {cfg.num_params()} parameters, "
+        f"{rec['param_bytes'] / 1e9:.3f} GB in bf16 (norms included), drawn "
+        f"on the card in {rec['init_s']:.2f} s; peak "
+        f"{rec['init_peak_bytes'] / 1e9:.3f} GB above the "
+        f"{base / 1e9:.3f} GB already allocated")
+    small = batch(7, 0, b=2)
+    with torch.no_grad():
+        e16 = forward_embed(params, small, cfg, par)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = copy.deepcopy(params).float()
+        e32 = forward_embed(p32, small, cfg32, par)
+    del p32
+    torch.cuda.empty_cache()
+    assert e16.shape == (2, cfg.d_model) and bool(torch.isfinite(e16).all())
+    cos = (e16 * e32).sum(1).cpu().numpy()
+    assert cos.min() >= EMBED_COS, f"bf16 embeddings vs float32: cosine {cos}"
+    rec["embed_cos_bf16_vs_f32"] = cos.tolist()
+    log(f"[retrieval] the bf16 embeddings of 2 documents against float32 "
+        f"ones from the same weights: cosine {cos.tolist()} (>= {EMBED_COS})")
+
+    # -- 2. radii -------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        sample = torch.cat([forward_embed(params, batch(1, i), cfg, par)
+                            for i in range(1024 // RETRIEVAL_BATCH)])
+    radii = pick_radii(sample.cpu().numpy(), "cosine")[1:3]
+    rec["radii"] = radii
+    log(f"[retrieval] radii at the 0.005 and 0.03 quantiles of random-pair "
+        f"cosine distances of 1,024 documents: {radii}")
+
+    # -- 3. the service -------------------------------------------------
+    rcfg = RetrievalConfig(radius=radii[1])
+    svc = RetrievalService(cfg, par, params, rcfg, device=dev)
+    n_batches = RETRIEVAL_DOCS // RETRIEVAL_BATCH
+    corpus = [batch(1, i) for i in range(n_batches)]
+    n, rec["index_corpus_s"] = synced(lambda: svc.index_corpus(corpus))
+    assert n == RETRIEVAL_DOCS and svc.index.n == n
+    times = []
+    for b in corpus[:5]:
+        _, t = synced(lambda: svc.embed(b))
+        times.append(t)
+    rec["embed_ms"] = statistics.median(times) * 1e3
+    tokens = RETRIEVAL_BATCH * RETRIEVAL_SEQ
+    rec["tokens_per_s"] = tokens / (rec["embed_ms"] / 1e3)
+    flops = 2.0 * cfg.num_params() * tokens
+    rec["bf16_peak_share"] = flops / (rec["embed_ms"] / 1e3) / s.bf16
+    log(f"[retrieval] index_corpus: {n} documents ({n * RETRIEVAL_SEQ} "
+        f"tokens) in {rec['index_corpus_s']:.2f} s; embed "
+        f"{rec['embed_ms']:.2f} ms a {RETRIEVAL_BATCH} x {RETRIEVAL_SEQ} "
+        f"batch (median of 5): {rec['tokens_per_s']:.0f} tokens/s, "
+        f"{rec['bf16_peak_share']:.3f} of the bf16 dense peak "
+        f"({s.bf16 / 1e12:.0f} TFLOP/s) at 2 x {cfg.num_params()} FLOP a "
+        f"token; {svc.index.family}")
+    kw = dict(num_buckets=rcfg.num_buckets, m=rcfg.hll_m, cap=rcfg.cap,
+              delta_capacity=rcfg.delta_capacity, device=dev,
+              cost_model=svc.index.cost_model, policy=svc.index.policy)
+    plain = DynamicHybridIndex(svc.index.family, params=svc.index.params,
+                               impl="ref", **kw).load_state_dict(
+                                   svc.index.state_dict())
+    rows = rows_by_id(svc.index, np.zeros(
+        (RETRIEVAL_DOCS + 1024, cfg.d_model), np.float32))
+
+    # -- 4. queries -----------------------------------------------------
+    qb = batch(2, 0)
+    mixes, near = {}, {}
+    gone = set()
+    routes = {"lsh": 0, "linear": 0}
+    for i, r in enumerate(radii):
+        (res, emb), _ = synced(lambda: svc.query(qb, radius=r))
+        assert emb.shape == (RETRIEVAL_BATCH, cfg.d_model)
+        _, launches, near[f"r{i}"] = retrieval_queries(
+            s, svc, plain, emb, r, rows, gone, f"retrieval r{i}")
+        by_path[f"retrieval r{i}"] = launches
+        n_lsh = len(res.lsh_idx)
+        routes["lsh"] += n_lsh
+        routes["linear"] += len(res.lin_idx)
+        _, t_embed = synced(lambda: svc.embed(qb))
+        t_index = time_hybrid(s, svc.index, emb, r)
+        mixes[f"r{i}"] = dict(radius=r, lsh=n_lsh, linear=len(res.lin_idx),
+                              embed_ms=t_embed * 1e3, index_ms=t_index,
+                              mean_reported=float(np.mean(
+                                  [len(res.neighbors(j))
+                                   for j in range(res.n_queries)])))
+        log(f"[retrieval r{i}] r={r:.6g}: {n_lsh} lsh / {len(res.lin_idx)} "
+            f"linear; mean {mixes[f'r{i}']['mean_reported']:.1f} reported; "
+            f"a batch of 64 queries: embed {t_embed * 1e3:.2f} ms, index "
+            f"{t_index:.2f} ms (hybrid, host clock, synchronised); kernel = "
+            f"plain on every path (near-threshold exceptions {near[f'r{i}']}); "
+            f"launches {launches}")
+    # K1, K2 and K3 timed at the service's width (d = 4,096), on a static
+    # index of the same corpus, family and draws
+    static = HybridLSHIndex(svc.index.family, params=svc.index.params,
+                            num_buckets=rcfg.num_buckets, m=rcfg.hll_m,
+                            cap=rcfg.cap, device=dev).build(
+                                rows[:RETRIEVAL_DOCS])
+    rec["kernel_times"] = kernel_times(s, static, emb.cpu().numpy(),
+                                       radii[1], "cosine")
+    log_kernel_times("retrieval r1 (d = 4,096)", rec["kernel_times"])
+    del static
+
+    # 100 requests of 1-4 rows through the coalesced path
+    rng = np.random.default_rng(5)
+    sizes = rng.integers(1, 5, 100)
+    req_toks = batch(3, 0, b=int(sizes.sum()))["tokens"].cpu().numpy()
+    recorded = []
+    embed = svc.embed
+
+    def tap(b):                   # the embeddings the service computes
+        e = embed(b)
+        recorded.append((np.asarray(b["tokens"]), e))
+        return e
+
+    svc.embed = tap
+
+    def drain_pass():
+        off, uids = 0, []
+        for k in sizes:
+            uids.append(svc.submit(req_toks[off:off + k]))
+            off += k
+        out = svc.drain_batches(force=True)
+        assert sorted(out) == sorted(uids)
+        return out, uids
+
+    (out, uids), launches = s.path(drain_pass)
+    groups = len(recorded)
+    by_path["retrieval drain"] = {"drain": launches}
+    where = {}
+    for g, (toks, _) in enumerate(recorded):
+        for j, row in enumerate(toks):       # pad rows repeat the last
+            where.setdefault(row.tobytes(), (g, j))
+    got = served_sets(out, uids)
+    # each coalesced batch queried again on its own: its launches checked
+    # against its route split, and the drain's equal to their sum
+    k_sets, p_sets, summed = [], [], dict.fromkeys(launches, 0)
+    for g, (toks, e) in enumerate(recorded):
+        res, lg = s.path(lambda: svc.index.query(e, radii[1]))
+        n_lsh = len(res.lsh_idx)
+        check_path_launches(lg, n_lsh, len(e) - n_lsh, "cosine",
+                            f"retrieval drain batch {g}", delta=True)
+        summed = {k: v + lg[k] for k, v in summed.items()}
+        k_sets.append(res.neighbor_sets())
+        p_sets.append(plain.query(e, radii[1]).neighbor_sets())
+    assert launches == summed, ("drain launches", launches, summed)
+    n_near = 0
+    for i, row in enumerate(req_toks):
+        g, j = where[row.tobytes()]
+        assert got[i] == k_sets[g][j], f"drained request row {i}"
+        q = recorded[g][1][j].cpu().numpy()
+        n_near += s.compare_sets({0: got[i]}, {0: p_sets[g][j]}, "cosine",
+                                 q[None], rows, radii[1], "retrieval drain")
+    (again, uids2), launches2 = s.path(drain_pass)
+    del svc.embed
+    assert all(again[u].cached for u in uids2), "repeat pass missed the cache"
+    assert served_sets(again, uids2) == got
+    assert launches2["route_estimate"] == 0, launches2
+    st = svc.stats
+    log(f"[retrieval] 100 requests ({int(sizes.sum())} rows) served in "
+        f"{groups} coalesced batches, sets equal the plain index's on the "
+        f"embeddings the service computed ({n_near} near-threshold "
+        f"exceptions); the repeat pass: all {len(uids2)} from the cache; "
+        f"cache {st['cache']}; drain launches {launches}")
+    rec["drain"] = dict(requests=len(uids), rows=int(sizes.sum()),
+                        batches=groups, cache_hits=st["cache"]["hits"])
+
+    # churn: add 1,024, remove 256, compaction ticks
+    extra = [batch(1, n_batches + i) for i in range(1024 // RETRIEVAL_BATCH)]
+    new_ids = svc.add_documents(extra)
+    assert len(new_ids) == 1024
+    rows_by_id(svc.index, rows)
+    d = svc.index.delta
+    plain.insert(d.x[:d.count].clone(), ids=new_ids)
+    gone = set(rng.choice(RETRIEVAL_DOCS + 1024, 256, replace=False).tolist())
+    assert svc.remove_documents(sorted(gone)) == plain.delete(sorted(gone)) \
+        == 256
+    ticks = 0
+    while svc.compaction_tick():
+        ticks += 1
+        assert ticks < 1000, "compaction_tick never drained"
+    plain_state = plain.index_stats()
+    for key in ("n_live", "n_main", "n_main_dead", "delta_count",
+                "delta_live", "segments"):
+        assert svc.stats[key] == plain_state[key], key
+    assert svc.index.state_digests() == plain.state_digests()
+    for i, r in enumerate(radii):
+        (res, emb) = svc.query(qb, radius=r)
+        _, launches, near[f"churned r{i}"] = retrieval_queries(
+            s, svc, plain, emb, r, rows, gone, f"retrieval churned r{i}")
+        by_path[f"retrieval churned r{i}"] = launches
+        routes["lsh"] += len(res.lsh_idx)
+        routes["linear"] += len(res.lin_idx)
+    log(f"[retrieval] churned: +1,024 / -256 documents, {ticks} extra "
+        f"compaction ticks, {svc.stats['segments']} segments, delta "
+        f"{svc.stats['delta_count']}; kernel = plain on every path "
+        f"(near-threshold exceptions {near})")
+
+    # -- 5. durability --------------------------------------------------
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_retrieval_"))
+    try:
+        mgr = CheckpointManager(str(root))
+        _, rec["checkpoint_s"] = synced(lambda: svc.checkpoint(mgr, 1))
+        fresh = RetrievalService(cfg, par, params, rcfg, device=dev)
+        step, rec["restore_s"] = synced(lambda: fresh.restore(mgr))
+        assert step == 1
+        assert fresh.index.state_digests() == svc.index.state_digests()
+        emb = svc.embed(qb)
+        for i, r in enumerate(radii):
+            ra, la = query_paths(s, svc.index, emb, r, "cosine",
+                                 f"retrieval live r{i}", delta=True)
+            rb, lb = query_paths(s, fresh.index, emb, r, "cosine",
+                                 f"retrieval restored r{i}", delta=True)
+            for f, path in PATHS.items():
+                assert rb[f].neighbor_sets() == ra[f].neighbor_sets(), (r, f)
+                assert lb[path] == la[path], (r, path)
+            by_path[f"retrieval restored r{i}"] = lb
+        rec["checkpoint_bytes"] = mgr.stats()["bytes_written"]
+        log(f"[retrieval] checkpoint (cut) {rec['checkpoint_s']:.3f} s, "
+            f"{rec['checkpoint_bytes'] / 1e6:.1f} MB; restored into a fresh "
+            f"service in {rec['restore_s']:.3f} s: equal sets and launches "
+            f"on every path")
+        del fresh
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if routes["lsh"] and routes["linear"]:
+        log(f"[retrieval] both routes ran in the hybrid: {routes}")
+    else:
+        none = "lsh" if not routes["lsh"] else "linear"
+        log(f"[retrieval] the hybrid never chose {none} ({routes}): at these "
+            f"radii the family has k = {svc.index.family.k} bits a table, so "
+            f"a table's buckets hold about 1/{2 ** svc.index.family.k} of the "
+            f"corpus each and the estimated LSH cost is "
+            + ("above" if none == "lsh" else "below")
+            + f" the linear scan's; the forced {none} path ran its kernels")
+    rec["routes"] = routes
+    rec["mixes"] = mixes
+    svc.shutdown()
+    del svc, plain
+    torch.cuda.empty_cache()
+
+    # -- 6. generation --------------------------------------------------
+    pb = batch(0, 0, b=4)
+    new = 16
+    toks, rec["generate_s"] = synced(lambda: generate(
+        params, pb, cfg, par, cache_len=RETRIEVAL_SEQ + new,
+        max_new_tokens=new, device=dev))
+    assert toks.shape == (4, new) and toks.dtype == torch.int32
+    pre = make_serve_prefill(cfg, par, RETRIEVAL_SEQ + new)
+    step = make_serve_step(cfg, par)
+    with torch.inference_mode():
+        (tok, caches, lengths), t_pre = synced(lambda: pre(params, pb))
+        t_steps = []
+        for _ in range(new - 1):
+            (tok, caches, lengths), t = synced(
+                lambda: step(params, caches, tok, lengths))
+            t_steps.append(t)
+        full = torch.cat([pb["tokens"], toks[:, :new - 1]], dim=1)
+        h = hidden_states(params, {"tokens": full}, cfg, par)
+        logits = (h[:, RETRIEVAL_SEQ - 1:].float()
+                  @ params.lm_head.float().T)           # (4, 16, V)
+    top2 = logits.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    span = logits.amax(-1) - logits.amin(-1)
+    clear = (margin > GREEDY_MARGIN * span).cpu().numpy()
+    want = logits.argmax(-1).cpu().numpy()
+    got = toks.cpu().numpy()
+    assert (got[clear] == want[clear]).all(), "greedy tokens != the prefill's argmax"
+    rec["generate"] = dict(
+        batch=4, prompt=RETRIEVAL_SEQ, new=new,
+        close_positions=int((~clear).sum()),
+        agree_where_close=int((got[~clear] == want[~clear]).sum()),
+        prefill_ms=t_pre * 1e3,
+        decode_ms_per_token=statistics.median(t_steps) * 1e3,
+        decode_bound_ms=rec["param_bytes"] / s.bw * 1e3)
+    g = rec["generate"]
+    log(f"[retrieval] generate 4 x {new} tokens in {rec['generate_s']:.2f} s; "
+        f"greedy tokens equal the prefill's argmax at all "
+        f"{int(clear.sum())} positions with a clear margin ({g['close_positions']} "
+        f"close, {g['agree_where_close']} of them equal too); prefill "
+        f"{g['prefill_ms']:.2f} ms, decode {g['decode_ms_per_token']:.2f} ms a "
+        f"token (median of {new - 1}) against the weight-read bound "
+        f"{g['decode_bound_ms']:.2f} ms ({rec['param_bytes'] / 1e9:.2f} GB at "
+        f"{s.bw / 1e12:.2f} TB/s)")
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, caches
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[retrieval] peak device memory {rec['peak_bytes'] / 1e9:.3f} GB "
+        f"after the model; the phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def log_kernel_times(tag, kt):
     for k, v in kt.items():
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
@@ -2152,6 +2583,13 @@ def main() -> int:
     log("[durability] " + json.dumps(
         {"card": smi, "covertype": cover["durability"],
          "mnist": mnist["durability"], "tenants": tenants}))
+    # -- 7c. the retrieval encoder and service at Yi-6B's full size ------
+    retrieval = drive_retrieval(s, by_path)
+    retrieval["card"] = smi
+    log("[retrieval] " + json.dumps(retrieval))
+    rkt = retrieval.pop("kernel_times")
+    for name in ("linear_scan_dot", "lsh_scan"):
+        timings[name]["retrieval d=4096"] = rkt[name]
     # K3 and K5 at their main-path shape: churned MNIST over all segments
     mkt = mnist["churned"]["kernel_times"]
     timings["route_estimate"] = dict(

@@ -1,4 +1,5 @@
-from repro_torch.data.synthetic import (clustered_dataset, paper_dataset,
-                                        query_split)
+from repro_torch.data.synthetic import (LMDataIterator, clustered_dataset,
+                                        lm_batch, paper_dataset, query_split)
 
-__all__ = ["clustered_dataset", "paper_dataset", "query_split"]
+__all__ = ["LMDataIterator", "clustered_dataset", "lm_batch",
+           "paper_dataset", "query_split"]

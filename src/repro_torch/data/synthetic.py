@@ -1,14 +1,79 @@
-"""Deterministic synthetic vector datasets for the paper's r-NN
-experiments: Gaussian mixtures with a controllable "dense core", so
-query sets contain the hard queries of the paper's Fig. 1/Webspam
-discussion.
+"""Deterministic synthetic data.
 
-numpy only, and a verbatim copy of ``repro.data.synthetic``'s vector
-generators, so both packages see the same corpora from the same seed.
+Two generators:
+
+  * LM token batches — a pure function of (seed, step), drawn from a
+    ``torch.Generator`` seeded by the pair: restart-safe by construction
+    (an iterator's state is its step counter).  Not the reference's
+    draws: parity tests feed the reference's tokens as numpy.
+  * Clustered vector datasets for the paper's r-NN experiments —
+    Gaussian mixtures with a controllable "dense core", so query sets
+    contain the hard queries of the paper's Fig. 1/Webspam discussion.
+    numpy only, and a verbatim copy of ``repro.data.synthetic``'s vector
+    generators, so both packages see the same corpora from the same seed.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, Iterator, Optional
+
 import numpy as np
+import torch
+
+
+# ------------------------------------------------------------------ LM
+def lm_batch(seed: int, step: int, *, batch: int, seq: int, vocab: int,
+             cfg=None, device=None) -> Dict[str, torch.Tensor]:
+    """Deterministic token batch for (seed, step) on ``device`` (None:
+    the GPU): int32 ``tokens`` (batch, seq) and their next tokens as
+    ``labels``, drawn on the host so that every device sees the same.
+    ``cfg`` is the reference's: an audio or vision config, whose batches
+    also carry stub frames or image embeddings, raises until those
+    models are ported (Slice F)."""
+    from repro_torch.core.index import resolve_device
+    if cfg is not None and (getattr(cfg, "encoder_layers", 0)
+                            or getattr(cfg, "num_image_tokens", 0)):
+        raise NotImplementedError(
+            f"{cfg.name}: the stub frames and image embeddings of audio "
+            f"and vision batches come with their models (Slice F)")
+    device = resolve_device(device)
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
+    gen = torch.Generator().manual_seed(
+        int(state[0]) << 32 | int(state[1]))
+    toks = torch.randint(0, vocab, (batch, seq + 1), generator=gen,
+                         dtype=torch.int32)
+    toks = toks.to(device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@dataclasses.dataclass
+class LMDataIterator:
+    """Resumable iterator: ``state`` is just the step counter."""
+
+    seed: int
+    batch: int
+    seq: int
+    vocab: int
+    step: int = 0
+    cfg: Optional[object] = None
+    device: Optional[object] = None
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        b = lm_batch(self.seed, self.step, batch=self.batch, seq=self.seq,
+                     vocab=self.vocab, cfg=self.cfg, device=self.device)
+        self.step += 1
+        return b
+
+    def state_dict(self):
+        return {"step": self.step, "seed": self.seed}
+
+    def load_state_dict(self, s):
+        if s["seed"] != self.seed:
+            raise ValueError("data seed changed across restart")
+        self.step = int(s["step"])
 
 
 # ------------------------------------------------- r-NN vector datasets

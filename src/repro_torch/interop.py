@@ -1,8 +1,9 @@
 """Carry the reference's random draws and tables into the port.
 
 Takes numpy arrays only, so a test can hand the port the exact family
-parameters (and even the exact CSR tables) of a ``repro`` index without
-relying on two random number generators agreeing.
+parameters (and even the exact CSR tables) of a ``repro`` index, or the
+exact weights of a ``repro`` model, without relying on two random number
+generators agreeing.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch
 
 from repro_torch.core.lsh.tables import LSHTables
 
-__all__ = ["params_from_numpy", "tables_from_numpy", "dynamic_index_from_state"]
+__all__ = ["params_from_numpy", "tables_from_numpy", "dynamic_index_from_state",
+           "model_params_from_numpy"]
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -55,3 +57,31 @@ def dynamic_index_from_state(family, state, device, **kwargs):
     return DynamicHybridIndex(family, params=params_from_numpy(
         {k: np.asarray(v) for k, v in state["params"].items()}, device),
         device=device, **kwargs).load_state_dict(state)
+
+
+def model_params_from_numpy(params, cfg, device):
+    """A port ``Transformer`` on ``device`` holding the weights of the
+    reference's ``init_params(cfg, key)`` pytree (leaves as numpy, e.g.
+    float32 copies of bf16 weights: bf16 -> f32 -> bf16 is exact), cast
+    to ``cfg.param_dtype``.  The ``(repeats, ...)`` leaves of
+    ``params["blocks"]`` are unstacked into per-layer modules in the
+    reference's execution order: repeat by repeat, pattern position by
+    pattern position, then the tail."""
+    from repro_torch.models.transformer import from_leaves
+    dt = cfg.param_dtype
+
+    def leaf(a):
+        return _tensor(np.asarray(a, np.float32), dt, device)
+
+    def layer(tree, i=None):
+        return {k: ({kk: leaf(vv if i is None else vv[i])
+                     for kk, vv in v.items()} if isinstance(v, dict)
+                    else leaf(v if i is None else v[i]))
+                for k, v in tree.items()}
+
+    layers = [layer(params["blocks"][pos], i)
+              for i in range(cfg.n_repeats)
+              for pos in range(len(cfg.pattern))]
+    layers += [layer(t) for t in params["tail"]]
+    return from_leaves(cfg, leaf(params["embed"]), layers,
+                       leaf(params["final_norm"]), leaf(params["lm_head"]))

@@ -49,9 +49,9 @@
 //    a group take more groups (gridDim.y); blocks of one tile index in
 //    every group run together, so the corpus tile is read from device
 //    memory about once per call.
-//  * The corpus streams through a cp.async ring of 32-column chunks (rows
-//    padded by 4 words), 3 or 4 stages as shared memory allows, so the
-//    next chunks' loads overlap this chunk's MMAs.  The copy width is
+//  * The corpus streams through a cp.async ring of 32 KS-column chunks
+//    (rows padded by 4 words), 3 or 4 stages as shared memory allows, so
+//    the next chunks' loads overlap this chunk's MMAs.  The copy width is
 //    16 B when both base pointers are 16-byte aligned and d % 4 == 0, else
 //    8 B when d is even and they are 8-byte aligned, else 4 B (Webspam's
 //    1,016-byte rows take 8 B); the ragged d tail and rows past N are
@@ -65,10 +65,22 @@
 //  * The grid is persistent: blocks a group = min(tiles, SMs x resident
 //    blocks an SM / groups), each walking tiles blockIdx.x, + gridDim.x,
 //    ... and prefetching the next tile's chunks during this tile's
-//    epilogue.  Small problems take fewer warps a block (down to 2), then
-//    smaller groups (down to 8 queries), until there are at least as many
-//    blocks as SMs (calibrate's 64 x 4,096: 128 tiles of 32 rows x 2
+//    epilogue.  Small problems take fewer row warps a block (down to 2),
+//    then smaller groups (down to 8 queries), until there are at least as
+//    many blocks as SMs (calibrate's 64 x 4,096: 128 tiles of 32 rows x 2
 //    groups of 32 queries).
+//  * K-split: where that leaves fewer than 8 warps a block, KS = 8 / (row
+//    warps) warps share each tile (while d holds two chunks of 32 KS
+//    columns): a stage is 32 KS columns wide and each warp of a row slice
+//    multiplies its own 32 of them, so a block keeps 8 warps and KS times
+//    the bytes in flight; the epilogue sums the KS partial tiles in a
+//    fixed order.  Such blocks size their query panel for two blocks an
+//    SM, twice the stages in flight again (the panels then restage more
+//    often, behind the other block).  At the retrieval service's width
+//    (Q = 32, N = 8,192, d = 4,096: 256 tiles of 32 rows) one 2-warp block
+//    an SM had 4 KB stages in flight and took 0.39 ms; KS = 4 with 16 KB
+//    stages 0.15 ms, and two such blocks an SM 0.13-0.15 ms (an H100
+//    SXM; PERF.md).
 //  * What holds it back (measured, PERF.md): at Webspam the reads of a
 //    tile are 128-byte pieces of 1,016-byte rows, 8-byte aligned, and
 //    stream at about 1.5 TB/s even with the MMAs taken out; at Q = 100 the
@@ -241,7 +253,6 @@ namespace {
 // ---- the dot-form tile (linear_scan_dot, pairwise_dot) --------------------
 
 constexpr int kDotBK = 32;              // d-columns of a ring stage
-constexpr int kDotXS = kDotBK + 4;      // words per corpus row in a stage
 constexpr int kDotMinStages = 3;        // depth of the cp.async ring: at
 constexpr int kDotMaxStages = 4;        // least 3, at most 4
 constexpr int kDotMaxGroup = 128;       // queries per group: 16 n-fragments
@@ -262,14 +273,14 @@ struct DotArgs {
   int Q, N, d;
   int group;             // queries per group, 8 NF
   int panel;             // d-columns of the queries staged at once
-  int tiles;             // row tiles of 16 rows a warp
+  int tiles;             // row tiles of 16 rows a row warp
   int stages;            // depth of the ring
 };
 
 // How a call is laid out on the card (dot_plan, run_dot).
 struct DotPlan {
   int vec, nf, warps, group, groups, tiles, panel, stages, smem, occupancy,
-      grid_x;
+      grid_x, ks;
 };
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -331,9 +342,11 @@ __device__ __forceinline__ void cp_async_wait_at_most(int n) {
 }
 
 // VEC: floats a cp.async (4, 2 or 1).  NF: n-fragments (8 queries each)
-// a warp computes: the group's 8 NF queries, the rows past Q zeros.  Grid:
-// (walkers, groups); block: 2-8 warps of 16 rows.
-template <int VEC, int NF>
+// a warp computes: the group's 8 NF queries, the rows past Q zeros.  KS
+// (1, 2 or 4): warps of a row slice, each on its own 32 columns of a
+// stage.  Grid: (walkers, groups); block: 2-8 row warps of 16 rows times
+// KS, 8 warps at most.
+template <int VEC, int NF, int KS>
 __global__ void __launch_bounds__(256, NF <= 4 ? 2 : 1)
 dot_tile_kernel(const DotArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -341,15 +354,21 @@ dot_tile_kernel(const DotArgs a) {
   const int warp = tid >> 5;
   const int g = (tid & 31) >> 2;          // fragment row, query within 8
   const int t = tid & 3;                  // fragment k within 4
-  const int bm = blockDim.x / 2;          // 16 rows a warp
+  const int bm = blockDim.x / (2 * KS);   // 16 rows a row warp
+  const int wr = KS == 1 ? warp : warp % (bm / 16);   // the warp's 16 rows
+  const int kw = KS == 1 ? 0 : warp / (bm / 16);      // its 32 columns of a stage
+  constexpr int kc = kDotBK * KS;         // d-columns a stage
+  constexpr int xs = kc + 4;              // words per corpus row in a stage
   const int q0 = blockIdx.y * a.group;
   const int nq = min(a.group, a.Q - q0);  // real queries of the group
-  const int chunks = ceil_div(max(a.d, 1), kDotBK);   // ring steps a tile
-  const int per_panel = a.panel / kDotBK;
+  const int chunks = ceil_div(max(a.d, 1), kc);       // ring steps a tile
+  const int per_panel = a.panel / kc;
   const int qstride = a.panel + 4;
+  constexpr int kEpiQ = 8 * NF < kDotEpiQ ? 8 * NF : kDotEpiQ;
+  const int epi_words = kEpiQ * (bm + 4);             // one warp column's
   float* qs = smem;                                   // [8 NF][qstride]
-  float* ring = qs + 8 * NF * qstride;                // [stages][bm][kDotXS]
-  float* epi = ring + a.stages * bm * kDotXS;        // [min(8 NF, 32)][bm + 4]
+  float* ring = qs + 8 * NF * qstride;                // [stages][bm][xs]
+  float* epi = ring + a.stages * bm * xs;            // [KS][kEpiQ][bm + 4]
   const int steps = ceil_div(a.tiles - static_cast<int>(blockIdx.x),
                              static_cast<int>(gridDim.x)) * chunks;
 
@@ -368,16 +387,16 @@ dot_tile_kernel(const DotArgs a) {
   auto load_step = [&](int s) {
     if (s < steps) {
       const int n0 = (blockIdx.x + (s / chunks) * gridDim.x) * bm;
-      const int k0 = (s % chunks) * kDotBK;
-      float* dst = ring + (s % a.stages) * bm * kDotXS;
-      constexpr int per_row = kDotBK / VEC;
+      const int k0 = (s % chunks) * kc;
+      float* dst = ring + (s % a.stages) * bm * xs;
+      constexpr int per_row = kc / VEC;
 #pragma unroll
       for (int j = 0; j < kDotBK / (2 * VEC); ++j) {   // bm per_row / blockDim
         const int i = tid + j * blockDim.x;
         const int r = i / per_row;
         const int k = (i % per_row) * VEC;
         const bool ok = n0 + r < a.N && k0 + k < a.d;
-        cp_async<VEC>(dst + r * kDotXS + k,
+        cp_async<VEC>(dst + r * xs + k,
                       ok ? a.x + static_cast<int64_t>(n0 + r) * a.d + k0 + k : a.x, ok);
       }
     }
@@ -404,10 +423,10 @@ dot_tile_kernel(const DotArgs a) {
     }
     load_step(s + a.stages - 1);
 
-    const float* xa = ring + (s % a.stages) * bm * kDotXS
-                      + (warp * 16 + g) * kDotXS + t;     // fragment row g
-    const float* xb = xa + 8 * kDotXS;                     // and g + 8
-    const float* qb = qs + g * qstride + (c % per_panel) * kDotBK + t;
+    const float* xa = ring + (s % a.stages) * bm * xs
+                      + (wr * 16 + g) * xs + kw * kDotBK + t;   // fragment row g
+    const float* xb = xa + 8 * xs;                              // and g + 8
+    const float* qb = qs + g * qstride + (c % per_panel) * kc + kw * kDotBK + t;
 #pragma unroll
     for (int k = 0; k < kDotBK; k += 8) {
       uint32_t ah[4], al[4], bh[NF][2], bl[NF][2];
@@ -430,8 +449,9 @@ dot_tile_kernel(const DotArgs a) {
     }
     if (c != chunks - 1) continue;
 
-    // The tile's epilogue, 32 queries at a time through epi.  A thread
-    // finishes the same 4 rows (gn..gn+3) in every pass, 8 queries apart.
+    // The tile's epilogue, 32 queries at a time through epi, one partial
+    // tile for each warp of a row slice.  A thread finishes the same 4 rows
+    // (gn..gn+3) in every pass, 8 KS queries apart.
     const int n0 = (blockIdx.x + (s / chunks) * gridDim.x) * bm;
     const int quads = bm / 4;
     const int gn = n0 + (tid % quads) * 4;
@@ -446,7 +466,8 @@ dot_tile_kernel(const DotArgs a) {
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
         if (f < f0 || f >= f0 + kDotEpiQ / 8) continue;
-        float* e = epi + (8 * (f - f0) + 2 * t) * (bm + 4) + warp * 16 + g;
+        float* e = epi + kw * epi_words + (8 * (f - f0) + 2 * t) * (bm + 4)
+                   + wr * 16 + g;
         e[0] = acc[f][0];                 // (row g,     query 2t)
         e[bm + 4] = acc[f][1];            // (row g,     query 2t + 1)
         e[8] = acc[f][2];                 // (row g + 8, query 2t)
@@ -454,10 +475,19 @@ dot_tile_kernel(const DotArgs a) {
       }
       __syncthreads();
       const int eq = min(kDotEpiQ, nq - 8 * f0);
-      for (int ql = tid / quads; in[0] && ql < eq; ql += 8) {
+      for (int ql = tid / quads; in[0] && ql < eq; ql += blockDim.x / quads) {
         const int gq = q0 + 8 * f0 + ql;
-        const float4 e4 = *reinterpret_cast<const float4*>(epi + ql * (bm + 4) + gn - n0);
+        const float* ep = epi + ql * (bm + 4) + gn - n0;
+        const float4 e4 = *reinterpret_cast<const float4*>(ep);
         float v[4] = {e4.x, e4.y, e4.z, e4.w};
+#pragma unroll
+        for (int w = 1; w < KS; ++w) {         // the other partial tiles, in order
+          const float4 p4 = *reinterpret_cast<const float4*>(ep + w * epi_words);
+          v[0] += p4.x;
+          v[1] += p4.y;
+          v[2] += p4.z;
+          v[3] += p4.w;
+        }
         if (a.mode == kDotL2) {                // norms - 2 q.x, clamped at 0
           const float qn = a.qn[gq];
 #pragma unroll
@@ -537,10 +567,13 @@ DeviceInfo device_info() {
 // The launch's layout.  Copy width from the pointers' and the row
 // stride's alignment.  NF (a power of two up to 16) n-fragments cover the
 // queries, and a group is 8 NF queries; 8 warps (128 rows) a block where
-// that gives at least a block per SM, else fewer warps (down to 2), then
-// smaller groups (down to 8 queries); the queries' d-panel as wide as the
-// block's shared memory allows with a 3-stage ring, and a fourth stage where
-// the rest allows.  Returns a cudaError_t.
+// that gives at least a block per SM, else fewer row warps (down to 2),
+// then smaller groups (down to 8 queries); then KS warps to a row slice,
+// up to 8 warps a block while d holds two stages of 32 KS columns; the
+// queries' d-panel as wide as the block's share of shared memory (all of
+// it at KS = 1, half an SM's at KS > 1) allows with a 3-stage ring
+// (smaller KS, then smaller groups, where not one stage of columns fits),
+// and a fourth stage where the rest allows.  Returns a cudaError_t.
 int dot_plan(const void* q, const void* x, int Q, int N, int d, DotPlan& p) {
   const DeviceInfo dev = device_info();
   const int sms = dev.sms;
@@ -556,20 +589,30 @@ int dot_plan(const void* q, const void* x, int Q, int N, int d, DotPlan& p) {
   };
   while (p.warps > 2 && blocks() < sms) p.warps /= 2;
   while (p.nf > 1 && blocks() < sms) p.nf /= 2;
+  p.ks = 1;
+  while (p.warps * p.ks < 8 && 4 * kDotBK * p.ks <= dp) p.ks *= 2;
   for (;;) {
     const int bm = 16 * p.warps;
-    const int stage = 4 * bm * kDotXS;
-    const int epi = 4 * std::min(8 * p.nf, kDotEpiQ) * (bm + 4);
-    const int cols = (optin - epi - kDotMinStages * stage) / (32 * p.nf) - 4;
-    p.panel = std::min(dp, cols / kDotBK * kDotBK);
-    if (p.panel >= kDotBK) {            // the rest of shared memory: the ring
+    const int kc = kDotBK * p.ks;
+    const int stage = 4 * bm * (kc + 4);
+    const int epi = 4 * p.ks * std::min(8 * p.nf, kDotEpiQ) * (bm + 4);
+    // few tiles (KS > 1): two blocks an SM, so twice the stages in flight
+    const int budget = p.ks > 1 ? std::min(optin, dev.per_sm / 2 - 1024) : optin;
+    const int cols = (budget - epi - kDotMinStages * stage) / (32 * p.nf) - 4;
+    p.panel = std::min(round_up(dp, kc), cols / kc * kc);
+    if (p.panel >= kc) {                // the rest of shared memory: the ring
       const int qs = 32 * p.nf * (p.panel + 4);
-      p.stages = std::min(kDotMaxStages, (optin - epi - qs) / stage);
+      p.stages = std::min(kDotMaxStages, (budget - epi - qs) / stage);
       p.smem = qs + epi + p.stages * stage;
       break;
     }
-    if (p.nf == 1) return static_cast<int>(cudaErrorInvalidValue);
-    p.nf /= 2;
+    if (p.ks > 1) {
+      p.ks /= 2;
+    } else if (p.nf > 1) {
+      p.nf /= 2;
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   p.group = 8 * p.nf;
   p.groups = ceil_div(Q, p.group);
@@ -580,21 +623,22 @@ int dot_plan(const void* q, const void* x, int Q, int N, int d, DotPlan& p) {
 // The grid: blocks a group = min(tiles, SMs x resident blocks an SM /
 // groups).  Launches if `launch`; fills p.occupancy and p.grid_x either way.
 // The resident-block count of the last (warps, shared memory) is kept.
-template <int VEC, int NF>
+template <int VEC, int NF, int KS>
 int run_dot(const DotArgs& a, DotPlan& p, cudaStream_t s, bool launch) {
-  auto kernel = dot_tile_kernel<VEC, NF>;
+  auto kernel = dot_tile_kernel<VEC, NF, KS>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, device_info().optin);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   static std::mutex mu;
-  static int last_warps = 0, last_smem = 0, last_occupancy = 0;
+  static int last_threads = 0, last_smem = 0, last_occupancy = 0;
+  const int threads = 32 * p.warps * p.ks;
   {
     std::lock_guard<std::mutex> lock(mu);
-    if (p.warps != last_warps || p.smem != last_smem) {
+    if (threads != last_threads || p.smem != last_smem) {
       const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &last_occupancy, kernel, 32 * p.warps, p.smem);
+          &last_occupancy, kernel, threads, p.smem);
       if (e != cudaSuccess) return static_cast<int>(e);
-      last_warps = p.warps;
+      last_threads = threads;
       last_smem = p.smem;
     }
     p.occupancy = last_occupancy;
@@ -603,18 +647,27 @@ int run_dot(const DotArgs& a, DotPlan& p, cudaStream_t s, bool launch) {
   const int walkers = device_info().sms * p.occupancy / p.groups;
   p.grid_x = std::min(p.tiles, std::max(1, walkers));
   if (!launch) return 0;
-  kernel<<<dim3(p.grid_x, p.groups), 32 * p.warps, p.smem, s>>>(a);
+  kernel<<<dim3(p.grid_x, p.groups), threads, p.smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC, int NF>
+int run_dot_nf(const DotArgs& a, DotPlan& p, cudaStream_t s, bool launch) {
+  switch (p.ks) {
+    case 1: return run_dot<VEC, NF, 1>(a, p, s, launch);
+    case 2: return run_dot<VEC, NF, 2>(a, p, s, launch);
+    default: return run_dot<VEC, NF, 4>(a, p, s, launch);
+  }
 }
 
 template <int VEC>
 int run_dot_vec(const DotArgs& a, DotPlan& p, cudaStream_t s, bool launch) {
   switch (p.nf) {
-    case 1: return run_dot<VEC, 1>(a, p, s, launch);
-    case 2: return run_dot<VEC, 2>(a, p, s, launch);
-    case 4: return run_dot<VEC, 4>(a, p, s, launch);
-    case 8: return run_dot<VEC, 8>(a, p, s, launch);
-    default: return run_dot<VEC, 16>(a, p, s, launch);
+    case 1: return run_dot_nf<VEC, 1>(a, p, s, launch);
+    case 2: return run_dot_nf<VEC, 2>(a, p, s, launch);
+    case 4: return run_dot_nf<VEC, 4>(a, p, s, launch);
+    case 8: return run_dot_nf<VEC, 8>(a, p, s, launch);
+    default: return run_dot_nf<VEC, 16>(a, p, s, launch);
   }
 }
 
@@ -1491,11 +1544,11 @@ extern "C" int pairwise_dot(const void* q, const void* x, const void* qn,
 }
 
 // The layout linear_scan_dot / pairwise_dot launch for these pointers and
-// this shape, without launching: out[0..10] = copy width (floats),
-// n-fragments a warp, warps a block, queries a group, groups, row tiles,
-// d-columns of the queries staged at once, ring stages, dynamic shared
-// memory (bytes), resident blocks an SM, blocks a group.  Returns a
-// cudaError_t.
+// this shape, without launching: out[0..11] = copy width (floats),
+// n-fragments a warp, row warps a block, queries a group, groups, row
+// tiles, d-columns of the queries staged at once, ring stages, dynamic
+// shared memory (bytes), resident blocks an SM, blocks a group, warps to
+// a row slice.  Returns a cudaError_t.
 extern "C" int dot_tile_plan(const void* q, const void* x, int Q, int N,
                              int d, int* out) {
   if (Q <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -1504,9 +1557,9 @@ extern "C" int dot_tile_plan(const void* q, const void* x, int Q, int N,
             Q, N, d};
   DotPlan p{};
   const int err = dot_tile(a, p, nullptr, false);
-  const int v[11] = {p.vec, p.nf, p.warps, p.group, p.groups, p.tiles,
-                     p.panel, p.stages, p.smem, p.occupancy, p.grid_x};
-  std::copy(v, v + 11, out);
+  const int v[12] = {p.vec, p.nf, p.warps, p.group, p.groups, p.tiles,
+                     p.panel, p.stages, p.smem, p.occupancy, p.grid_x, p.ks};
+  std::copy(v, v + 12, out);
   return err;
 }
 

@@ -234,7 +234,7 @@ def dot_tile_plan(q: torch.Tensor, x: torch.Tensor) -> dict:
                   x.shape[1]),
                  ("copy_floats", "n_fragments", "warps", "group", "groups", "tiles",
                   "panel", "stages", "smem_bytes", "blocks_per_sm",
-                  "blocks_per_group"))
+                  "blocks_per_group", "k_split"))
 
 
 def _plan(entry: str, argtypes, args, keys) -> dict:

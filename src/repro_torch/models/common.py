@@ -1,0 +1,79 @@
+"""Shared building blocks: norms, RoPE, MLPs, initializers.
+
+The arithmetic of ``repro.models.common``: norms and RoPE in float32,
+then cast back to the activation dtype; products in the parameter dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
+               scale: float = 1.0, dtype=torch.bfloat16,
+               device=None) -> torch.Tensor:
+    """Truncated-normal fan-in init, drawn in float32 on ``device`` from
+    ``gen`` (a generator on that device), then cast to ``dtype``."""
+    std = scale / math.sqrt(shape[in_axis])
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(std).to(dtype)
+
+
+def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, n_heads, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- MLP
+def mlp_init(gen: torch.Generator, d: int, f: int, dtype=torch.bfloat16,
+             device=None) -> nn.ParameterDict:
+    return params_dict(
+        wi=dense_init(gen, (d, f), 0, dtype=dtype, device=device),
+        wg=dense_init(gen, (d, f), 0, dtype=dtype, device=device),
+        wo=dense_init(gen, (f, d), 0, dtype=dtype, device=device))
+
+
+def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    h = x @ params["wi"]
+    g = x @ params["wg"]
+    if act == "silu":
+        h = F.silu(g) * h
+    elif act == "relu2":           # squared ReLU (nemotron-4)
+        h = torch.square(torch.relu(g)) * h
+    else:
+        raise ValueError(act)
+    return h @ params["wo"]
+
+
+def params_dict(**tensors: torch.Tensor) -> nn.ParameterDict:
+    """Named inference weights (no gradients: training is not ported)."""
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})

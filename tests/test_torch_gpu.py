@@ -9,6 +9,9 @@ another order) and bit for bit against the per-segment composition of the
 same kernel; Hamming matrices and scans exact; SimHash bits as
 ``torch_cases.simhash_flips`` allows.
 """
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -513,3 +516,78 @@ def test_cuda_save_then_insert_writes_the_state_before_it(cuda, tmp_path):
     restored = DynamicHybridIndex(fam, seed=1, device=cuda, **kw)
     mgr.restore_index(restored)
     assert restored.n == idx.n - 20 and restored.delta.count == count
+
+
+@pytest.mark.gpu
+def test_cuda_retrieval_service_matches_plain(cuda):
+    """``RetrievalService`` at a reduced width (yi-6b, d_model 256) on
+    the card: the kernels' reported sets on every path equal those of a
+    plain (``impl="ref"``) index holding the same state, up to rows
+    within 1e-5 * max(1, r) of the radius; removed ids never reported;
+    LSH sets within linear sets; embeddings within 1e-4 of the CPU's
+    from the same weights."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import ParallelConfig, forward_embed, init_params
+    from repro_torch.serve import RetrievalConfig, RetrievalService
+    from repro_torch.streaming import DynamicHybridIndex
+    cfg = reduced_config(get_config("yi-6b"), d_model=256, d_ff=512)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    par = ParallelConfig(attn_chunk_q=16, attn_chunk_k=16)
+    svc = RetrievalService(cfg, par, init_params(cfg, seed=0, device=cuda),
+                           RetrievalConfig(radius=0.5, tables=8,
+                                           num_buckets=256, hll_m=32, cap=64,
+                                           beta_over_alpha=1.0,
+                                           delta_capacity=128),
+                           device=cuda)
+
+    def batch(seed, step, b=64):
+        out = lm_batch(seed, step, batch=b, seq=12, vocab=cfg.vocab,
+                       device=cuda)
+        out.pop("labels")
+        return out
+
+    corpus = [batch(3, i) for i in range(4)]
+    svc.index_corpus(corpus)
+    new = svc.add_documents([batch(5, 0), batch(5, 1)])
+    gone = list(range(0, 256, 7)) + new[::5].tolist()
+    svc.remove_documents(gone)
+    rows = {}
+    for ids, b in [(range(i * 64, i * 64 + 64), c)
+                   for i, c in enumerate(corpus)] + [
+                       (new[:64], batch(5, 0)), (new[64:], batch(5, 1))]:
+        rows.update(zip(np.asarray(ids).tolist(),
+                        svc.embed(b).double().cpu().numpy()))
+    cpu_params = copy.deepcopy(svc.params).to("cpu")
+    np.testing.assert_allclose(
+        forward_embed(cpu_params, corpus[0], cfg, par).numpy(),
+        svc.embed(corpus[0]).cpu().numpy(), rtol=1e-4, atol=1e-4)
+    qb = batch(4, 0)
+    qb["tokens"][:8] = corpus[0]["tokens"][:8]
+    res, emb = svc.query(qb)
+    plain = DynamicHybridIndex(svc.index.family, params=svc.index.params,
+                               impl="ref", num_buckets=256, m=32, cap=64,
+                               delta_capacity=128,
+                               device=cuda).load_state_dict(
+                                   svc.index.state_dict())
+    q64 = emb.double().cpu().numpy()
+
+    def near(i, ids, what):
+        for j in ids:
+            d = 1.0 - q64[i] @ rows[j] / (np.linalg.norm(q64[i])
+                                          * np.linalg.norm(rows[j]))
+            assert abs(d - 0.5) <= 1e-5, (what, i, j, d)
+
+    sets = {}
+    for force in (None, "lsh", "linear"):
+        a = svc.index.query(emb, 0.5, force=force).neighbor_sets()
+        b = plain.query(emb, 0.5, force=force).neighbor_sets()
+        for i in a:
+            near(i, a[i] ^ b[i], force)
+            assert not a[i] & set(gone), (force, i)
+        sets[force] = a
+    assert res.neighbor_sets() == sets[None]
+    for i in sets["lsh"]:
+        near(i, sets["lsh"][i] - sets["linear"][i], "lsh <= linear")
+    assert 0 < len(res.lin_idx) < 64, len(res.lin_idx)
+    assert sum(len(s) for s in sets[None].values()) > 0

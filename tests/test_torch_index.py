@@ -251,14 +251,20 @@ def test_default_device_is_cuda_and_never_cpu():
 
 
 def _port_files():
+    """Every module of the package (its launchers included), the chip
+    smoke script and the port's example."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
     return files
 
 
 def test_port_imports_no_jax_and_no_repro():
+    files = _port_files()
+    for part in ("launch/serve.py", "serve/retrieval.py", "serve/engine.py",
+                 "models/transformer.py", "configs/base.py"):
+        assert ROOT / "src" / "repro_torch" / part in files, part
     bad = []
-    for path in _port_files():
+    for path in files:
         assert path.exists(), path
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

@@ -66,7 +66,12 @@ DOT_CASES = [(1, 1, 1, None), (8, 100, 37, None), (25, 129, 3, None),
              (129, 515, 254, None), (1, 300, 254, None), (100, 1, 32, None),
              (7, 300, 1, None), (129, 64, 3, None), (32, 4097, 254, None),
              (65, 16897, 384, None), (33, 257, 37, "rows"),
-             (32, 300, 32, "flat"), (25, 129, 54, "flat")]
+             (32, 300, 32, "flat"), (25, 129, 54, "flat"),
+             # 4 row warps a block on an H100, split 2 ways along d
+             (32, 12000, 254, None),
+             # the retrieval service's width (Yi-6B's d_model), and odd:
+             # 2 row warps split 4 ways, the queries staged in d-panels
+             (64, 8192, 4096, None), (64, 8192, 4095, None)]
 THRESH_EPS = 1e-5      # reported sets may differ within this of t (relative)
 
 
@@ -182,7 +187,12 @@ LSH_DIMS = [("l2", 1), ("l2", 2), ("l2", 32), ("l1", 37), ("l1", 54),
             ("hamming", 2), ("hamming", 9), ("hamming", 129)]
 LSH_CASES = ([(m, d, *shape) for shape in LSH_SHAPES for m, d in LSH_DIMS]
              + [("l2", 2, 80000, 32, 60001, "one_split"),
-                ("hamming", 2, 80000, 32, 60001, "one_split")])
+                ("hamming", 2, 80000, 32, 60001, "one_split")]
+             # the retrieval service's shape: d = Yi-6B's d_model (and odd),
+             # 64 queries of cap 128 x L 20 candidates over 8,192 rows
+             + [("cosine", 4096, 8192, 64, 2560, "random"),
+                ("cosine", 4095, 8192, 64, 2560, "boundary"),
+                ("l2", 4096, 8192, 64, 2560, "random")])
 
 
 def lsh_ids(kind, n, q, c, width, rng):

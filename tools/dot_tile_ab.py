@@ -2,6 +2,7 @@
 """Time builds of ``fused_scan.cu`` against each other in one process.
 
     python3 tools/dot_tile_ab.py --parent OLD/fused_scan.cu   # on a CUDA machine
+    python3 tools/dot_tile_ab.py --other deep=build/deep/fused_scan.cu
 
 Builds this tree's ``src/repro_torch/kernels/csrc/fused_scan.cu``, the
 ``--parent`` source (for example from ``git archive`` of the parent
@@ -15,7 +16,11 @@ prints the median and range of each kernel at the main path's shapes
 (K1, K4, K6, K7, random data of the Webspam and CoverType widths): ms
 per launch from CUDA events, the L2 flushed before each launch, as
 ``chip_smoke.py`` times them.  The variants compute wrong distances and
-only their times are read.
+only their times are read.  ``--other NAME=PATH`` (repeatable) adds any
+other source, for example a plan tried beside this one.  At the retrieval service's width (Q = 32,
+N = 8,192, d = 4,096 and 4,095, unit rows) each build that is not a
+variant is first held against the plain version, and the plain version
+and ``addmm`` are timed in the same rounds; each build's plan is printed.
 """
 from __future__ import annotations
 
@@ -129,6 +134,8 @@ def report(res, names, cases) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, help="another fused_scan.cu")
+    ap.add_argument("--other", action="append", default=[],
+                    metavar="NAME=PATH", help="another fused_scan.cu")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--rounds", type=int, default=10)
     args = ap.parse_args()
@@ -144,6 +151,9 @@ def main() -> int:
     sources = {"change": text}
     if args.parent:
         sources["parent"] = args.parent.read_text()
+    for spec in args.other:
+        name, path = spec.split("=", 1)
+        sources[name] = Path(path).read_text()
     if args.variants:
         for name, (old, new) in VARIANTS.items():
             assert text.count(old) == 1, name
@@ -161,6 +171,10 @@ def main() -> int:
     qp, xp = unit(64, 254), unit(4096, 254)
     e32 = qw.new_empty(32)
     ex = xw.new_empty(xw.shape[0])
+    qr, xr = unit(32, 4096), unit(8192, 4096)
+    qo, xo = unit(32, 4095), unit(8192, 4095)
+    er = qr.new_empty(8192)
+    lib_in = torch.ones((1, 1), device=dev)
     qc = torch.randn(32, 54, device=dev, generator=g)
     qc100 = torch.randn(100, 54, device=dev, generator=g)
     xc = torch.randn(580912, 54, device=dev, generator=g)
@@ -173,6 +187,32 @@ def main() -> int:
             qp, xp, None, None, mode="cosine"),
         "K4 Q=32 N=580912 d=54": lambda: fused_scan.linear_scan_l1(40.0, qc, xc),
         "K7 Q=100 N=580912 d=54": lambda: distances.pairwise_l1(qc100, xc),
+        "K1 Q=32 N=8192 d=4096 cosine": lambda: fused_scan.linear_scan_dot(
+            0.9, qr, xr, e32, er, mode="cosine"),
+        "K1 Q=32 N=8192 d=4095 cosine": lambda: fused_scan.linear_scan_dot(
+            0.9, qo, xo, e32, er, mode="cosine"),
+    }
+    wide = {"K1 Q=32 N=8192 d=4096 cosine": (qr, xr),
+            "K1 Q=32 N=8192 d=4095 cosine": (qo, xo)}
+    for name, lib in libs.items():
+        _build._libs["fused_scan"] = lib
+        for c, (q, x) in wide.items():
+            print(f"{c} {name}: plan {fused_scan.dot_tile_plan(q, x)}",
+                  flush=True)
+            if name in VARIANTS:
+                continue
+            dist, mask, ids = cases[c]()
+            want = ref.fused_linear_scan(q, x, 0.9, "cosine")
+            assert torch.equal(ids, want[0].contiguous()), (name, c)
+            err = float((dist - want[1]).abs().max())
+            assert err < 1e-4, (name, c, err)
+            print(f"{c} {name}: ids equal the plain version's, distances "
+                  f"within {err:.3g}", flush=True)
+    others = {
+        "plain Q=32 N=8192 d=4096": lambda: ref.fused_linear_scan(
+            qr, xr, 0.9, "cosine"),
+        "addmm Q=32 N=8192 d=4096": lambda: torch.addmm(
+            lib_in, qr, xr.T, alpha=-1),
     }
     res = {(n, c): [] for n in libs for c in cases}
     names = list(libs)
@@ -181,6 +221,10 @@ def main() -> int:
             _build._libs["fused_scan"] = libs[name]
             for c, fn in cases.items():
                 res[(name, c)].append(cuda_ms(fn, flush))
+    for c, fn in others.items():
+        t = [cuda_ms(fn, flush) for _ in range(args.rounds)]
+        print(f"{c}: median {statistics.median(t):.4f} ms, range "
+              f"{min(t):.4f}-{max(t):.4f}", flush=True)
     report(res, names, cases)
     return 0
 
