@@ -31,6 +31,12 @@ Phases (each raises on failure, so any failure exits non-zero):
      calibrated model's mixes and query; K6 in l2); then the CoverType
      analogue as a static index on all 580,912 rows (L1: the calibrated
      model's mixes and query, K7);
+  5c. the row-sharded static index (``core.distributed``) on the Webspam
+     analogue at full size, 4 shards of 87,475 rows on the card, at each
+     radius (cap raised where a shard's report would not fit the L * cap
+     buffer), under both policies: collisions and estimates against a
+     plain single-host index, every forced route held to it, launches
+     per path (``check_sharded_launches``: K3's terms mode once a shard);
   6. the streaming ``DynamicHybridIndex`` at full scale on the CoverType
      analogue (N = 580,912, d = 54, L1): built on 524,288 rows, 56,624
      rows inserted in batches of 4,096 through an 8,192-row delta (six
@@ -46,6 +52,16 @@ Phases (each raises on failure, so any failure exits non-zero):
      held against the live index (digests, counts, sets and kernel
      launches on every path), timed; then fully compacted and checked
      again;
+  6b. the row-sharded streaming index (``ShardedDynamicHybridIndex``) on
+     the CoverType analogue at full size, 4 shards on the card: built on
+     524,288 rows, the rest inserted in batches of 4,096 with deletes
+     between them and merges staged by a ``CompactionDriver``, ticked to
+     the end; every path under both routings held to a plain single-host
+     index on the survivors; timed beside the single-host index; K3's
+     terms mode timed beside its estimate mode; checkpointed and restored
+     onto 4 and 2 shards; a skewed stream of 65,536 rows near the
+     queries pinned to shard 0 under ``keep_local``, then
+     ``load_balance``;
   7. the MNIST analogue (59,900 64-bit codes, Hamming): the static index
      at its mixing radius, K8 on the 100 queries x the codes, and a
      churned streaming index, saved and restored once the same way.  On
@@ -71,10 +87,15 @@ Phases (each raises on failure, so any failure exits non-zero):
      rows through ``submit`` / ``drain_batches`` and again from the
      cache, 1,024 documents added and 256 removed, the service
      checkpointed and restored into a fresh one (equal sets and launches),
-     then ``generate`` (4 x 16 tokens) held against a prefill's argmax; a
+     then the same service on a 4-shard mesh of the card (the same
+     parameters, documents and churn; every path and routing held to the
+     single-host service's index), then ``generate`` (4 x 16 tokens) held
+     against a prefill's argmax; a
      ``[retrieval]`` JSON line with the embed, index, prefill and decode
      times, tokens/s and memory;
-  9. a ``[durability]`` JSON line with the checkpoint and restore times
+  9. a ``[sharded]`` JSON line (batch ms global / per_shard / single-host,
+     routes, churn, merges, checkpoint, skew and padded rows, peak
+     memory) and a ``[durability]`` JSON line with the checkpoint and restore times
      and bytes of both churned indexes and the tenants, beside the card's
      name and power limit; a ``{"kernels": [...]}`` JSON line with each
      kernel's launches, times,
@@ -163,6 +184,7 @@ class Smoke:
                          "linear_scan_hamming": fused_scan.linear_scan_hamming,
                          "lsh_scan": fused_scan.lsh_scan,
                          "route_estimate": hll_merge.route_estimate,
+                         "route_terms": hll_merge.route_terms,
                          "hll_merge_estimate": hll_merge.hll_merge_estimate,
                          "pairwise_dot": distances.pairwise_dot,
                          "pairwise_l1": distances.pairwise_l1,
@@ -471,10 +493,12 @@ def phase_edge_cases(s: Smoke):
         f"{lsh_flips} masks differ, all within {THRESH_EPS:g} of the "
         f"threshold")
     log("[edge] K3 route estimate (ROUTE_CASES: S = 1-65 segments, two "
-        "launches past 64, V = L and L T, m = 16-1,024, Q = 1-100, no "
+        "launches past 64, V = L and L T, m = 16-1,024, Q = 1-257, no "
         "tombstones, a segment of dead rows): collisions exact, estimates "
         f"within {HLL_RTOL:g} of the plain version and bit for bit the "
-        "per-segment composition of its one-segment case")
+        "per-segment composition of its one-segment case; its terms mode "
+        "(route_terms) on the same cases: collisions, dead counts and "
+        "merged registers bit for bit the plain version's")
     log("[edge] K5 grouped Hamming scan (GROUPED_CASES: S = 1-71 segments, "
         "Q = 1-100, W = 1, 2, 3, 4, 8, 9, 16, odd sums of rows, a segment of "
         "dead rows, static and streaming epilogues): ids, distances and "
@@ -568,7 +592,10 @@ def route_edge_cases(s, rng):
     collisions equal to the plain version's, estimates within HLL_RTOL of
     it and bit for bit the per-segment composition of the kernel's
     one-segment case (the engine's estimate before the kernel took all
-    segments)."""
+    segments); K3's terms mode (``ops.route_terms``) on the same cases
+    (m = 16 to 1,024, 1 to 65 segments, with and without tombstones,
+    multi-probe, Q = 1 to 257): one launch per 64 segments, every output
+    bit for bit the plain version's."""
     torch = s.torch
     from repro_torch.kernels import hll_merge, ops
     sys.path.insert(0, str(ROOT / "tests"))
@@ -591,6 +618,11 @@ def route_edge_cases(s, rng):
         wc, we = route_estimate_per_segment(
             qb, tables, tidx, lambda r: ops.hll_merge_estimate(r, impl="cuda"))
         assert torch.equal(coll, wc) and torch.equal(cand, we), ("K3", case)
+        before = hll_merge.route_terms.launches
+        got = ops.route_terms(qb, tables, tidx, impl="cuda")
+        assert hll_merge.route_terms.launches == before + -(-len(segs) // 64), case
+        for a, b in zip(got, ops.route_terms(qb, tables, tidx, impl="ref")):
+            assert a.dtype == b.dtype and torch.equal(a, b), ("K3 terms", case)
 
 
 def grouped_edge_cases(s, rng):
@@ -815,15 +847,17 @@ def check_results(s: Smoke, res, ref_res, x_np, q_np, metric, r, tag):
 
 def time_hybrid(s: Smoke, idx, q_np, r, reps=5):
     """Median host-clock ms of a synchronised hybrid query."""
+    return time_query(s, lambda: idx.query(q_np, r), reps)
+
+
+def time_query(s: Smoke, fn, reps=5):
+    """Median host-clock ms of ``fn()`` between two synchronisations."""
     torch = s.torch
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = idx.query(q_np, r)
-        for o in (out.lsh_out, out.lin_out):
-            if o is not None:
-                o[2].sum().item()
+        fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times) * 1e3
@@ -834,7 +868,9 @@ def profile_hybrid(s: Smoke, idx, q_np, r, tag, ms, reps=3):
     the device's busy time per query (the sum of its kernels' own times;
     one stream, so they do not overlap), its share of the untraced
     host-clock time ``ms`` (the profiler slows the host, not the
-    device), and the kernels that took most of it."""
+    device), and the kernels that took most of it; on the host, the
+    device-to-host scalar reads (each a synchronisation) and the ops
+    with the most self time."""
     torch = s.torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -866,6 +902,14 @@ def profile_hybrid(s: Smoke, idx, q_np, r, tag, ms, reps=3):
         f"device time per query: " + "; ".join(
             f"{e.key[:48]} x{e.count // reps} "
             f"{e.self_device_time_total / reps / 1e3:.3f} ms" for e in top))
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    syncs = sum(e.count for e in host if e.key == "aten::_local_scalar_dense")
+    log(f"[{tag} profile] host: {syncs / reps:g} device-to-host scalar reads "
+        f"per query; top self host time per query (traced): " + "; ".join(
+            f"{e.key[:40]} x{e.count / reps:g} "
+            f"{e.self_cpu_time_total / reps / 1e3:.3f} ms"
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]))
 
 
 def profile_estimate(s: Smoke, idx, q_np, tag, reps=3):
@@ -1934,6 +1978,693 @@ def drive_tenants(s: Smoke, x_np, q_np, fam, r, kw, tag, seed=3):
 # ---------------------------------------------------------------------------
 # the retrieval encoder and RetrievalService at Yi-6B's full width and depth
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# The row-sharded indexes (core.distributed, streaming.sharded) on one card
+# ---------------------------------------------------------------------------
+SHARDS = 4
+
+
+def check_sharded_launches(launches, used, metric, what, delta):
+    """A sharded path's launches, summed over the shards: K3's terms mode
+    (``route_terms``) once a shard (one launch covers a shard's levels),
+    K3's estimate mode never; K2 at least once for each shard routed LSH
+    and never without one; the metric's linear scan (K1 or K4) at least
+    once for each shard routed linear and, on a streaming index
+    (``delta``), once more a shard for its delta; no other kernel."""
+    S, n_lsh = len(used), int(sum(used))
+    lin = LINEAR_KERNEL[metric]
+    for k, got in launches.items():
+        if k == "route_terms":
+            ok = got == S
+        elif k == "lsh_scan":
+            ok = got >= n_lsh and (got > 0) == (n_lsh > 0)
+        elif k == lin:
+            need = (S - n_lsh) + (S if delta else 0)
+            ok = got >= need and (got > 0) == (need > 0)
+        else:
+            ok = got == 0
+        assert ok, (f"{what}: kernel {k} launched {got} times with the shards "
+                    f"routed {['lsh' if u else 'linear' for u in used]}")
+
+
+def sharded_paths(s: Smoke, idx, q, r, metric, tag, delta):
+    """Query force None / "lsh" / "linear" through the kernels, the counts
+    set to 0 just before each path and read just after it
+    (``check_sharded_launches``).  Returns results and launches."""
+    res, launches = {}, {}
+    for f, path in PATHS.items():
+        res[f], launches[path] = s.path(lambda: idx.query(q, r, force=f))
+        check_sharded_launches(launches[path], res[f].used_lsh, metric,
+                               f"{tag} {path}", delta)
+    return res, launches
+
+
+class StaticSharded:
+    """``make_query_fn``'s query as an index: ``query(q, r, force)`` ->
+    ``ShardedQueryResult``."""
+
+    def __init__(self, fn, state, params):
+        self.fn, self.state, self.params = fn, state, params
+
+    def query(self, q, r, force=None):
+        from repro_torch.streaming import ShardedQueryResult
+        d = self.fn(self.state, self.params, q, r, force=force)
+        return ShardedQueryResult(
+            ids=d["ids"], dists=d["dists"], mask=d["mask"],
+            collisions=d["collisions"], cand_est=d["cand_est"],
+            used_lsh=d["used_lsh"], n_queries=len(q))
+
+
+def lsh_truncated(s: Smoke, segments, qb, cap):
+    """(Q,) bool: some probed bucket of one of ``segments``' tables holds
+    more than ``cap`` rows, so the LSH route's gather cuts it and which
+    rows it keeps follows the segment's row order."""
+    torch = s.torch
+    from repro_torch.core.engine import TableSegment
+    lidx = torch.arange(qb.shape[1], device=qb.device)[None, :]
+    b = qb.to(torch.int64)
+    out = torch.zeros(qb.shape[0], dtype=torch.bool, device=qb.device)
+    for g in segments:
+        if isinstance(g, TableSegment):
+            st = g.tables.starts
+            out |= ((st[lidx, b + 1] - st[lidx, b]) > cap).any(1)
+    return out.cpu().numpy()
+
+
+def check_sharded_sets(s: Smoke, res, truth, trunc, x, q, metric, r, tag,
+                       dead=frozenset(), lsh_superset=False):
+    """The sharded sets per forced route against a plain single-host
+    index's (``truth``, force -> sets) over the same rows, up to rows
+    within THRESH_EPS of the threshold: linear equal; LSH equal where no
+    probed bucket of either index is cut at ``cap`` (``trunc`` False),
+    elsewhere within the linear truth (and, for the static index, whose
+    shards keep the global row order, a superset of the single-host LSH
+    set: ``lsh_superset``); the hybrid between the sharded LSH and
+    linear sets; no id in ``dead``; no shard's buffer full (a full one
+    could have cut the report).  Returns the near-threshold counts."""
+    np = s.np
+    sets = {f: v.neighbor_sets() for f, v in res.items()}
+    for f, v in res.items():
+        counts = v.mask.sum(-1)
+        full = int(counts.max())
+        if full >= v.mask.shape[-1]:
+            sh_i, qi = divmod(int(counts.argmax()), counts.shape[1])
+            ids = v.ids[sh_i, qi][v.mask[sh_i, qi]].cpu().numpy()
+            raise AssertionError(
+                f"{tag} force={f}: shard {sh_i}'s buffer is full for query "
+                f"{qi} ({full} of {v.mask.shape[-1]}; {len(set(ids.tolist()))}"
+                f" distinct ids, {len(sets[f][qi])} reported over all shards, "
+                f"{len(truth['linear'][qi])} in the linear truth)")
+        assert not set().union(*sets[f].values()) & dead, \
+            f"{tag} force={f}: a deleted id was reported"
+    exact = [i for i in sets["lsh"] if not trunc[i]]
+    near = {"linear": s.compare_sets(sets["linear"], truth["linear"], metric,
+                                     q, x, r, f"{tag} linear"),
+            "lsh exact": s.compare_sets({i: sets["lsh"][i] for i in exact},
+                                        {i: truth["lsh"][i] for i in exact},
+                                        metric, q, x, r, f"{tag} lsh"),
+            "lsh<=linear": s.compare_sets(sets["lsh"], truth["linear"],
+                                          metric, q, x, r,
+                                          f"{tag} lsh<=linear", subset=True),
+            "hybrid<=linear": s.compare_sets(sets[None], sets["linear"],
+                                             metric, q, x, r,
+                                             f"{tag} hybrid<=linear",
+                                             subset=True),
+            "lsh<=hybrid": s.compare_sets(sets["lsh"], sets[None], metric, q,
+                                          x, r, f"{tag} lsh<=hybrid",
+                                          subset=True)}
+    if lsh_superset:
+        near["single lsh<=lsh"] = s.compare_sets(
+            truth["lsh"], sets["lsh"], metric, q, x, r,
+            f"{tag} single lsh<=sharded lsh", subset=True)
+    near["lsh compared exactly"] = len(exact)
+    for v in res.values():
+        assert bool(s.torch.isfinite(v.dists[v.mask]).all()), \
+            f"{tag}: non-finite reported distance"
+    return sets, near
+
+
+def drive_sharded_static(s: Smoke, x, q, radii, make_fam, kw, by_path):
+    """``build_sharded`` and ``make_query_fn`` on the Webspam analogue at
+    full size, S = 4 shards of 87,475 rows on the card, at each radius of
+    the static phase (cap raised where a shard's report would not fit
+    the L * cap buffer):
+    ``collisions`` equal and ``cand_est`` within 1e-6 of a plain
+    single-host ``HybridLSHIndex`` of the same params, both policies and
+    both forced routes held to it (``check_sharded_sets``: no row off the
+    threshold band outside the brute-force linear set), launches per
+    path.  Returns the record."""
+    np, torch = s.np, s.torch
+    from repro_torch.core import HybridLSHIndex
+    from repro_torch.core.distributed import (build_sharded, make_mesh,
+                                              make_query_fn)
+    from repro_torch.core.index import as_rows
+    mesh = make_mesh(SHARDS)
+    metric = "cosine"
+    n = len(x)
+    rec = {}
+    for i, r in enumerate(radii):
+        fam = make_fam(r)
+        tag = f"webspam sharded q{i}"
+        plain = HybridLSHIndex(fam, seed=0, impl="ref", **kw).build(x)
+        truth = {f: plain.query(q, r, force=f).neighbor_sets()
+                 for f in ("lsh", "linear")}
+        per_shard = max(int(np.bincount(
+            np.fromiter(v, np.int64, len(v)) // (n // SHARDS),
+            minlength=SHARDS).max()) for v in truth["linear"].values())
+        # max_out is clamped to the LSH route's L * cap (both routes fill
+        # one buffer): raise cap, in both indexes, until the buffer holds
+        # the largest report of a shard
+        cap = kw["cap"]
+        while fam.L * cap <= per_shard:
+            cap *= 2
+        if cap != kw["cap"]:
+            plain = HybridLSHIndex(fam, seed=0, impl="ref",
+                                   **{**kw, "cap": cap}).build(x)
+            truth = {f: plain.query(q, r, force=f).neighbor_sets()
+                     for f in ("lsh", "linear")}
+        width = min(n // SHARDS, fam.L * cap)
+        log(f"[{tag}] r={r:.6g}: at most {per_shard} reported rows of one "
+            f"shard; cap {cap} (a shard's buffer {width})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = build_sharded(fam, plain.params, x, num_buckets=kw["num_buckets"],
+                              m=kw["m"], mesh=mesh)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        est = plain.estimate(q)
+        qb = plain.bucket_ids(as_rows(q, metric, s.dev))
+        trunc = lsh_truncated(s, [plain._segment()], qb, cap)
+        out = {"build_s": t_build}
+        for policy in ("global", "per_shard"):
+            fn = make_query_fn(fam, num_buckets=kw["num_buckets"], mesh=mesh,
+                               n_total=n, cost_model=kw["cost_model"],
+                               metric=metric, cap=cap, max_out=width,
+                               policy=policy)
+            idx = StaticSharded(fn, state, plain.params)
+            res, launches = sharded_paths(s, idx, q, r, metric,
+                                          f"{tag} {policy}", delta=False)
+            by_path[f"{tag} {policy}"] = launches
+            h = res[None]
+            assert torch.equal(h.collisions, est.collisions), f"{tag}: collisions"
+            torch.testing.assert_close(h.cand_est, est.cand_est, rtol=1e-6,
+                                       atol=0)
+            _, near = check_sharded_sets(s, res, truth, trunc, x, q, metric,
+                                         r, f"{tag} {policy}",
+                                         lsh_superset=True)
+            ms = time_query(s, lambda: idx.query(q, r))
+            out[policy] = dict(used_lsh=h.used_lsh.tolist(), ms=ms,
+                               near=near, launches=launches["hybrid"])
+            log(f"[{tag} {policy}] r={r:.6g} k={fam.k}: shards routed "
+                f"{['lsh' if u else 'linear' for u in h.used_lsh]}; batch "
+                f"{ms:.2f} ms (host clock, synchronised); collisions equal "
+                f"the single-host estimate's, cand_est within 1e-6; "
+                f"near-threshold exceptions {near}; launches {launches}")
+        single = HybridLSHIndex(fam, params=plain.params,
+                                **{**kw, "cap": cap}).build(x)
+        out["single_host_ms"] = time_hybrid(s, single, q, r)
+        log(f"[{tag}] build_sharded {t_build:.3f} s; the single-host index "
+            f"on the same rows: {out['single_host_ms']:.2f} ms a batch")
+        out["cap"] = cap
+        rec[f"q{i}"] = out
+        del state, plain, single
+        torch.cuda.empty_cache()
+    return rec
+
+
+def route_terms_times(s: Smoke, idx, q_np, tag):
+    """K3's terms mode over shard 0's levels of a sharded index, at its
+    query batch: bit for bit its plain version, timed (events and CUDA
+    graph) beside the plain version and beside K3's estimate mode on the
+    same tables.  The bound reads each distinct (table, bucket) a level's
+    queries probe once (its m register bytes, two starts, a dead count)
+    and writes the (K, Q) counts and (K, Q, m) registers."""
+    torch = s.torch
+    from repro_torch.core.engine import TableSegment
+    from repro_torch.kernels import hll_merge, ref
+    q = idx._rows(q_np)
+    qb = idx._bucket_fn(idx.params, q).to(torch.int32).contiguous()
+    tables = [g.table_terms() for g in idx._segments(0)
+              if isinstance(g, TableSegment)]
+    nq, v = qb.shape
+    K, m = len(tables), tables[0].registers.shape[2]
+    kern = lambda: hll_merge.route_terms(qb, tables)  # noqa: E731
+    plain = lambda: ref.route_terms(qb, tables)  # noqa: E731
+    est = lambda: hll_merge.route_estimate(qb, tables)  # noqa: E731
+    for a, b in zip(kern(), plain()):
+        assert a.dtype == b.dtype and torch.equal(a, b), f"{tag}: route_terms != plain"
+    B = tables[0].registers.shape[1]
+    cols = torch.arange(v, device=qb.device)[None, :] * (B + 1)
+    distinct = int(torch.unique(qb.to(torch.int64) + cols).numel())
+    nbytes = K * distinct * (m + 12) + 4 * nq * v + K * nq * (m + 8)
+    bound, by = s.bound_ms(nbytes, K * nq * v * m)
+    t = dict(ms=s.cuda_ms(kern), device_ms=s.graph_ms(kern),
+             plain_ms=s.cuda_ms(plain), library_ms=None, bound_ms=bound,
+             bound_by=by, max_abs_err=0.0,
+             route_estimate_ms=s.cuda_ms(est),
+             route_estimate_device_ms=s.graph_ms(est),
+             shape=f"Q={nq} V={v} m={m} K={K} levels of shard 0 "
+                   f"({distinct} distinct probed buckets a level)")
+    log(f"[{tag}] route_terms over shard 0's {K} levels: {t['ms']:.4f} ms, "
+        f"device {t['device_ms']:.4f}; plain {t['plain_ms']:.4f}; "
+        f"route_estimate on the same tables {t['route_estimate_ms']:.4f}, "
+        f"device {t['route_estimate_device_ms']:.4f}; bound "
+        f"{t['bound_ms']:.3g} ({t['bound_by']}); {t['shape']}")
+    return t
+
+
+def sharded_truth(s: Smoke, sh, x_all, live_ids, q, r):
+    """A plain (``impl="ref"``) single-host streaming index on the card,
+    built on the surviving rows with the sharded index's params: its
+    forced sets (external ids) and, per query, whether it cuts a probed
+    bucket at cap."""
+    from repro_torch.streaming import CompactionPolicy, DynamicHybridIndex
+    plain = DynamicHybridIndex(
+        sh.family, params=sh.params, impl="ref", num_buckets=sh.num_buckets,
+        m=sh.m, cap=sh.cap, cost_model=sh.cost_model,
+        delta_capacity=sh.delta_capacity * sh.shards,
+        policy=CompactionPolicy(delta_fill=2.0, tombstone_ratio=2.0),
+        device=s.dev).build(x_all[live_ids], ids=live_ids)
+    truth = {f: plain.query(q, r, force=f).neighbor_sets()
+             for f in ("lsh", "linear")}
+    qt = plain._rows(q)
+    trunc = lsh_truncated(s, plain._segments(), plain._bucket_fn(
+        plain.params, qt), sh.cap)
+    del plain
+    return truth, trunc
+
+
+def sharded_trunc(s: Smoke, sh, q):
+    """(Q,) bool: the sharded index cuts a probed bucket of some level of
+    some shard at cap."""
+    qt = sh._rows(q)
+    qb = sh._bucket_fn(sh.params, qt)
+    out = s.np.zeros(len(q), bool)
+    for sh_i in range(sh.shards):
+        out |= lsh_truncated(s, sh._segments(sh_i), qb, sh.cap)
+    return out
+
+
+def shard_cost_ratios(sh, q):
+    """Per shard, the batch's summed Eq. (1) LSH cost over its Eq. (2)
+    linear cost, from the shard's own terms: the per_shard vote (LSH
+    below 1)."""
+    from repro_torch.core.engine import finalize_route
+    qb = sh._bucket_fn(sh.params, sh._rows(q))
+    loads, n_pads = sh.shard_loads(), sum(l.n_pad for l in sh._levels)
+    out = []
+    for i in range(sh.shards):
+        rt = finalize_route(sh._engine.segment_terms(sh._segments(i), qb),
+                            sh.cost_model, n_live=int(loads[i]),
+                            n_scan=int(sh._delta_count_s[i]) + n_pads)
+        out.append(float(rt.lsh_cost.sum()) / (rt.linear_cost * len(q)))
+    return out
+
+
+def padded_rows(sh):
+    """Rows each shard holds on the card (every level's common n_pad and
+    the delta's slots) against its live rows."""
+    st = sh.index_stats()
+    return dict(padded=sum(st["level_n_pads"]) + sh.delta_capacity,
+                live=[a + b for a, b in zip(st["live_per_shard"],
+                                            st["delta_per_shard"])],
+                skew=st["shard_skew"], rows_moved=st["rows_moved"],
+                level_n_pads=st["level_n_pads"])
+
+
+def sharded_check(s: Smoke, sh, x_all, live_ids, q, r, tag, by_path,
+                  dead, routings=("global", "per_shard")):
+    """Every path under each routing, held to a plain single-host index on
+    the survivors; returns per routing the hybrid's shard routes, launches
+    and near-threshold counts."""
+    truth, trunc = sharded_truth(s, sh, x_all, live_ids, q, r)
+    trunc = trunc | sharded_trunc(s, sh, q)
+    out = {}
+    for routing in routings:
+        sh.routing = routing
+        res, launches = sharded_paths(s, sh, q, r, "l1", f"{tag} {routing}",
+                                      delta=True)
+        by_path[f"{tag} {routing}"] = launches
+        _, near = check_sharded_sets(s, res, truth, trunc, x_all, q, "l1", r,
+                                     f"{tag} {routing}", dead=dead)
+        out[routing] = dict(used_lsh=res[None].used_lsh.tolist(), near=near,
+                            launches=launches)
+        log(f"[{tag} {routing}] shards routed "
+            f"{['lsh' if u else 'linear' for u in res[None].used_lsh]}; "
+            f"every path held to a plain single-host index on "
+            f"{len(live_ids)} rows (near-threshold / exact counts {near}); "
+            f"launches {launches}")
+    sh.routing = "per_shard"
+    return out
+
+
+def fitting_radius(s: Smoke, x, q, radii, metric, limit):
+    """The largest of ``radii`` at which no query has more than ``limit``
+    rows of ``x`` within the radius (plain distances on the card), so
+    that a shard's (Q, max_out) buffer holds every report; else the
+    smallest.  Returns (index, radius, the largest report)."""
+    torch = s.torch
+    from repro_torch.kernels import ops
+    d = ops.pairwise_dist(torch.from_numpy(q).to(s.dev),
+                          torch.from_numpy(x).to(s.dev), metric, impl="ref")
+    best = None
+    for i, r in enumerate(radii):
+        t = r * r if metric == "l2" else r
+        most = int((d <= t).sum(1).max())
+        if most <= limit or best is None:
+            best = (i, r, most)
+    del d
+    return best
+
+
+def drive_sharded_streaming(s: Smoke, x, q, make_fam, radii, by_path,
+                            n_build=524288,
+                            batch=4096, seed=11, skew_rows=65536,
+                            delta_rows=8192, max_out=16384):
+    """The row-sharded streaming index on the CoverType analogue at full
+    size, S = 4 shards on the card (one 4-shard deployment mapped onto
+    one H100): built on ``n_build`` rows, the rest inserted in batches of
+    ``batch`` with 64 deletes after each and a hybrid query between
+    batches, merges staged by a ``CompactionDriver`` worker and applied
+    by its ``drain`` between batches, then ticked to the end with a query
+    between ticks (``validate_locations`` after each merge); checked under
+    both routings on every path (``sharded_check``), timed beside the
+    single-host index on the same rows, K3's terms mode timed; then
+    checkpointed and restored onto 4 and, elastically, 2 shards; then a
+    skewed stream of ``skew_rows`` rows near the queries (each query's
+    nearest rows, in L1) pinned to shard 0, under
+    ``keep_local`` and again under ``load_balance``.  Returns the
+    ``[sharded]`` record and the terms mode's times."""
+    import shutil
+    import tempfile
+    np, torch = s.np, s.torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import PAPER_PRESETS
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.streaming import (CompactionDriver, CompactionPolicy,
+                                       DynamicHybridIndex,
+                                       ShardedDynamicHybridIndex,
+                                       make_placement_policy)
+    tag = "covertype sharded"
+    t_phase = time.perf_counter()
+    i_r, r, most = fitting_radius(s, x, q, radii, "l1", max_out // 8)
+    fam = make_fam(r)
+    log(f"[{tag}] radius q{i_r} r={r:.6g}: the largest of {radii} at which "
+        f"no query has more than {max_out // 8} rows of the corpus within it "
+        f"({most}), so that a shard's buffer of max_out = {max_out} holds "
+        f"every report through the churn and the skewed streams")
+    mesh = make_mesh(SHARDS)
+    kw = dict(num_buckets=65536, m=64, cap=256,
+              delta_capacity=delta_rows // SHARDS,
+              cost_model=PAPER_PRESETS["covertype"],
+              policy=CompactionPolicy(step_rows=delta_rows))
+    rec = {"shards": SHARDS, "devices": [str(d) for d in mesh.devices],
+           "radius": r, "radius_index": i_r}
+    torch.cuda.reset_peak_memory_stats()
+    sh = ShardedDynamicHybridIndex(fam, mesh=mesh, seed=0, max_out=max_out,
+                                   routing="per_shard", **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh.build(x[:n_build])
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    n = len(x)
+    rng = np.random.default_rng(seed)
+    dead = set()
+    drv = CompactionDriver(sh, budget_rows=sh.policy.step_rows).start()
+    merges = 0
+    t0 = time.perf_counter()
+    for lo in range(n_build, n, batch):
+        sh.insert(x[lo:lo + batch])
+        drv.notify()
+        gone = [int(e) for e in rng.choice(min(lo + batch, n), 64,
+                                           replace=False)
+                if int(e) not in dead]
+        assert sh.delete(gone) == len(gone)
+        dead.update(gone)
+        sh.query(q, r)                       # the control thread serves
+        if drv.drain():
+            merges += 1
+            sh.validate_locations()
+    rec["churn_s"] = time.perf_counter() - t0
+    rec["churn_docs_per_s"] = (n - n_build) / rec["churn_s"]
+    ticks, tick_s = 0, []
+    t_end = time.perf_counter() + 300
+    while sh.has_compaction_work:
+        assert time.perf_counter() < t_end, f"{tag}: merges never drained"
+        sh.query(q, r)
+        t0 = time.perf_counter()
+        applied = drv.drain()
+        tick_s.append(time.perf_counter() - t0)
+        ticks += 1
+        if applied:
+            merges += 1
+            sh.validate_locations()
+        else:
+            time.sleep(0.002)
+    drv.stop(flush=True)
+    st, ds = sh.index_stats(), drv.stats()
+    assert ds["worker_errors"] == 0 and ds["applied"] >= 1, ds
+    work = st["work_seconds"]
+    rec["merges"] = dict(applied=ds["applied"], worker_gathers=ds["stage_calls"],
+                         ticks_after_churn=ticks, drain_ms_median=(
+                             statistics.median(tick_s) * 1e3 if tick_s else None),
+                         stage_s=work["stage"], apply_s=work["apply"],
+                         apply_s_per_merge=work["apply"] / max(ds["applied"], 1),
+                         stage_s_per_gather=work["stage"] / max(ds["stage_calls"], 1),
+                         merges_per_level=st["merges_per_level"],
+                         levels=st["levels"], level_n_pads=st["level_n_pads"])
+    log(f"[{tag}] {SHARDS} shards on {rec['devices']}: built on {n_build} rows "
+        f"in {rec['build_s']:.2f} s; inserted {n - n_build} rows in batches of "
+        f"{batch} with {len(dead)} deletes in {rec['churn_s']:.2f} s "
+        f"({rec['churn_docs_per_s']:.0f} docs/s, a hybrid query after each "
+        f"batch); merges {rec['merges']}; validate_locations after each of "
+        f"{merges} merges applied")
+    live_ids = np.setdiff1d(np.arange(n), np.fromiter(dead, np.int64))
+    assert sh.n == len(live_ids)
+    rec["churned"] = sharded_check(s, sh, x, live_ids, q, r, f"{tag} churned",
+                                   by_path, dead)
+    # times: global against per_shard, beside the single-host index
+    single = DynamicHybridIndex(fam, params=sh.params, device=s.dev,
+                                **{**kw, "delta_capacity": delta_rows}).build(
+                                    x[live_ids], ids=live_ids)
+    ms = {}
+    for routing in ("global", "per_shard"):
+        sh.routing = routing
+        ms[routing] = time_query(s, lambda: sh.query(q, r))
+    ms["single_host"] = time_hybrid(s, single, q, r)
+    del single
+    sh.routing = "per_shard"
+    rec["batch_ms"] = ms
+    log(f"[{tag} churned] a 100-query hybrid batch (host clock, "
+        f"synchronised, median of 5): global {ms['global']:.2f} ms, per_shard "
+        f"{ms['per_shard']:.2f} ms; the single-host index on the same rows "
+        f"{ms['single_host']:.2f} ms")
+    profile_hybrid(s, sh, q, r, f"{tag} churned per_shard", ms["per_shard"])
+    terms = route_terms_times(s, sh, q, f"{tag} churned")
+    rec["route_terms"] = {k: v for k, v in terms.items() if k != "shape"}
+
+    # -- durability: restore onto 4 and, elastically, 2 shards ----------
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        mgr = CheckpointManager(str(root))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save_index(1, sh)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["checkpoint_bytes"] = sum(f.stat().st_size for f in root.rglob("*")
+                                      if f.is_file())
+        live_res, live_l = sharded_paths(s, sh, q, r, "l1", f"{tag} live",
+                                         delta=True)
+        for shards in (SHARDS, 2):
+            back = ShardedDynamicHybridIndex(fam, mesh=make_mesh(shards),
+                                             max_out=max_out,
+                                             routing="per_shard", **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            assert mgr.restore_index(back) == 1
+            torch.cuda.synchronize()
+            rec[f"restore_s_{shards}"] = time.perf_counter() - t0
+            assert back.validate_locations() == sh.n
+            res, launches = sharded_paths(s, back, q, r, "l1",
+                                          f"{tag} restored S={shards}",
+                                          delta=True)
+            by_path[f"{tag} restored S={shards}"] = launches
+            if shards == SHARDS:
+                for f, path in PATHS.items():
+                    assert (res[f].neighbor_sets()
+                            == live_res[f].neighbor_sets()), (shards, f)
+                    assert launches[path] == live_l[path], (shards, path)
+                what = "every path's sets and launches equal the live index's"
+            else:
+                # the re-dealt levels order each bucket's rows otherwise,
+                # so LSH sets are compared where no bucket is cut at cap
+                trunc = sharded_trunc(s, sh, q) | sharded_trunc(s, back, q)
+                a = {f: v.neighbor_sets() for f, v in res.items()}
+                b = {f: v.neighbor_sets() for f, v in live_res.items()}
+                assert a["linear"] == b["linear"], (shards, "linear")
+                exact = [i for i in a["lsh"] if not trunc[i]]
+                assert all(a["lsh"][i] == b["lsh"][i] for i in exact), \
+                    (shards, "lsh")
+                assert all(a["lsh"][i] <= a["linear"][i] for i in a["lsh"])
+                what = (f"elastic: linear sets equal the live index's, LSH "
+                        f"sets on the {len(exact)} queries no bucket cut")
+            log(f"[{tag}] restored onto {shards} shards in "
+                f"{rec[f'restore_s_{shards}']:.2f} s: {what}; launches "
+                f"{launches}")
+            del back
+            torch.cuda.empty_cache()
+        log(f"[{tag}] checkpoint: {rec['checkpoint_bytes'] / 1e6:.1f} MB "
+            f"saved in {rec['save_s']:.2f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- a skewed stream near the queries, pinned to shard 0 -------------
+    per_query = -(-skew_rows // len(q))
+    near = torch.topk(ops.pairwise_dist(torch.from_numpy(q).to(s.dev),
+                                        torch.from_numpy(x).to(s.dev), "l1",
+                                        impl="ref"), per_query, dim=1,
+                      largest=False).indices.reshape(-1)[:skew_rows]
+    near = near.cpu().numpy()
+    x_all = np.concatenate([x, x[near], x[near]])
+    rec["skew"] = {}
+    for k, placement in enumerate(("keep_local", "load_balance")):
+        sh.placement = make_placement_policy(placement)
+        ids0 = n + k * len(near)
+        drv = CompactionDriver(sh, budget_rows=sh.policy.step_rows).start()
+        t0 = time.perf_counter()
+        for lo in range(0, len(near), batch):
+            sh.insert(x[near[lo:lo + batch]],
+                      ids=np.arange(ids0 + lo, ids0 + lo + batch), shard=0)
+            drv.notify()
+            drv.drain()
+        drv.stop(flush=True)
+        sh.validate_locations()
+        t_skew = time.perf_counter() - t0
+        live_ids = np.concatenate([live_ids, np.arange(ids0, ids0 + len(near))])
+        rows = padded_rows(sh)
+        chk = sharded_check(s, sh, x_all, live_ids, q, r,
+                            f"{tag} skewed {placement}", by_path, dead,
+                            routings=("per_shard",))
+        rec["skew"][placement] = dict(rows, seconds=t_skew,
+                                      used_lsh=chk["per_shard"]["used_lsh"],
+                                      cost_ratio=shard_cost_ratios(sh, q),
+                                      ms=time_query(s, lambda: sh.query(q, r)))
+        log(f"[{tag} skewed {placement}] +{len(near)} rows near the queries "
+            f"pinned to shard 0 in {t_skew:.2f} s: shard_skew "
+            f"{rows['skew']:.3f}, rows_moved {rows['rows_moved']}, live rows a "
+            f"shard {rows['live']}, rows a shard holds on the card (levels' "
+            f"n_pad {rows['level_n_pads']} + the delta) {rows['padded']}; "
+            f"per_shard routes {chk['per_shard']['used_lsh']} (each shard's "
+            f"LSH / linear cost {rec['skew'][placement]['cost_ratio']}); "
+            f"batch {rec['skew'][placement]['ms']:.2f} ms")
+    splits = [name for name, v in list(rec["churned"].items())
+              + [(f"skewed {p}", v) for p, v in rec["skew"].items()]
+              if name != "global" and 0 < sum(v["used_lsh"]) < SHARDS]
+    rec["per_shard_splits"] = splits
+    if splits:
+        log(f"[{tag}] per_shard split the shards between routes in: {splits}")
+    else:
+        worst = max(v["cost_ratio"][0] for v in rec["skew"].values())
+        log(f"[{tag}] per_shard never split the shards between routes at "
+            f"q{i_r} r={r:.6g}: every shard's summed Eq. (1) cost stayed below "
+            f"its Eq. (2) cost in every batch checked; dense shard 0 came "
+            f"closest at {worst:.3g} of it under the skew (the paper's "
+            f"CoverType preset sends all 100 queries to LSH at every radius "
+            f"on the single-host index too)")
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] peak device memory {rec['peak_bytes'] / 1e9:.2f} GB; the "
+        f"phase took {rec['phase_s']:.1f} s")
+    del sh
+    torch.cuda.empty_cache()
+    return rec, terms
+
+
+def sharded_retrieval(s: Smoke, svc, cfg, par, params, rcfg, corpus, extra,
+                      gone, qb, radii, rows, by_path):
+    """A second ``RetrievalService`` on a 4-shard mesh of the card, sharing
+    the first's encoder parameters (no second copy), fed the same
+    documents, additions and removals.  Its cap is raised to the largest
+    bucket of the corpus, so that no bucket is cut.  Per radius and
+    routing, every path (launches asserted) is held to the single-host
+    service's index on the embeddings it computed: the linear sets to its
+    forced linear sets, the LSH sets to what its LSH route reports when
+    no bucket is cut (the live rows within r that share a bucket with the
+    query in some table); the hybrid between them, no removed id."""
+    import dataclasses
+    np, torch = s.np, s.torch
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.serve import RetrievalService
+    idx = svc.index
+    live = np.setdiff1d(np.arange(len(rows)), np.fromiter(gone, np.int64))
+    x_live = torch.from_numpy(rows[live]).to(s.dev)
+    bx = idx._bucket_fn(idx.params, x_live)                  # (n, L)
+    biggest = max(int(torch.bincount(bx[:, t].to(torch.int64)).max())
+                  for t in range(bx.shape[1]))
+    cap = 1 << (biggest - 1).bit_length()
+    scfg = dataclasses.replace(rcfg, mesh=make_mesh(SHARDS), cap=cap,
+                               shard_max_out=len(rows))
+    svc2 = RetrievalService(cfg, par, params, scfg, device=s.dev)
+    assert svc2.params is svc.params
+    t0 = time.perf_counter()
+    svc2.index_corpus(corpus)
+    svc2.add_documents(extra)
+    assert svc2.remove_documents(sorted(gone)) == len(gone)
+    while svc2.compaction_tick():
+        pass
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    assert svc2.index.n == idx.n == len(live)
+    emb = svc.embed(qb)
+    q_np = emb.cpu().numpy()
+    d = ops.pairwise_dist(emb, x_live, "cosine", impl="ref")
+    collide = (idx._bucket_fn(idx.params, emb)[:, None, :]
+               == bx[None, :, :]).any(-1)
+    out = {"build_s": t_build, "cap": cap, "largest_bucket": biggest}
+    trunc = np.zeros(len(q_np), bool)
+    for i, r in enumerate(radii):
+        within = (d <= r).cpu().numpy()
+        lsh = (collide & (d <= r)).cpu().numpy()
+        truth = {"linear": {j: set(live[within[j]].tolist())
+                            for j in range(len(q_np))},
+                 "lsh": {j: set(live[lsh[j]].tolist())
+                         for j in range(len(q_np))}}
+        single = idx.query(emb, r, force="linear").neighbor_sets()
+        n_near = s.compare_sets(single, truth["linear"], "cosine", q_np,
+                                rows, r, f"retrieval sharded r{i} truth")
+        for routing in ("global", "per_shard"):
+            svc2.index.routing = routing
+            tag = f"retrieval sharded r{i} {routing}"
+            res, launches = sharded_paths(s, svc2.index, emb, r, "cosine", tag,
+                                          delta=True)
+            by_path[tag] = launches
+            _, near = check_sharded_sets(s, res, truth, trunc, rows, q_np,
+                                         "cosine", r, tag, dead=gone)
+            near["single-host linear = truth"] = n_near
+            ms = time_query(s, lambda: svc2.index.query(emb, r))
+            out[f"r{i} {routing}"] = dict(used_lsh=res[None].used_lsh.tolist(),
+                                          index_ms=ms, near=near)
+            log(f"[{tag}] shards routed "
+                f"{['lsh' if u else 'linear' for u in res[None].used_lsh]}; "
+                f"index {ms:.2f} ms a batch of {len(q_np)}; sets equal the "
+                f"single-host service's linear sets and its uncut LSH sets "
+                f"(near-threshold / exact counts {near}); launches {launches}")
+    st = svc2.stats
+    out["live_per_shard"] = st["live_per_shard"]
+    out["shard_skew"] = st["shard_skew"]
+    log(f"[retrieval sharded] {SHARDS} shards, cap {cap} (the largest bucket "
+        f"holds {biggest} rows): indexed, +1,024 / -{len(gone)} in "
+        f"{t_build:.2f} s; live a shard {st['live_per_shard']}, skew "
+        f"{st['shard_skew']:.3f}, placement {st['placement']}")
+    svc2.shutdown()
+    del svc2, d, collide, x_live
+    torch.cuda.empty_cache()
+    return out
+
+
 RETRIEVAL_ARCH = "yi-6b"
 RETRIEVAL_DOCS = 8192        # 128 batches of 64 documents of 32 tokens
 RETRIEVAL_SEQ = 32
@@ -2273,6 +3004,9 @@ def drive_retrieval(s: Smoke, by_path):
         del fresh
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # -- 5b. the same service on a 4-shard mesh of the card -------------
+    rec["sharded"] = sharded_retrieval(s, svc, cfg, par, params, rcfg, corpus,
+                                       extra, gone, qb, radii, rows, by_path)
     if routes["lsh"] and routes["linear"]:
         log(f"[retrieval] both routes ran in the hybrid: {routes}")
     else:
@@ -2442,7 +3176,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     idx = drive_calibrated(s, x, q, metric, webspam_fam, kw, radii, mixes,
                            calibrated["webspam"], "webspam", by_path)
-    del idx, x
+    del idx
+    torch.cuda.empty_cache()
+    # -- 4b. the row-sharded static index (core.distributed), 4 shards ----
+    sharded_static = drive_sharded_static(s, x, q, radii, webspam_fam, kw,
+                                          by_path)
+    del x
     torch.cuda.empty_cache()
 
     # -- 5a. Corel analogue, l2: the preset at q2, the calibrated model --
@@ -2532,6 +3271,9 @@ def main() -> int:
         "launches"]
     del idx3
     torch.cuda.empty_cache()
+    # -- 6b. the row-sharded streaming index, 4 shards on the card --------
+    sharded, timings["route_terms"] = drive_sharded_streaming(
+        s, x3, q3, cover_fam, radii3, by_path)
 
     # -- 7. MNIST analogue, Hamming: static, K8 and streaming (K5) --------
     x4, metric4 = paper_dataset("mnist", scale=1.0, seed=0)
@@ -2587,6 +3329,9 @@ def main() -> int:
     retrieval = drive_retrieval(s, by_path)
     retrieval["card"] = smi
     log("[retrieval] " + json.dumps(retrieval))
+    log("[sharded] " + json.dumps(
+        {"card": smi, "webspam_static": sharded_static,
+         "covertype_streaming": sharded, "retrieval": retrieval["sharded"]}))
     rkt = retrieval.pop("kernel_times")
     for name in ("linear_scan_dot", "lsh_scan"):
         timings[name]["retrieval d=4096"] = rkt[name]
@@ -2612,6 +3357,7 @@ def main() -> int:
         "linear_scan_dot": (f"webspam q{mixed}", "hybrid"),
         "lsh_scan": (f"webspam q{mixed}", "hybrid"),
         "route_estimate": (f"mnist q{i4} streaming churned", "hybrid"),
+        "route_terms": ("covertype sharded churned per_shard", "hybrid"),
         "linear_scan_l1": (f"covertype q{i3} churned", "hybrid"),
         "linear_scan_hamming": (f"mnist q{i4} streaming churned", "hybrid"),
         "pairwise_dot": ("calibrate cosine", "calibrate"),
@@ -2625,6 +3371,8 @@ def main() -> int:
                         "src/repro/kernels/fused_scan.py:272"),
            "route_estimate": (csrc + "hll_merge.cu",
                               "src/repro/kernels/hll_merge.py:43"),
+           "route_terms": (csrc + "hll_merge.cu",
+                           "src/repro/kernels/hll_merge.py:43"),
            "linear_scan_l1": (csrc + "fused_scan.cu",
                               "src/repro/kernels/fused_scan.py:177"),
            "linear_scan_hamming": (csrc + "fused_scan.cu",

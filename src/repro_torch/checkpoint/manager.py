@@ -144,10 +144,24 @@ def _map_leaves(fn, tree):
     return fn(tree)
 
 
-def _to_tensor(leaf, device: torch.device) -> torch.Tensor:
+def _map_pairs(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: _map_pairs(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_pairs(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
+
+
+def _to_tensor(leaf, device: torch.device):
+    """A leaf as a tensor on ``device``; a string array (no tensor holds
+    one) stays a host array."""
     if isinstance(leaf, torch.Tensor):
         return leaf.to(device)
-    return torch.from_numpy(np.array(leaf)).to(device)   # 0-d stays 0-d
+    a = np.array(leaf)
+    if a.dtype.kind in "US":
+        return a
+    return torch.from_numpy(a).to(device)   # 0-d stays 0-d
 
 
 class CheckpointManager:
@@ -394,9 +408,13 @@ class CheckpointManager:
         """Snapshot a streaming index's segment state.
 
         ``index`` is any object with a ``state_dict()`` returning host
-        arrays (``DynamicHybridIndex``); every level of the segment
-        stack, the delta, and the tombstone buffers land as one leaf
-        each under the usual atomic COMMITTED protocol.
+        arrays (``DynamicHybridIndex`` or the row-sharded
+        ``ShardedDynamicHybridIndex``); every level of the segment stack,
+        the delta, and the tombstone buffers land as one leaf each under
+        the usual atomic COMMITTED protocol.  A sharded index's leaves
+        keep their leading shard axis, and its placement policy's name
+        and per-shard level layouts (``rows_s`` / ``live_s`` meta) ride
+        along, so rebalanced states round-trip exactly.
         ``incremental=True`` uses the content-addressed layout and the
         index's ``state_digests()`` hints (when it has them), so
         unchanged frozen levels are referenced, not rewritten.
@@ -418,9 +436,11 @@ class CheckpointManager:
 
     def restore_index(self, index, step: Optional[int] = None):
         """Restore segment state into ``index`` (constructed with the
-        same family/config as the one that saved, on the device the
-        restored state should live on).  Returns the step, or None when
-        no committed checkpoint exists.
+        same family/config as the one that saved, on the device or mesh
+        the restored state should live on; a sharded index on a mesh of
+        another shard count re-partitions the saved rows, the elastic
+        restore).  Returns the step, or None when no committed checkpoint
+        exists.
 
         The restore is manifest-driven (``restore_tree``), not
         template-driven: a streaming index's level stack is a variable
@@ -495,18 +515,20 @@ class CheckpointManager:
         without CUDA).  Returns (state, step), or (None, None) when
         nothing is committed.
 
-        ``target_shardings`` (restoring onto a device mesh) is not
-        ported: the multi-device path comes with the sharded index
-        (ROADMAP Queue 1, Slice E).
+        ``target_shardings``: a pytree matching ``template`` with a
+        ``torch.device`` (or a device string) at each leaf, which then
+        lands there instead, so that a state saved from one placement
+        restores onto another (each shard's leaves onto its own device):
+        the checkpoint format is placement-agnostic.  A string leaf (a
+        sharded index's placement name) stays a host array.
         """
-        if target_shardings is not None:
-            raise NotImplementedError(
-                "restore(target_shardings=...) needs the multi-device port "
-                "(ROADMAP Queue 1, Slice E); restore onto one device")
-        dev = resolve_device(device)
+        dev = resolve_device(device) if target_shardings is None else None
         if step is None:
             step = self.latest_step()
         if step is None:
             return None, None
         state = _unflatten(dict(self._load_leaves(step)), template)
-        return _map_leaves(lambda leaf: _to_tensor(leaf, dev), state), step
+        if dev is not None:
+            return _map_leaves(lambda leaf: _to_tensor(leaf, dev), state), step
+        return _map_pairs(lambda leaf, dev: _to_tensor(
+            leaf, resolve_device(dev)), state, target_shardings), step

@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Optional, Protocol, Sequence, Tuple
+from typing import List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -355,6 +355,33 @@ class QueryEngine:
                 n_live=sum(n for n, _ in sizes),
                 n_scan=sum(n for _, n in sizes)))
         return finalize_route(terms, self.cost_model)
+
+    def segment_terms(self, segments: Sequence[Segment],
+                      qbuckets: torch.Tensor) -> List[SegmentEstimate]:
+        """Each segment's own routing terms, in order, before any estimate:
+        the ``TableSegment``s' live and dead collisions and merged (Q, m)
+        registers from one ``ops.route_terms`` (one kernel launch on
+        CUDA), the other segments' ``estimate_terms``.  A row-sharded
+        index sums and max-merges these across its shards, segment by
+        segment, and then calls ``finalize_route``
+        (``core.distributed``, ``streaming.sharded``)."""
+        frozen = [s for s in segments if isinstance(s, TableSegment)]
+        if frozen:
+            coll, dead, regs = ops.route_terms(
+                qbuckets, [s.table_terms() for s in frozen],
+                tidx=frozen[0].tidx, impl=self.impl)
+        out, k = [], 0
+        for s in segments:
+            if not isinstance(s, TableSegment):
+                out.append(s.estimate_terms(qbuckets))
+                continue
+            n_live, n_scan = s.sizes()
+            out.append(SegmentEstimate(
+                collisions=coll[k], merged_registers=regs[k],
+                dead_collisions=None if s.tomb_counts is None else dead[k],
+                n_live=n_live, n_scan=n_scan))
+            k += 1
+        return out
 
     def search_group(self, segments: Sequence[Segment],
                      qbuckets: torch.Tensor, q: torch.Tensor, r, *,

@@ -15,7 +15,7 @@ import torch
 from repro_torch.core.lsh.tables import LSHTables
 
 __all__ = ["params_from_numpy", "tables_from_numpy", "dynamic_index_from_state",
-           "model_params_from_numpy"]
+           "sharded_index_from_state", "model_params_from_numpy"]
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -57,6 +57,17 @@ def dynamic_index_from_state(family, state, device, **kwargs):
     return DynamicHybridIndex(family, params=params_from_numpy(
         {k: np.asarray(v) for k, v in state["params"].items()}, device),
         device=device, **kwargs).load_state_dict(state)
+
+
+def sharded_index_from_state(family, state, mesh, **kwargs):
+    """A port ``ShardedDynamicHybridIndex`` on ``mesh`` holding a
+    reference sharded index's ``state_dict()`` (leaves as numpy, its
+    params included); a state saved on another shard count re-deals its
+    rows onto the mesh.  ``kwargs`` as the constructor's."""
+    from repro_torch.streaming.sharded import ShardedDynamicHybridIndex
+    return ShardedDynamicHybridIndex(family, mesh=mesh, params=params_from_numpy(
+        {k: np.asarray(v) for k, v in state["params"].items()},
+        mesh.devices[0]), **kwargs).load_state_dict(state)
 
 
 def model_params_from_numpy(params, cfg, device):

@@ -31,6 +31,17 @@
 // as a table whose row stride is m and whose bucket stride is L * m, with
 // bucket = query and no collisions.
 //
+// The terms mode (route_estimate_kernel<true>, ops.route_terms) stops before
+// the estimate: it writes, for each segment k of the launch, collisions_k and
+// dead_k (int32, (K, Q)) and the merged registers max_j registers[t_j, b_j, :]
+// (uint8, (K, Q, m)).  A row-sharded index (repro_torch/core/distributed.py,
+// repro_torch/streaming/sharded.py) sums the counts and max-merges the
+// registers of each level across its shards before it estimates, as the
+// reference's psum / pmax of TableSegment.estimate_terms and merge_registers
+// do (repro/streaming/sharded.py:1044-1056, repro/core/distributed.py:118-125).
+// Everything else is the estimate mode's: the gathers, the loads in flight,
+// the groups and the segment table.  Its bytes add the outputs, Q * K * (m + 8).
+//
 // Bound on an H100: the bytes are Q * S * V * (m + 12) (the registers, two
 // starts and a dead count per column; 100 x 4 x 20 x 76 B = 608 KB on the
 // churned MNIST index), about 0.2 us at 3.35 TB/s, so launch latency
@@ -65,8 +76,10 @@ struct RouteSeg {
 struct RouteArgs {
   const int32_t* qb;       // (Q, V) probed buckets, or null: bucket = query
   const int32_t* tidx;     // (V,) column -> table, or null: column j is table j
-  int32_t* coll;           // (Q,) out, or null
-  float* cand;             // (Q,) out
+  int32_t* coll;           // (Q,) out, or null; terms mode: (K, Q) out
+  float* cand;             // (Q,) out; unused in terms mode
+  int32_t* dead;           // terms mode: (K, Q) out, the dead counts
+  uint8_t* regs;           // terms mode: (K, Q, m) out, the merged registers
   int Q, V, m, nseg;
   float coef;              // float32(alpha(m) * m * m)
   int accumulate;          // continue the sums already in coll / cand
@@ -83,6 +96,9 @@ struct RouteArgs {
 // collisions kept in shared memory and added in segment order at the end.
 constexpr int kRouteBatch = 16;   // register loads a thread has in flight
 
+// TERMS: write each segment's collisions, dead counts and merged registers
+// and stop there (see the head of this file).
+template <bool TERMS>
 __global__ void __launch_bounds__(1024)
 route_estimate_kernel(const __grid_constant__ RouteArgs a) {
   extern __shared__ int32_t cols[];   // (2, V): bucket, table of each column
@@ -136,12 +152,18 @@ route_estimate_kernel(const __grid_constant__ RouteArgs a) {
 #pragma unroll
         for (int u = 0; u < kRouteBatch; ++u) r = max(r, static_cast<int>(v[u]));
       }
-      s = ldexpf(1.f, -r);          // exact 2^-r
-      z = (r == 0) ? 1.f : 0.f;
+      if constexpr (TERMS) {
+        a.regs[(static_cast<int64_t>(si) * a.Q + q) * a.m + lt] = static_cast<uint8_t>(r);
+      } else {
+        s = ldexpf(1.f, -r);        // exact 2^-r
+        z = (r == 0) ? 1.f : 0.f;
+      }
     }
     for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      z += __shfl_xor_sync(0xffffffffu, z, off);
+      if constexpr (!TERMS) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        z += __shfl_xor_sync(0xffffffffu, z, off);
+      }
       c += __shfl_xor_sync(0xffffffffu, c, off);
       d += __shfl_xor_sync(0xffffffffu, d, off);
     }
@@ -163,21 +185,27 @@ route_estimate_kernel(const __grid_constant__ RouteArgs a) {
         hits += cs[w];
         dead += ds[w];
       }
-      const float mf = static_cast<float>(a.m);
-      const float raw = a.coef / sum;                     // alpha * m^2 / sum
-      float est = raw;
-      if (raw <= 2.5f * mf && zeros > 0.f) {
-        est = mf * logf(mf / fmaxf(zeros, 1e-9f));       // linear counting
+      if constexpr (TERMS) {
+        const int64_t o = static_cast<int64_t>(si) * a.Q + q;
+        a.coll[o] = hits - dead;
+        a.dead[o] = dead;
+      } else {
+        const float mf = static_cast<float>(a.m);
+        const float raw = a.coef / sum;                   // alpha * m^2 / sum
+        float est = raw;
+        if (raw <= 2.5f * mf && zeros > 0.f) {
+          est = mf * logf(mf / fmaxf(zeros, 1e-9f));     // linear counting
+        }
+        const float two32 = 4294967296.f;
+        if (est > two32 / 30.f) est = -two32 * log1pf(-est / two32);
+        if (g.tomb) est = fmaxf(est - static_cast<float>(dead), 0.f);
+        est_s[si] = est;
+        coll_s[si] = hits - dead;
       }
-      const float two32 = 4294967296.f;
-      if (est > two32 / 30.f) est = -two32 * log1pf(-est / two32);
-      if (g.tomb) est = fmaxf(est - static_cast<float>(dead), 0.f);
-      est_s[si] = est;
-      coll_s[si] = hits - dead;
     }
     __syncthreads();   // the next round reuses the warps' partials
   }
-  if (t == 0) {
+  if (!TERMS && t == 0) {
     float cand = 0.f;
     int coll = 0;
     if (a.accumulate) {
@@ -193,6 +221,7 @@ route_estimate_kernel(const __grid_constant__ RouteArgs a) {
   }
 }
 
+template <bool TERMS>
 int launch(const RouteArgs& a, cudaStream_t s) {
   if (a.Q <= 0 || a.nseg <= 0) return 0;
   if (a.nseg > kRouteMaxSegs || a.m <= 0 || a.m > 1024 || (a.m & (a.m - 1)) ||
@@ -203,7 +232,7 @@ int launch(const RouteArgs& a, cudaStream_t s) {
   const int threads = group * std::min(a.nseg, 1024 / group);
   const size_t smem = 2 * sizeof(int32_t) * static_cast<size_t>(a.V);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  route_estimate_kernel<<<a.Q, threads, smem, s>>>(a);
+  route_estimate_kernel<TERMS><<<a.Q, threads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -214,8 +243,15 @@ extern "C" int route_estimate_args_bytes() { return sizeof(RouteArgs); }
 
 // a: the arguments in host memory, copied into the launch's parameters.
 extern "C" int route_estimate(const void* a, void* stream) {
-  return launch(*static_cast<const RouteArgs*>(a),
-                static_cast<cudaStream_t>(stream));
+  return launch<false>(*static_cast<const RouteArgs*>(a),
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The terms mode: a as route_estimate's, with coll, dead and regs the
+// (K, Q), (K, Q) and (K, Q, m) outputs of the launch's K = nseg segments.
+extern "C" int route_terms(const void* a, void* stream) {
+  return launch<true>(*static_cast<const RouteArgs*>(a),
+                      static_cast<cudaStream_t>(stream));
 }
 
 // regs: (Q, L, m) uint8, contiguous; out: (Q,) float32.  m is a power of
@@ -232,5 +268,5 @@ extern "C" int hll_merge_estimate(const void* regs, void* out, int Q, int L,
   a.seg[0].regs = static_cast<const uint8_t*>(regs);
   a.seg[0].tstride = m;
   a.seg[0].bstride = static_cast<int64_t>(L) * m;
-  return launch(a, static_cast<cudaStream_t>(stream));
+  return launch<false>(a, static_cast<cudaStream_t>(stream));
 }

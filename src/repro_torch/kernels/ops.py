@@ -28,7 +28,8 @@ from repro_torch.u32 import as_i32, as_u32
 __all__ = ["pairwise_dist", "hamming_dist", "simhash_fingerprint",
            "hll_merge_estimate", "pad_to", "metric_radius_transform",
            "fused_linear_scan", "fused_lsh_scan", "fused_lsh_scan_unsorted",
-           "grouped_linear_scan", "route_estimate", "ScanPart", "TableTerms",
+           "grouped_linear_scan", "route_estimate", "route_terms", "ScanPart",
+           "TableTerms",
            "resolve_impl"]
 
 IMPLS = ("ref", "cuda")
@@ -286,5 +287,23 @@ def route_estimate(qbuckets: torch.Tensor, tables: Sequence[TableTerms],
     if resolve_impl(impl, qbuckets.device) == "ref":
         return _ref.route_estimate(qbuckets, tables, tidx)
     return _hllm.route_estimate(
+        qbuckets.to(torch.int32).contiguous(), tables,
+        None if tidx is None else tidx.to(torch.int32).contiguous())
+
+
+def route_terms(qbuckets: torch.Tensor, tables: Sequence[TableTerms],
+                tidx: Optional[torch.Tensor] = None,
+                impl: Optional[str] = None):
+    """Each frozen segment's routing terms, before the estimate: (Q, V)
+    query buckets and the segments' ``TableTerms`` -> (collisions (K, Q)
+    int32, dead (K, Q) int32, registers (K, Q, m) uint8), row k for
+    segment k (its live collisions, its dead collisions, the max-merge of
+    its hit buckets' registers).  What a row-sharded index sums and
+    max-merges across its shards, level by level, before it estimates.
+    On CUDA one launch of K3's kernel in its terms mode
+    (``hll_merge.route_terms``)."""
+    if resolve_impl(impl, qbuckets.device) == "ref":
+        return _ref.route_terms(qbuckets, tables, tidx)
+    return _hllm.route_terms(
         qbuckets.to(torch.int32).contiguous(), tables,
         None if tidx is None else tidx.to(torch.int32).contiguous())

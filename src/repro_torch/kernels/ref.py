@@ -205,34 +205,48 @@ def hll_merge_estimate(regs: torch.Tensor) -> torch.Tensor:
     return hll_lib.estimate_cardinality(merged, int(regs.shape[-1]))
 
 
+def route_terms(qbuckets: torch.Tensor, tables: Sequence[TableTerms],
+                tidx: Optional[torch.Tensor] = None):
+    """(Q, V) buckets over the frozen segments' tables, in stack order ->
+    (collisions (K, Q) int32, dead (K, Q) int32, registers (K, Q, m)
+    uint8), row k for segment k, as the reference's
+    ``TableSegment.estimate_terms`` and ``merge_registers`` give them: the
+    bucket sizes less the dead counts, summed; the dead counts, summed (0
+    without tombstones); the hit buckets' registers, max-merged."""
+    lidx = (torch.arange(qbuckets.shape[1], device=qbuckets.device)
+            if tidx is None else tidx.to(torch.int64))[None, :]
+    b = qbuckets.to(torch.int64)
+    coll, dead, regs = [], [], []
+    for t in tables:
+        counts = t.starts[lidx, b + 1] - t.starts[lidx, b]
+        d = (torch.zeros_like(counts) if t.tomb_counts is None
+             else t.tomb_counts[lidx, b])
+        coll.append(torch.sum(counts - d, dim=-1, dtype=torch.int32))
+        dead.append(torch.sum(d, dim=-1, dtype=torch.int32))
+        regs.append(torch.amax(t.registers[lidx, b], dim=1))
+    return torch.stack(coll), torch.stack(dead), torch.stack(regs)
+
+
 def route_estimate(qbuckets: torch.Tensor, tables: Sequence[TableTerms],
                    tidx: Optional[torch.Tensor] = None):
     """(Q, V) buckets over the frozen segments' tables, in stack order ->
     (collisions (Q,) int32, cand (Q,) float32).
 
-    Per segment, as the reference's ``TableSegment.estimate_terms`` and
-    ``finalize_route`` compose it: the bucket sizes less the dead counts,
-    summed; the HLL estimate of the hit buckets' merged registers, less
-    the dead counts and clamped at 0 where the segment has tombstones;
-    the estimates added in segment order from 0.
+    Per segment, from ``route_terms``, as the reference's
+    ``finalize_route`` composes it: the collisions summed; the HLL
+    estimate of the merged registers, less the dead counts and clamped at
+    0 where the segment has tombstones; the estimates added in segment
+    order from 0.
     """
-    lidx = (torch.arange(qbuckets.shape[1], device=qbuckets.device)
-            if tidx is None else tidx.to(torch.int64))[None, :]
-    b = qbuckets.to(torch.int64)
-    coll = torch.zeros(qbuckets.shape[0], dtype=torch.int32,
-                       device=qbuckets.device)
+    from repro_torch.core import hll as hll_lib   # core imports kernels
+    coll_k, dead_k, regs_k = route_terms(qbuckets, tables, tidx)
+    coll = torch.sum(coll_k, dim=0, dtype=torch.int32)
     cand = torch.zeros(qbuckets.shape[0], dtype=torch.float32,
                        device=qbuckets.device)
-    for t in tables:
-        counts = t.starts[lidx, b + 1] - t.starts[lidx, b]
-        est = hll_merge_estimate(t.registers[lidx, b])
+    for t, dead, regs in zip(tables, dead_k, regs_k):
+        est = hll_lib.estimate_from_registers(regs)
         if t.tomb_counts is not None:
-            dead = t.tomb_counts[lidx, b]
-            counts = counts - dead
-            est = torch.clamp(
-                est - torch.sum(dead, dim=-1, dtype=torch.int32)
-                .to(torch.float32), min=0.0)
-        coll = coll + torch.sum(counts, dim=-1, dtype=torch.int32)
+            est = torch.clamp(est - dead.to(torch.float32), min=0.0)
         cand = cand + est
     return coll, cand
 

@@ -3,9 +3,10 @@
 The port runs one device.  ``ParallelConfig`` keeps the reference's
 single-device knobs (the attention chunks; ``remat`` and the logits
 chunk, which training will read) so that callers pass the same values;
-a ``mesh`` other than None raises ``NotImplementedError``: multi-device
-execution, and the sharding fields and helpers that go with it, come
-with the port's Slice E.
+a ``mesh`` other than None raises ``NotImplementedError``: model
+parallelism (the sharding fields and helpers, and the sequence-sharded
+decode) comes with the port's LM training stack, Slice F.  The sharded
+index runs on ``core.distributed.ShardMesh`` without it.
 """
 from __future__ import annotations
 
@@ -26,5 +27,5 @@ class ParallelConfig:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "ParallelConfig(mesh=...): multi-device execution is not "
-                "ported yet (Slice E); pass mesh=None")
+                "ParallelConfig(mesh=...): model parallelism is not "
+                "ported yet (Slice F); pass mesh=None")

@@ -5,9 +5,10 @@ An LM (any of the 10 archs) encodes requests to normalized embeddings
 (models.transformer.forward_embed); the corpus embeddings live in a
 streaming index (cosine/SimHash by default), so a serving corpus
 mutates live via ``add_documents`` / ``remove_documents`` instead of
-full rebuilds.  The single-device ``DynamicHybridIndex`` serves (a
-``RetrievalConfig.mesh`` raises ``NotImplementedError``: the sharded
-index comes with Slice E).  Every retrieval request goes through the
+full rebuilds.  With ``RetrievalConfig.mesh`` set (a
+``core.distributed.ShardMesh``) the corpus is row-sharded over the
+mesh's shards (``ShardedDynamicHybridIndex``); otherwise the
+single-device ``DynamicHybridIndex`` serves.  Every retrieval request goes through the
 paper's Algorithm 2 via the shared segment engine, with the
 tombstone-corrected estimate.  ``stats`` exposes routing decisions and
 compaction counters.
@@ -41,6 +42,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import CostModel
+from repro_torch.core.distributed import ShardMesh
 from repro_torch.core.engine import QueryEngine, _pad_size
 from repro_torch.core.index import resolve_device
 from repro_torch.core.lsh import make_family
@@ -51,7 +53,8 @@ from repro_torch.serve.cache import ResultCache
 from repro_torch.serve.collections import Collection, CollectionManager
 from repro_torch.serve.scheduler import ShapeBucketScheduler, TenantQuota
 from repro_torch.streaming import (CompactionDriver, CompactionPolicy,
-                                   DynamicHybridIndex)
+                                   DynamicHybridIndex,
+                                   ShardedDynamicHybridIndex)
 
 
 @dataclasses.dataclass
@@ -79,10 +82,17 @@ class RetrievalConfig:
     # thread.  compact_step_rows doubles as the worker's per-gather
     # budget (default delta_capacity // 2 when unset and async is on).
     async_compaction: bool = False
-    # Mesh sharding: any mesh raises NotImplementedError until the
-    # sharded index is ported (Slice E), with its routing and placement
-    # fields.
-    mesh: Optional[object] = None
+    # Mesh sharding: set to a ShardMesh (core.distributed.make_mesh) to
+    # shard the corpus over its `mesh_axis`.
+    mesh: Optional[ShardMesh] = None
+    mesh_axis: str = "data"
+    shard_routing: str = "global"  # or "per_shard" (density-adaptive)
+    shard_max_out: int = 512       # reported neighbors per (shard, query)
+    # Merge-time placement of surviving rows across shards: "keep_local"
+    # (never move), "round_robin", or "load_balance" (water-fill the
+    # per-shard live counts).  `stats` then reports `shard_skew` (max /
+    # mean live load) and cumulative `rows_moved`.
+    shard_placement: str = "keep_local"
     # Closed-loop serving (docs/serving.md): the submit/drain_batches
     # path coalesces cross-request queries into pow2 shape buckets.
     # max_wait_s is the coalescing deadline (0 drains greedily);
@@ -165,10 +175,10 @@ class RetrievalService:
         # it (tests tweaking radius, a caller setting mesh) would leak
         # into every service built afterwards
         rcfg = rcfg if rcfg is not None else RetrievalConfig()
-        if rcfg.mesh is not None:
-            raise NotImplementedError(
-                "RetrievalConfig.mesh: the mesh-sharded index is not "
-                "ported yet (Slice E)")
+        if rcfg.mesh is not None and not isinstance(rcfg.mesh, ShardMesh):
+            raise TypeError(f"RetrievalConfig.mesh must be a ShardMesh "
+                            f"(core.distributed.make_mesh), got "
+                            f"{type(rcfg.mesh).__name__}")
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"the encoder lives on {params.device}, not "
@@ -281,8 +291,15 @@ class RetrievalService:
                 step_rows=self._step_rows()),
             obs=obs if obs is not None else self.obs,
             engine=self._shared_engine)
-        index = DynamicHybridIndex(fam, params=self._index_params,
-                                   device=self.device, **common)
+        if r.mesh is not None:
+            index = ShardedDynamicHybridIndex(
+                fam, mesh=r.mesh, data_axis=r.mesh_axis,
+                routing=r.shard_routing, max_out=r.shard_max_out,
+                placement=r.shard_placement, params=self._index_params,
+                **common)
+        else:
+            index = DynamicHybridIndex(fam, params=self._index_params,
+                                       device=self.device, **common)
         index.build(torch.zeros((0, d), dtype=torch.float32,
                                 device=self.device))
         return index
@@ -299,7 +316,8 @@ class RetrievalService:
 
     def index_corpus(self, batches: Iterable):
         """Embed + build the default corpus index per
-        ``RetrievalConfig``; returns the corpus size.  With
+        ``RetrievalConfig`` (mesh set -> sharded index with the
+        configured routing / placement); returns the corpus size.  With
         ``async_compaction`` the index is attached to the service's
         shared ``CompactionDriver`` under the reserved name ``""``
         (detached first on a rebuild — collections stay attached)."""
@@ -537,10 +555,15 @@ class RetrievalService:
 
     @staticmethod
     def _count_linear(res, nq: int) -> int:
-        """Linear-route count over the REAL rows of a padded batch: pad
-        rows land at indices >= nq and are excluded exactly."""
-        return len({int(i) for i in np.asarray(res.lin_idx).tolist()
-                    if i < nq})
+        """Linear-route count over the REAL rows of a padded batch.
+
+        Single-host results carry the route partition (pad rows land at
+        indices >= nq and are excluded exactly); the sharded per-batch
+        vote only supports the fractional reconstruction."""
+        if hasattr(res, "lin_idx"):
+            return len({int(i) for i in np.asarray(res.lin_idx).tolist()
+                        if i < nq})
+        return round(nq * res.frac_linear)
 
     def compaction_tick(self) -> bool:
         """The between-batches maintenance hook (wire it as
@@ -742,7 +765,11 @@ class RetrievalService:
         """Serving counters merged with the index's ``index_stats()``.
 
         Includes the per-level LSM counters (segments, levels,
-        pending_merges, merges_per_level, compact_steps, freezes, ...).
+        pending_merges, merges_per_level, compact_steps, freezes, ...)
+        and, when the corpus is mesh-sharded, the rebalancing view:
+        ``live_per_shard`` / ``delta_per_shard`` loads, ``shard_skew``
+        (max / mean live load; 1.0 = balanced), the active ``placement``
+        policy, and cumulative ``rows_moved`` across shards.
 
         The coalesced serving path adds three pinned sub-dicts:
         ``scheduler`` (queue depth, submits/rejects/batches, queue-wait

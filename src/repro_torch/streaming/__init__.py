@@ -15,8 +15,9 @@ static Hybrid LSH core.
   * ``streaming.driver``    — ``CompactionDriver``: merge staging on a
                               background worker thread, swaps handed
                               back to the control thread via ``drain()``
-
-The mesh-sharded index is not ported yet.
+  * ``ShardedDynamicHybridIndex`` — the same index row-sharded over a
+                              ``core.distributed.ShardMesh``, with
+                              merge-time placement across shards
 """
 from repro_torch.streaming.compaction import (CompactionPolicy,
                                               CompactionStats,
@@ -28,12 +29,15 @@ from repro_torch.streaming.compaction import (CompactionPolicy,
 from repro_torch.streaming.delta import DeltaSegment, DeltaView, make_delta
 from repro_torch.streaming.driver import CompactionDriver
 from repro_torch.streaming.index import DynamicHybridIndex
+from repro_torch.streaming.sharded import (ShardedDynamicHybridIndex,
+                                           ShardedQueryResult)
 from repro_torch.streaming.segment import (FrozenSegment, MainSegment,
                                            SegmentStack, build_main,
                                            freeze_segment)
 from repro_torch.streaming.tombstones import Tombstones, make_tombstones
 
-__all__ = ["DynamicHybridIndex", "CompactionDriver",
+__all__ = ["DynamicHybridIndex", "ShardedDynamicHybridIndex",
+           "ShardedQueryResult", "CompactionDriver",
            "CompactionPolicy", "CompactionStats",
            "PlacementPolicy", "KeepLocalPlacement", "RoundRobinPlacement",
            "LoadBalancePlacement", "make_placement_policy",

@@ -2,8 +2,9 @@
 ``repro.checkpoint``.
 
   * each test of ``tests/test_checkpoint.py``, ported with tensors as
-    leaves (the elastic-sharding restore becomes the
-    ``NotImplementedError`` check: no multi-device path yet);
+    leaves (the elastic-sharding restore: ``target_shardings`` puts each
+    leaf on its ``torch.device``, and a sharded index restored through it
+    reports the saved one's sets);
   * the host copy: a save takes its leaves to the host before it
     returns, so a tensor mutated in place afterwards (the streaming
     delta) is saved as it was; a writer's exception reaches ``wait``;
@@ -104,18 +105,61 @@ def test_async_save_then_wait(tmp_path):
 
 
 def test_restore_onto_a_mesh_not_implemented(tmp_path):
-    """``target_shardings`` (the elastic multi-device restore) raises
-    until the multi-device path is ported; the default device is the
-    GPU, and asking for it without one raises."""
+    """``target_shardings`` (the counterpart of the reference's
+    ``test_elastic_restore_new_sharding``): a matching pytree of
+    ``torch.device`` puts each leaf on the device given for it, and a
+    row-sharded index's state restored through it loads into an index on
+    the mesh with the saved one's sets.  The default device is the GPU,
+    and asking for it without one raises."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.streaming import ShardedDynamicHybridIndex
     mgr = CheckpointManager(str(tmp_path))
     s = _state()
     mgr.save(3, s, blocking=True)
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        mgr.restore(s, target_shardings={"params": None})
+    cpu = torch.device("cpu")
+    devs = {"params": {"blocks": ({"w": cpu}, {"w": "cpu"}), "tail": ()},
+            "opt": {"step": cpu}}
+    restored, step = mgr.restore(s, target_shardings=devs)
+    assert step == 3
+    leaf = restored["params"]["blocks"][0]["w"]
+    assert isinstance(leaf, torch.Tensor) and leaf.device == cpu
+    assert torch.equal(leaf, s["params"]["blocks"][0]["w"])
+    assert int(restored["opt"]["step"]) == 7
+
+    fam = make_family("l2", d=8, L=L, r=1.0)
+    x = clustered_dataset(300, 8, n_clusters=6, seed=0, metric="l2")
+    sh = ShardedDynamicHybridIndex(fam, num_buckets=B, m=M, cap=CAP,
+                                   mesh=make_mesh(2, device="cpu"),
+                                   delta_capacity=DCAP, max_out=300)
+    sh.build(x[:200])
+    sh.insert(x[200:])
+    sh.delete(range(0, 300, 7))
+    state = sh.state_dict()
+    mgr.save(4, state, blocking=True)
+    tree = _map_tree(lambda _: cpu, state)
+    got, _ = mgr.restore(state, step=4, target_shardings=tree)
+    assert got["levels"]["0000"]["registers"].device == cpu
+    back = ShardedDynamicHybridIndex(fam, num_buckets=B, m=M, cap=CAP,
+                                     mesh=make_mesh(2, device="cpu"),
+                                     delta_capacity=DCAP, max_out=300)
+    back.load_state_dict(got)
+    q = x[::23]
+    for f in ("lsh", "linear"):
+        assert (back.query(q, 1.2, force=f).neighbor_sets()
+                == sh.query(q, 1.2, force=f).neighbor_sets()), f
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            mgr.restore(s)
-    assert _restore_cpu(mgr, s)[1] == 3
+            mgr.restore(s, step=3)
+    assert _restore_cpu(mgr, s, step=3)[1] == 3
+
+
+def _map_tree(fn, tree):
+    """``fn`` over the leaves of nested dicts / lists / tuples."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
 
 
 def _chunk_files(tmp_path):

@@ -221,6 +221,23 @@ def test_cuda_route_estimate_matches_plain(cuda, q, L, T, m, S, kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q,L,T,m,S,kind", ROUTE_CASES)
+def test_cuda_route_terms_matches_plain(cuda, q, L, T, m, S, kind):
+    """K3's terms mode over S segments (what a sharded index merges
+    across its shards): each segment's collisions, dead counts and merged
+    registers bit for bit the plain version's; one launch per 64
+    segments."""
+    qb, tidx, segs = route_tables(q, L, T, m, S, kind, RNG)
+    qb, tidx = _on(qb, cuda), _on(tidx, cuda)
+    tables = [ops.TableTerms(*(_on(a, cuda) for a in seg)) for seg in segs]
+    before = hll_merge.route_terms.launches
+    got = ops.route_terms(qb, tables, tidx, impl="cuda")
+    assert hll_merge.route_terms.launches == before + -(-S // 64)
+    for a, b in zip(got, ops.route_terms(qb, tables, tidx, impl="ref")):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("q,w,sizes,kind", GROUPED_CASES)
 def test_cuda_grouped_hamming_scan_matches_plain(cuda, q, w, sizes, kind):
     """K5 over a group of segments, all queries in one launch per 64

@@ -261,7 +261,8 @@ def _port_files():
 def test_port_imports_no_jax_and_no_repro():
     files = _port_files()
     for part in ("launch/serve.py", "serve/retrieval.py", "serve/engine.py",
-                 "models/transformer.py", "configs/base.py"):
+                 "models/transformer.py", "configs/base.py",
+                 "core/distributed.py", "streaming/sharded.py"):
         assert ROOT / "src" / "repro_torch" / part in files, part
     bad = []
     for path in files:

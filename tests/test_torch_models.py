@@ -316,7 +316,7 @@ def test_device_defaults_to_the_gpu():
         generate(params, toks, tc, TPAR, cache_len=8, max_new_tokens=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm_batch(0, 0, batch=1, seq=4, vocab=8)
-    with pytest.raises(NotImplementedError, match="Slice E"):
+    with pytest.raises(NotImplementedError, match="Slice F"):
         ParallelConfig(mesh=object())
 
 

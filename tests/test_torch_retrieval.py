@@ -222,15 +222,21 @@ def test_retrieval_service_stats_schema_and_metrics(tmp_path):
 
 
 def test_mesh_and_missing_gpu_raise():
+    """A mesh must be a ``ShardMesh`` (the sharded service itself is
+    held in ``tests/test_torch_sharded.py``); without a GPU the default
+    service and the default mesh raise."""
+    from repro_torch.core.distributed import make_mesh
     cfg = _cfg()
     params = init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice E"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         RetrievalService(cfg, PAR, params, RetrievalConfig(mesh=object()),
                          device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is there")
     with pytest.raises(RuntimeError, match="CUDA"):
         RetrievalService(cfg, PAR, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(2)
 
 
 # --------------------------------------------------------------------------

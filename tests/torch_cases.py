@@ -255,7 +255,7 @@ ROUTE_CASES = [(1, 4, 1, 16, 1, "static"), (33, 20, 1, 64, 5, "churned"),
                (100, 20, 1, 64, 4, "churned"), (100, 20, 1, 64, 1, "static"),
                (100, 6, 4, 32, 3, "churned"), (33, 5, 2, 1024, 2, "dead"),
                (7, 2, 1, 128, 65, "churned"), (5, 3, 1, 256, 2, "static"),
-               (33, 4, 2, 512, 6, "dead")]
+               (33, 4, 2, 512, 6, "dead"), (257, 8, 2, 128, 3, "churned")]
 
 
 def route_tables(q, L, T, m, S, kind, rng):
