@@ -93,6 +93,15 @@ Phases (each raises on failure, so any failure exits non-zero):
      against a prefill's argmax; a
      ``[retrieval]`` JSON line with the embed, index, prefill and decode
      times, tokens/s and memory;
+  8b. training on the dense path, last (``drive_train``): Yi-6B at full
+     width and, where the card holds its 72.73 GB training state, full
+     depth (bf16 weights and grads, float32 AdamW moments; the depth is
+     cut otherwise, and logged), 2 + 5 steps of 1 x 2,048 tokens timed
+     (step ms, tokens/s, the bf16 peak share, peak memory, the losses),
+     one more traced; the card's float32 steps against the CPU's on a
+     reduced config; the fault-tolerant loop's crash / resume and
+     straggler checks and two ``launch.train`` subprocesses, the second
+     resuming the first; a ``[train]`` JSON line;
   9. a ``[sharded]`` JSON line (batch ms global / per_shard / single-host,
      routes, churn, merges, checkpoint, skew and padded rows, peak
      memory) and a ``[durability]`` JSON line with the checkpoint and restore times
@@ -137,14 +146,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
 
+# The H100's published peaks (memory bytes/s, fp32 FLOP/s on the CUDA
+# cores, TF32 and bf16 FLOP/s on the tensor cores; SXM unless the card
+# names itself PCIe): the port's hardware model, one source for both.
+from repro_torch.launch.roofline import PEAKS  # noqa: E402
+
 THRESH_EPS = 1e-5
 TOL = dict(rtol=3e-4, atol=3e-4)      # distances, kernel vs plain
 HLL_RTOL = 1e-5
-# Published H100 peaks (NVIDIA data sheet, dense): memory bytes/s, fp32
-# FLOP/s on the CUDA cores, TF32 and bf16 FLOP/s on the tensor cores.  SXM
-# unless the card names itself PCIe.
-PEAKS = {"sxm": (3.35e12, 67e12, 495e12, 989e12),
-         "pcie": (2.0e12, 51e12, 378e12, 756e12)}
 
 
 def log(*a):
@@ -3075,6 +3084,308 @@ def drive_retrieval(s: Smoke, by_path):
     return rec
 
 
+TRAIN_ARCH = "yi-6b"
+TRAIN_BATCH, TRAIN_SEQ = 1, 2048      # 2,048 tokens a step
+TRAIN_CHUNK = 512                     # attention q / k and logits chunks
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+TRAIN_PROBE_LAYERS = 2                # the depth of the memory probe step
+TRAIN_SLACK = 2e9                     # bytes left free for fragmentation
+TRAIN_LEFT = 1e9                      # bytes the earlier phases may leave
+LOSS_AT_INIT = 0.5                    # |step-0 loss - ln V| limit
+
+
+def train_state_bytes(cfg):
+    """Bytes of a training state of ``cfg``, counted on the meta device:
+    the weights and their grads in the parameter dtype, float32 m and v."""
+    from repro_torch.train import init_state
+    st = init_state(cfg, device="meta")
+    w = sum(p.numel() * p.element_size() for p in st["params"].parameters())
+    mv = sum(t.numel() * t.element_size() for k in ("m", "v")
+             for t in st["opt"][k].values())
+    return 2 * w + mv
+
+
+def at_depth(cfg, layers):
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=layers, repeats=layers)
+
+
+def train_steps(s, cfg, par, tcfg, batches):
+    """A fresh state of ``cfg`` on the card (seed 0), trained one step a
+    batch; returns (state, metrics a step as floats, step seconds, peak
+    bytes above what was allocated before the state, the names of the
+    matrices that did not change: the first 4 rows of each, the first
+    batch's first 4 tokens' rows of the embedding; the norms' weights
+    start at 1.0, where a bf16 ulp, 2 ** -7, outweighs an update of
+    lr x (1 + weight decay))."""
+    torch = s.torch
+    from repro_torch.train import init_state, make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = init_state(cfg, 0, tcfg, device=s.dev)
+    rows = batches[0]["tokens"][0, :4].long()
+
+    def watched():
+        return {n: (p[rows] if n == "embed" else p[:4]).detach().clone()
+                for n, p in state["params"].named_parameters()
+                if p.ndim == 2}
+
+    before = watched()
+    step = make_train_step(cfg, par, tcfg)
+    metrics, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    unchanged = [n for n, v in watched().items() if torch.equal(v, before[n])]
+    return (state, metrics, times,
+            torch.cuda.max_memory_allocated() - base, unchanged)
+
+
+def profile_train_step(s: Smoke, state, cfg, par, tcfg, batch, ms):
+    """``torch.profiler`` trace of one more train step: the device's busy
+    ms (its kernels' own times; one stream), its share of the untraced
+    median ``ms``, the kernels launched, and the kernels that took most
+    of the time."""
+    torch = s.torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import make_train_step
+    step = make_train_step(cfg, par, tcfg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy == 0.0:
+        log("[train profile] the profiler saw no device time; device busy "
+            "share not measured")
+        return None
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
+    out = {"busy_ms": busy, "busy_share": busy / ms,
+           "kernels": sum(e.count for e in dev),
+           "top": [(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                   for e in top]}
+    log(f"[train profile] one step: device busy {busy:.1f} ms, "
+        f"{busy / ms:.1%} of the untraced {ms:.1f} ms; {out['kernels']} "
+        f"kernels; top device time: " + "; ".join(
+            f"{k} x{n} {t:.1f} ms" for k, n, t in out["top"]))
+    return out
+
+
+def drive_train(s: Smoke, smi):
+    """Training on the dense path (``repro_torch.train``), last, on a
+    card the earlier phases left (less than TRAIN_LEFT bytes allocated).
+
+    1. Yi-6B at full width (d_model 4,096, 32 heads, GQA kv 4, d_ff
+       11,008, vocab 64,000; bf16 weights and grads, float32 m and v,
+       random weights from seed 0): the state's bytes on the meta device,
+       one step at TRAIN_PROBE_LAYERS layers to measure the step's memory
+       above its state, then the depth: all 32 layers unless the state,
+       that overhead, a saved layer input a further layer and
+       TRAIN_SLACK pass the card's free memory.  TRAIN_WARMUP + TRAIN_TIMED
+       steps of TRAIN_BATCH x TRAIN_SEQ tokens (remat "block", chunks of
+       TRAIN_CHUNK): step ms, tokens/s, peak memory, the loss each step
+       and the share of the bf16 peak (``roofline.model_flops`` at the
+       depth run); every loss and grad norm finite, the step-0 loss within
+       LOSS_AT_INIT of ln 64,000, the weights changed; one more step
+       traced by ``torch.profiler`` (busy share, top kernels).
+    2. A reduced float32 Yi-6B (2 layers), the same weights on the card
+       and the CPU, 3 steps of ``make_train_step`` on the same batches
+       with TF32 off (``tests/torch_cases.py`` ``train_device_vs_cpu``):
+       loss, grad norm and lr, and each final weight leaf in norm, within
+       TRAIN_RTOL; the largest entry's deviation logged.
+    3. The loop's fault tolerance at ``reduced_config(yi-6b)`` (the
+       reference test's config): a crash at step 7 and a relaunch end at
+       the uninterrupted run's final loss (rtol 1e-4); a 0.35 s delay at
+       step 8 logged as a straggler; ``python -m repro_torch.launch.train
+       --reduced --steps 12`` in a subprocess, then ``--steps 16``
+       resuming at step 12.
+    Returns the ``[train]`` record."""
+    import dataclasses
+    import gc
+    import math
+    import os
+    import shutil
+    import tempfile
+    torch, dev = s.torch, s.dev
+    from repro_torch.configs import SHAPES, get_config, reduced_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import roofline
+    from repro_torch.models import ParallelConfig
+    from repro_torch.train import LoopConfig, TrainConfig, train_loop
+    t_phase = time.perf_counter()
+    # the retrieval phase's service, indexes and model sit in reference
+    # cycles: collect them before the card's free memory is read
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < TRAIN_LEFT, \
+        f"{torch.cuda.memory_allocated()} bytes left on the card"
+    cfg = get_config(TRAIN_ARCH)
+    par = ParallelConfig(remat="block", attn_chunk_q=TRAIN_CHUNK,
+                         attn_chunk_k=TRAIN_CHUNK, logits_chunk=TRAIN_CHUNK)
+    rec = {"card": smi, "arch": cfg.name, "d_model": cfg.d_model,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "left_on_card_bytes": torch.cuda.memory_allocated()}
+    free, total = torch.cuda.mem_get_info()
+    rec.update(free_bytes=free, total_bytes=total)
+
+    def batches(n, seed=0, b=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab):
+        return [lm_batch(seed, i, batch=b, seq=seq, vocab=vocab, device=dev)
+                for i in range(n)]
+
+    # -- 1. full width ------------------------------------------------------
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1,
+                       total_steps=TRAIN_WARMUP + TRAIN_TIMED)
+    probe = at_depth(cfg, TRAIN_PROBE_LAYERS)
+    state, _, _, probe_peak, _ = train_steps(s, probe, par, tcfg,
+                                             batches(1))
+    del state
+    overhead = probe_peak - train_state_bytes(probe)
+    per_layer = TRAIN_BATCH * TRAIN_SEQ * cfg.d_model * 2   # a saved input
+
+    def need(layers):
+        return (train_state_bytes(at_depth(cfg, layers)) + overhead
+                + (layers - TRAIN_PROBE_LAYERS) * per_layer + TRAIN_SLACK)
+
+    layers = cfg.n_layers
+    while layers > TRAIN_PROBE_LAYERS and need(layers) > free:
+        layers -= 1
+    run = at_depth(cfg, layers)
+    rec.update(layers=layers, full_layers=cfg.n_layers,
+               state_bytes=train_state_bytes(run),
+               full_state_bytes=train_state_bytes(cfg),
+               probe_overhead_bytes=overhead, need_bytes=need(layers),
+               num_params=run.num_params())
+    log(f"[train] {cfg.name}: {cfg.num_params()} parameters, a training "
+        f"state of {rec['full_state_bytes'] / 1e9:.2f} GB at all "
+        f"{cfg.n_layers} layers (meta device: bf16 weights and grads, "
+        f"float32 m and v); a {TRAIN_PROBE_LAYERS}-layer step needs "
+        f"{overhead / 1e9:.2f} GB above its state; {free / 1e9:.2f} GB "
+        f"free of {total / 1e9:.2f} GB: running {layers} of "
+        f"{cfg.n_layers} layers ({rec['state_bytes'] / 1e9:.2f} GB state)")
+    steps = batches(TRAIN_WARMUP + TRAIN_TIMED)
+    state, metrics, times, peak, unchanged = train_steps(s, run, par, tcfg,
+                                                         steps)
+    timed = times[TRAIN_WARMUP:]
+    step_s = statistics.median(timed)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    flops = roofline.model_flops(run, shape)
+    rec.update(step_ms=step_s * 1e3, step_ms_min=min(timed) * 1e3,
+               step_ms_max=max(timed) * 1e3,
+               step_ms_all=[t * 1e3 for t in times],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+               model_flops=flops,
+               bf16_peak_share=flops / step_s / s.bf16, peak_bytes=peak,
+               loss=[m["loss"] for m in metrics],
+               grad_norm=[m["grad_norm"] for m in metrics],
+               lr=[m["lr"] for m in metrics], weights_unchanged=unchanged)
+    log(f"[train] {layers} layers x d_model {cfg.d_model}, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step: {rec['step_ms']:.1f} ms median of "
+        f"{TRAIN_TIMED} (min {rec['step_ms_min']:.1f}, max "
+        f"{rec['step_ms_max']:.1f}; warm-up {times[0] * 1e3:.1f}, "
+        f"{times[1] * 1e3:.1f}), {rec['tokens_per_s']:.0f} tokens/s, "
+        f"{rec['bf16_peak_share']:.4f} of the bf16 dense peak "
+        f"({s.bf16 / 1e12:.0f} TFLOP/s) at 6 x {run.num_params()} FLOP a "
+        f"token; peak {peak / 1e9:.2f} GB; losses {rec['loss']}; grad "
+        f"norms {rec['grad_norm']}; {smi}")
+    assert all(math.isfinite(x) for x in rec["loss"] + rec["grad_norm"])
+    assert abs(rec["loss"][0] - math.log(cfg.vocab)) < LOSS_AT_INIT, \
+        rec["loss"][0]
+    assert not unchanged, f"matrices that did not change: {unchanged}"
+    rec["profile"] = profile_train_step(s, state, run, par, tcfg, steps[-1],
+                                        step_s * 1e3)
+    del state
+    torch.cuda.empty_cache()
+
+    # -- 2. the card against the CPU, float32 ---------------------------
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import TRAIN_RTOL, train_device_vs_cpu
+    dev_metric, dev_norm, dev_entry = train_device_vs_cpu(
+        TRAIN_ARCH, "block", 1, dev)
+    rec["f32_vs_cpu"] = {"max_rel_dev_metrics": dev_metric,
+                         "max_rel_norm_dev_weights": dev_norm,
+                         "max_entry_dev_over_lr_steps": dev_entry}
+    log(f"[train] float32 card vs CPU, 3 steps of a 2-layer reduced "
+        f"{cfg.name}: loss / grad norm / lr within {dev_metric:.3g} "
+        f"relative, each weight leaf within {dev_norm:.3g} in norm (limit "
+        f"{TRAIN_RTOL} both); the largest entry's deviation "
+        f"{dev_entry:.3g} x lr x steps")
+
+    # -- 3. the loop's fault tolerance, and the launcher ----------------
+    rcfg = reduced_config(cfg)
+    lpar = ParallelConfig(mesh=None, attn_chunk_q=16, attn_chunk_k=16,
+                          logits_chunk=16, remat="none")
+    ltcfg = TrainConfig(peak_lr=1e-3, warmup_steps=2, total_steps=12)
+
+    def loop(ckpt_dir, steps=12, **kw):
+        return train_loop(rcfg, lpar, batch=2, seq=16, tcfg=ltcfg,
+                          lcfg=LoopConfig(steps=steps, ckpt_every=4,
+                                          log_every=1, ckpt_dir=ckpt_dir),
+                          device=dev, **kw)
+
+    def crash_at_7(step):
+        if step == 7:
+            raise RuntimeError("injected failure at step 7")
+
+    tmp = tempfile.mkdtemp(prefix="train_smoke_")
+    try:
+        ref = loop(os.path.join(tmp, "a"))
+        try:
+            loop(os.path.join(tmp, "b"), failure_injector=crash_at_7)
+            raise AssertionError("the injected failure did not raise")
+        except RuntimeError as e:
+            assert "injected" in str(e), e
+        resumed = loop(os.path.join(tmp, "b"))
+        assert resumed["step"] == list(range(4, 12)), resumed["step"]
+        assert abs(resumed["loss"][-1] - ref["loss"][-1]) <= \
+            1e-4 * abs(ref["loss"][-1]), (resumed["loss"], ref["loss"])
+        slow = loop(None, steps=10,
+                    step_delay_injector=lambda i: 0.35 if i == 8 else 0.0)
+        assert any(e[0] == 8 for e in slow["stragglers"]), slow["stragglers"]
+        rec["loop"] = {"final_loss": ref["loss"][-1],
+                       "resumed_final_loss": resumed["loss"][-1],
+                       "stragglers": slow["stragglers"]}
+        log(f"[train] loop on the card ({rcfg.name} reduced): crash at step "
+            f"7, resumed at 4, final loss {resumed['loss'][-1]:.6f} against "
+            f"{ref['loss'][-1]:.6f} uninterrupted; stragglers "
+            f"{slow['stragglers']}")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        ck = os.path.join(tmp, "launch")
+        launches = []
+        for n in (12, 16):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 cfg.name, "--reduced", "--steps", str(n), "--ckpt-every",
+                 "4", "--ckpt-dir", ck], capture_output=True, text=True,
+                env=env, cwd=str(ROOT), timeout=300)
+            assert out.returncode == 0, out.stderr[-3000:]
+            final = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith("final loss:")]
+            assert final and math.isfinite(float(final[-1].split()[-1])), \
+                out.stdout
+            launches.append({"steps": n, "s": time.perf_counter() - t0,
+                             "final_loss": float(final[-1].split()[-1])})
+        assert "restored checkpoint at step 12" in out.stderr, \
+            out.stderr[-3000:]
+        rec["launch"] = launches
+        log(f"[train] launch.train in a subprocess: {launches}; the second "
+            f"launch restored step 12")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] the phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def log_kernel_times(tag, kt):
     for k, v in kt.items():
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
@@ -3332,6 +3643,9 @@ def main() -> int:
     log("[sharded] " + json.dumps(
         {"card": smi, "webspam_static": sharded_static,
          "covertype_streaming": sharded, "retrieval": retrieval["sharded"]}))
+    # -- 7d. training on the dense path, last, on an empty card ---------
+    train = drive_train(s, smi)
+    log("[train] " + json.dumps(train))
     rkt = retrieval.pop("kernel_times")
     for name in ("linear_scan_dot", "lsh_scan"):
         timings[name]["retrieval d=4096"] = rkt[name]

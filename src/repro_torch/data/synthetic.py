@@ -29,13 +29,13 @@ def lm_batch(seed: int, step: int, *, batch: int, seq: int, vocab: int,
     ``labels``, drawn on the host so that every device sees the same.
     ``cfg`` is the reference's: an audio or vision config, whose batches
     also carry stub frames or image embeddings, raises until those
-    models are ported (Slice F)."""
+    models are ported (Slice F2)."""
     from repro_torch.core.index import resolve_device
     if cfg is not None and (getattr(cfg, "encoder_layers", 0)
                             or getattr(cfg, "num_image_tokens", 0)):
         raise NotImplementedError(
             f"{cfg.name}: the stub frames and image embeddings of audio "
-            f"and vision batches come with their models (Slice F)")
+            f"and vision batches come with their models (Slice F2)")
     device = resolve_device(device)
     state = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
     gen = torch.Generator().manual_seed(

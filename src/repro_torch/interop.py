@@ -15,7 +15,8 @@ import torch
 from repro_torch.core.lsh.tables import LSHTables
 
 __all__ = ["params_from_numpy", "tables_from_numpy", "dynamic_index_from_state",
-           "sharded_index_from_state", "model_params_from_numpy"]
+           "sharded_index_from_state", "model_params_from_numpy",
+           "train_state_from_numpy"]
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -96,3 +97,18 @@ def model_params_from_numpy(params, cfg, device):
     layers += [layer(t) for t in params["tail"]]
     return from_leaves(cfg, leaf(params["embed"]), layers,
                        leaf(params["final_norm"]), leaf(params["lm_head"]))
+
+
+def train_state_from_numpy(state, cfg, device):
+    """A port training state on ``device`` holding the reference's
+    ``init_state`` pytree ``{"params", "opt": {"m", "v", "step"}}``
+    (leaves as numpy): the weights as ``model_params_from_numpy`` gives
+    them, made trainable, and the float32 moments unstacked the same
+    way (``train.load_state_tree``)."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import load_state_tree
+    params = model_params_from_numpy(state["params"], cfg,
+                                     device).requires_grad_(True)
+    out = {"params": params,
+           "opt": adamw_init(dict(params.named_parameters()))}
+    return load_state_tree(out, state, cfg)

@@ -74,6 +74,8 @@ def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 
 def params_dict(**tensors: torch.Tensor) -> nn.ParameterDict:
-    """Named inference weights (no gradients: training is not ported)."""
+    """Named weights, created without gradients so that serving builds no
+    autograd graph; a training state turns them on for the module it
+    owns (``train.init_state``, ``interop.train_state_from_numpy``)."""
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in tensors.items()})

@@ -7,14 +7,18 @@ A model is a ``Transformer`` module: the token table, an
 the LM head.  Entry points, with the reference's signatures (``params``
 is the module):
 
+  forward_train(params, batch, cfg, par)   -> (loss, metrics)
   forward_embed(params, batch, cfg, par)   -> (B, D) f32 unit rows
   prefill(params, batch, cfg, par, cache_len) -> (h_last, caches, lengths)
   decode_step(params, caches, token, lengths, cfg, par) -> (h_last, caches)
 
 Decode writes each layer's KV cache in place (the reference's buffer
-donation).  Only the ``ATTN`` layer kind is ported: any other kind
-(sliding window, MoE, Mamba, cross attention, the shared block) raises
-``NotImplementedError``; those, and training, come with Slice F.
+donation).  ``forward_train`` with ``par.remat == "block"`` runs each
+layer under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of the scanned block): the backward pass recomputes
+it from its input.  Only the ``ATTN`` layer kind is ported: any other
+kind (sliding window, MoE, Mamba, cross attention, the shared block)
+raises ``NotImplementedError``; those come with Slice F2.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ArchConfig
 from repro_torch.core.index import resolve_device
@@ -33,8 +38,8 @@ from repro_torch.models.common import (mlp_apply, mlp_init, params_dict,
 from repro_torch.models.parallel import ParallelConfig
 
 __all__ = ["Layer", "Transformer", "check_ported", "init_params",
-           "hidden_states", "forward_embed", "init_caches", "prefill",
-           "decode_step"]
+           "forward_train", "hidden_states", "forward_embed", "init_caches",
+           "prefill", "decode_step"]
 
 
 class Layer(nn.Module):
@@ -72,7 +77,7 @@ def check_ported(cfg: ArchConfig) -> None:
     if kinds != {ATTN} or cfg.encoder_layers or cfg.num_image_tokens:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)} — only dense "
-            f"'{ATTN}' stacks are ported (the rest comes with Slice F)")
+            f"'{ATTN}' stacks are ported (the rest comes with Slice F2)")
 
 
 # ===================================================================== init
@@ -90,10 +95,13 @@ def _init_layer(gen, cfg: ArchConfig, dt, device) -> Layer:
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     """Random weights drawn on ``device`` (None: the GPU) from a
     generator seeded with ``seed``, one leaf at a time: each is drawn in
-    float32 and cast to ``cfg.param_dtype`` before the next."""
+    float32 and cast to ``cfg.param_dtype`` before the next.  On the
+    "meta" device the weights have shapes and dtypes only (no draws):
+    a model's bytes are counted there before it is built."""
     check_ported(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(int(seed)))
     dt = cfg.param_dtype
     embed = emb_lib.init_table(gen, cfg.vocab, cfg.d_model, dt, device)
     blocks = [_init_layer(gen, cfg, dt, device) for _ in range(cfg.n_layers)]
@@ -121,10 +129,10 @@ def _attn_kwargs(cfg: ArchConfig, par: ParallelConfig):
                 chunk_k=par.attn_chunk_k)
 
 
-def _tokens(batch, device) -> torch.Tensor:
-    """A batch's (B, S) tokens as int64 on ``device`` (numpy, or a tensor
-    anywhere)."""
-    t = batch["tokens"]
+def _tokens(batch, device, key: str = "tokens") -> torch.Tensor:
+    """A batch's (B, S) ``key`` ids as int64 on ``device`` (numpy, or a
+    tensor anywhere)."""
+    t = batch[key]
     if not isinstance(t, torch.Tensor):
         t = torch.from_numpy(np.array(t))     # a writable copy
     return t.to(device=device, dtype=torch.int64)
@@ -134,26 +142,59 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
+def _layer(lp: Layer, h: torch.Tensor, positions: torch.Tensor,
+           cfg: ArchConfig, par: ParallelConfig, cache=None) -> torch.Tensor:
+    """One layer on the (B, S, D) residual stream; with ``cache``, its
+    (post-RoPE) k and v written into the cache's first S positions."""
+    a, k, v = attn_lib.self_attention(
+        lp.attn, rmsnorm(h, lp.norm1, cfg.norm_eps), positions,
+        causal=True, return_kv=True, **_attn_kwargs(cfg, par))
+    if cache is not None:
+        cache["k"][:, :h.shape[1]] = k
+        cache["v"][:, :h.shape[1]] = v
+    h = h + a
+    return h + mlp_apply(lp.mlp, rmsnorm(h, lp.norm2, cfg.norm_eps),
+                         cfg.mlp_act)
+
+
 def _forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
              par: ParallelConfig, caches=None) -> torch.Tensor:
     """(B, S, D) final-normed hidden states of (B, S) tokens; with
-    ``caches``, each layer's (post-RoPE) k and v written into its
-    cache's first S positions."""
+    ``caches``, each layer's k and v written into its cache."""
     b, s = tokens.shape
     h = emb_lib.embed(params.embed, tokens)
     positions = _positions(b, s, params.device)
-    kw = _attn_kwargs(cfg, par)
     for i, lp in enumerate(params.blocks):
-        a, k, v = attn_lib.self_attention(
-            lp.attn, rmsnorm(h, lp.norm1, cfg.norm_eps), positions,
-            causal=True, return_kv=True, **kw)
-        if caches is not None:
-            caches["blocks"][i]["k"][:, :s] = k
-            caches["blocks"][i]["v"][:, :s] = v
-        h = h + a
-        h = h + mlp_apply(lp.mlp, rmsnorm(h, lp.norm2, cfg.norm_eps),
-                          cfg.mlp_act)
+        h = _layer(lp, h, positions, cfg, par,
+                   None if caches is None else caches["blocks"][i])
     return rmsnorm(h, params.final_norm, cfg.norm_eps)
+
+
+def forward_train(params: Transformer, batch, cfg: ArchConfig,
+                  par: ParallelConfig):
+    """batch: tokens (B, S), labels (B, S) with -1 = ignore (numpy, or
+    tensors anywhere) -> (loss, {"ce_loss", "aux_loss"}), float32 0-d.
+
+    The loss is ``softmax_xent`` over ``par.logits_chunk`` chunks of the
+    sequence; ``aux_loss`` is 0 on the dense path (the reference adds
+    0.01 x the MoE load-balance loss)."""
+    check_ported(cfg)
+    tokens = _tokens(batch, params.device)
+    labels = _tokens(batch, params.device, "labels")
+    b, s = tokens.shape
+    h = emb_lib.embed(params.embed, tokens)
+    positions = _positions(b, s, params.device)
+    for lp in params.blocks:
+        if par.remat == "block":
+            h = checkpoint(_layer, lp, h, positions, cfg, par,
+                           use_reentrant=False)
+        else:
+            h = _layer(lp, h, positions, cfg, par)
+    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+    loss = emb_lib.softmax_xent(params.lm_head, h, labels,
+                                chunk=par.logits_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=params.device)
+    return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 def hidden_states(params: Transformer, batch, cfg: ArchConfig,

@@ -22,12 +22,14 @@ from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
 from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
 from torch_cases import (DOT_CASES, GROUPED_CASES, L1_CASES,  # noqa: E402
-                         LSH_CASES, RADII, ROUTE_CASES, SIMHASH_CASES, TOL,
+                         LSH_CASES, RADII, ROUTE_CASES, SIMHASH_CASES,
+                         TOL, TRAIN_CASES,
                          as_tensor, dist64, dot_inputs, grouped_parts,
                          handcrafted_ids, hll_regs, l1_inputs, lsh_dist64,
                          lsh_inputs, masks_outside_band_agree, on_device,
                          pair, route_estimate_per_segment, route_tables,
-                         simhash_flips, simhash_inputs, unit_rows_np)
+                         simhash_flips, simhash_inputs,
+                         train_device_vs_cpu, unit_rows_np)
 
 RNG = np.random.default_rng(0)
 
@@ -608,3 +610,12 @@ def test_cuda_retrieval_service_matches_plain(cuda):
         near(i, sets["lsh"][i] - sets["linear"][i], "lsh <= linear")
     assert 0 < len(res.lin_idx) < 64, len(res.lin_idx)
     assert sum(len(s) for s in sets[None].values()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,remat,microbatch", TRAIN_CASES)
+def test_cuda_train_step_matches_cpu(cuda, arch, remat, microbatch):
+    """3 float32 train steps on the card and on the CPU from the same
+    weights and batches, TF32 off (``torch_cases.train_device_vs_cpu``
+    asserts its tolerances)."""
+    train_device_vs_cpu(arch, remat, microbatch, cuda)

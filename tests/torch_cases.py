@@ -406,3 +406,68 @@ def simhash_packed_as_kernel(x, rc, L, k):
                         word |= bits[:, col] << (4 * j + t)
                 out[:, y * lay.wg + local] = word
     return out.reshape(n, L, lay.tw // L)
+
+
+# The train step on the card against the CPU, float32 with TF32 off:
+# (arch, remat, microbatch) on a 2-layer reduced config.
+TRAIN_CASES = [("yi-6b", "block", 1), ("yi-6b", "none", 2),
+               ("mistral-nemo-12b", "block", 1), ("nemotron-4-15b", "none", 1)]
+TRAIN_RTOL = 1e-4
+
+
+def train_device_vs_cpu(arch, remat, microbatch, device, steps=3):
+    """``steps`` steps of ``make_train_step`` on a float32 2-layer
+    ``reduced_config(arch)`` on ``device`` and on the CPU, from the same
+    weights (seed 0 drawn on the CPU, carried over by ``state_tree``) on
+    the same batches.  Asserts loss, grad norm and lr within TRAIN_RTOL
+    (relative) each step, and each final weight leaf within TRAIN_RTOL
+    in norm: ||a - c|| <= TRAIN_RTOL ||c||.  Not element by element:
+    AdamW moves every entry whose grad is above eps by about lr whatever
+    the grad's size, so an entry whose grad the two devices round to
+    opposite signs near 0 ends up to 2 lr x steps apart.  Returns (the
+    largest relative deviation of the metrics, the largest leaf's
+    relative norm deviation, the largest entry's deviation over
+    lr x steps)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import ParallelConfig
+    from repro_torch.train import (TrainConfig, init_state, load_state_tree,
+                                   make_train_step, state_tree)
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), n_layers=2,
+                              repeats=2, dtype="float32")
+    par = ParallelConfig(remat=remat, attn_chunk_q=16, attn_chunk_k=16,
+                         logits_chunk=16)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=steps,
+                       microbatch=microbatch)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = init_state(cfg, 0, tcfg, device="cpu")
+        dev = load_state_tree(init_state(cfg, 1, tcfg, device=device),
+                              state_tree(cpu, cfg), cfg)
+        f_cpu = make_train_step(cfg, par, tcfg)
+        f_dev = make_train_step(cfg, par, tcfg)
+        dev_metrics = 0.0
+        for i in range(steps):
+            b = lm_batch(5, i, batch=4, seq=32, vocab=cfg.vocab,
+                         device="cpu")
+            cpu, mc = f_cpu(cpu, b)
+            dev, md = f_dev(dev, {k: v.to(device) for k, v in b.items()})
+            for k in ("loss", "grad_norm", "lr"):
+                a, c = float(md[k]), float(mc[k])
+                dev_metrics = max(dev_metrics,
+                                  abs(a - c) / max(abs(c), 1e-30))
+                assert abs(a - c) <= TRAIN_RTOL * abs(c), (i, k, a, c)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ref = dict(cpu["params"].named_parameters())
+    dev_norm = dev_entry = 0.0
+    for name, p in dev["params"].named_parameters():
+        a, c = p.detach().cpu(), ref[name].detach()
+        rel = float(torch.linalg.norm(a - c) / torch.linalg.norm(c))
+        assert rel <= TRAIN_RTOL, (name, rel)
+        dev_norm = max(dev_norm, rel)
+        dev_entry = max(dev_entry, float((a - c).abs().max())
+                        / (tcfg.peak_lr * steps))
+    return dev_metrics, dev_norm, dev_entry
