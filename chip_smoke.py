@@ -93,7 +93,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      against a prefill's argmax; a
      ``[retrieval]`` JSON line with the embed, index, prefill and decode
      times, tokens/s and memory;
-  8b. training on the dense path, last (``drive_train``): Yi-6B at full
+  8b. training on the dense path (``drive_train``): Yi-6B at full
      width and, where the card holds its 72.73 GB training state, full
      depth (bf16 weights and grads, float32 AdamW moments; the depth is
      cut otherwise, and logged), 2 + 5 steps of 1 x 2,048 tokens timed
@@ -102,6 +102,27 @@ Phases (each raises on failure, so any failure exits non-zero):
      reduced config; the fault-tolerant loop's crash / resume and
      straggler checks and two ``launch.train`` subprocesses, the second
      resuming the first; a ``[train]`` JSON line;
+  8c. the other layer kinds, last (``drive_archs``), on the card the
+     earlier phases left empty (under 1 GB asserted), each model freed
+     before the next: Gemma-3 27B (sliding window), Granite-MoE and
+     Llama-4 Maverick (MoE), Falcon-Mamba 7B (Mamba-1), Zamba2 1.2B
+     (Mamba-2 and the shared block), Llama-3.2-Vision 11B (cross
+     attention to image tokens) and Whisper-small (the encoder) served at
+     full width and depth (Maverick: the most layers whose weights,
+     caches and a prefill fit, counted on the meta device; 2 of 48):
+     weights drawn on the card from seed 0, one ``forward_embed`` of 64 x
+     32 tokens, a prefill of 4 x 2,048 tokens (stub frames or image
+     embeddings where the config has them) and 32 decode steps timed
+     (Gemma-3's 1,024-slot rings wrap), one more decode step traced
+     (kernels a token), greedy tokens held to a prefill's argmax (the MoE
+     configs at a capacity factor of E / top_k, where no token is
+     dropped); six of them trained at full width on one repeat of the
+     pattern and the tail (1 + 3 steps of 1 x 2,048 tokens: finite
+     losses and grad norms, MoE aux loss above 0, the step-0 ce_loss
+     within 1.0 of ln V; Maverick's one-layer state is 219 GB); then
+     ``RetrievalService`` behind Zamba2 at full size (8,192 documents,
+     64 queries at two radii on every path against a plain index, K1,
+     K2 and K3 launched); an ``[archs]`` JSON line;
   9. a ``[sharded]`` JSON line (batch ms global / per_shard / single-host,
      routes, churn, merges, checkpoint, skew and padded rows, peak
      memory) and a ``[durability]`` JSON line with the checkpoint and restore times
@@ -3105,9 +3126,15 @@ def train_state_bytes(cfg):
     return 2 * w + mv
 
 
-def at_depth(cfg, layers):
+def at_depth(cfg, repeats, pattern=None, tail=None):
+    """``cfg`` with ``repeats`` repeats of its block pattern (or of
+    ``pattern``) and its tail (or ``tail``)."""
     import dataclasses
-    return dataclasses.replace(cfg, n_layers=layers, repeats=layers)
+    pattern = cfg.pattern if pattern is None else tuple(pattern)
+    tail = cfg.tail if tail is None else tuple(tail)
+    return dataclasses.replace(cfg, pattern=pattern, tail=tail,
+                               repeats=repeats,
+                               n_layers=len(pattern) * repeats + len(tail))
 
 
 def train_steps(s, cfg, par, tcfg, batches):
@@ -3386,6 +3413,500 @@ def drive_train(s: Smoke, smi):
     return rec
 
 
+ARCHS = ("gemma3-27b", "granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
+         "falcon-mamba-7b", "zamba2-1.2b", "llama-3.2-vision-11b",
+         "whisper-small")
+ARCH_NO_TRAIN = ("llama4-maverick-400b-a17b",)
+ARCH_BATCH, ARCH_PROMPT, ARCH_NEW = 4, 2048, 32
+ARCH_CHUNK = 512                      # attention q / k and logits chunks
+ARCH_EMBED = (64, 32)                 # forward_embed's batch x tokens
+ARCH_SLACK = 8e9                      # serving bytes beside weights, caches
+ARCH_TRAIN_STEPS = (1, 3)             # warm-up, timed
+ARCH_LOSS_AT_INIT = 1.0               # |step-0 ce_loss - ln V| limit
+ARCH_TRAIN_SLACK = 4e9                # training bytes left for fragmentation
+ARCH_LEFT = 1e9                       # bytes the earlier phases may leave
+ARCH_RETRIEVAL = "zamba2-1.2b"
+# configs whose greedy check runs on a float32 copy of their weights: over
+# Falcon-Mamba's 64 random Mamba-1 layers, bf16 decode and prefill hidden
+# states differ by up to 7 % of a row's largest entry on an H100, and a
+# few tokens at positions past GREEDY_MARGIN differ; in float32, 3e-5
+ARCH_F32_CHECK = ("falcon-mamba-7b",)
+
+
+def synced(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def arch_batch(s: Smoke, cfg, seed, b, seq, step=0):
+    """A token batch of ``cfg`` on the card, with its stub frames or image
+    embeddings; no labels."""
+    from repro_torch.data import lm_batch
+    out = lm_batch(seed, step, batch=b, seq=seq, vocab=cfg.vocab, cfg=cfg,
+                   device=s.dev)
+    out.pop("labels")
+    return out
+
+
+def memory_len(cfg):
+    return cfg.encoder_seq if cfg.encoder_layers else cfg.num_image_tokens
+
+
+def serving_bytes(cfg, cache_len):
+    """The weights' and the decode caches' bytes of ``cfg`` at ARCH_BATCH
+    rows, counted on the meta device."""
+    from repro_torch.models import init_caches, init_params
+    caches = init_caches(cfg, ARCH_BATCH, cache_len, device="meta",
+                         memory_len=memory_len(cfg))
+    return (init_params(cfg, device="meta").nbytes(),
+            sum(t.numel() * t.element_size() for c in caches["blocks"]
+                for t in c.values()))
+
+
+def no_drop(cfg):
+    """``cfg`` with its MoE capacity factor raised to E / top_k: every
+    expert can hold every token, so no (token, choice) pair is dropped."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def serve_tokens(s: Smoke, params, cfg, par, pb, new, cache_len):
+    """Prefill ``pb`` then ``new`` decode steps, each synchronised and
+    timed, greedy tokens throughout.  Returns (the (B, new + 1) tokens,
+    their (B, new + 1, D) final hidden states, prefill s, decode s a
+    step, the state after the last step for one more step: caches,
+    token, lengths)."""
+    torch = s.torch
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.embedding import greedy_sample
+    finite = torch.ones((), dtype=torch.bool, device=s.dev)
+    with torch.inference_mode():
+        (h, caches, lengths), t_pre = synced(
+            torch, lambda: prefill(params, pb, cfg, par, cache_len))
+        finite &= torch.isfinite(h).all()
+        tok = greedy_sample(params.lm_head, h)
+        out, hs, t_dec = [tok], [h], []
+        for _ in range(new):
+            (h, caches), t = synced(torch, lambda: decode_step(
+                params, caches, tok, lengths, cfg, par))
+            finite &= torch.isfinite(h).all()
+            tok = greedy_sample(params.lm_head, h)
+            lengths = lengths + 1
+            out.append(tok)
+            hs.append(h)
+            t_dec.append(t)
+    assert bool(finite), f"{cfg.name}: non-finite hidden states"
+    return (torch.stack(out, dim=1), torch.stack(hs, dim=1), t_pre, t_dec,
+            (caches, tok, lengths))
+
+
+def greedy_check(s: Smoke, params, cfg, par, pb, toks, h_dec):
+    """Greedy tokens against the argmax of a prefill of the prompt and
+    the generated tokens but the last, where its top-2 margin exceeds
+    GREEDY_MARGIN of the logit range ("clear" positions).  Returns the
+    counts of clear positions, of clear ones whose tokens differ (0 is
+    the hard limit, ``assert_greedy``), of close ones and of close ones
+    that agree too, and the largest deviation of the decode's hidden
+    states ``h_dec`` from the prefill's, over a row's largest entry."""
+    torch = s.torch
+    from repro_torch.models import hidden_states
+    p = pb["tokens"].shape[1]
+    full = dict(pb, tokens=torch.cat([pb["tokens"], toks[:, :-1]], dim=1))
+    with torch.inference_mode():
+        h = hidden_states(params, full, cfg, par)[:, p - 1:]
+        assert bool(torch.isfinite(h).all()), f"{cfg.name}: check prefill"
+        dev = float(((h_dec.float() - h.float()).abs().amax(-1)
+                     / h.float().abs().amax(-1)).max())
+        logits = h.float() @ params.lm_head.float().T      # (B, new + 1, V)
+    top2 = logits.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1])
+             > GREEDY_MARGIN * (logits.amax(-1) - logits.amin(-1))
+             ).cpu().numpy()
+    want = logits.argmax(-1).cpu().numpy()
+    got = toks.cpu().numpy()
+    return dict(clear=int(clear.sum()), close=int((~clear).sum()),
+                close_equal=int((got[~clear] == want[~clear]).sum()),
+                clear_unequal=int((got[clear] != want[clear]).sum()),
+                h_dev=dev)
+
+
+def assert_greedy(cfg, g):
+    assert g["clear_unequal"] == 0, (
+        f"{cfg.name}: greedy tokens != the prefill's argmax at "
+        f"{g['clear_unequal']} of {g['clear']} clear positions; decode's "
+        f"hidden states off by {g['h_dev']:.4g} of a row's largest entry")
+
+
+def profile_decode(s: Smoke, params, cfg, par, state):
+    """``torch.profiler`` trace of one more decode step: its kernels and
+    device busy ms, or None where the profiler sees no device time."""
+    torch = s.torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step
+    caches, tok, lengths = state
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_step(params, caches, tok, lengths, cfg, par)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy == 0.0:
+        return None
+    return {"kernels": sum(e.count for e in dev), "busy_ms": busy}
+
+
+def free_card(s: Smoke):
+    import gc
+    gc.collect()
+    s.torch.cuda.empty_cache()
+
+
+def serve_arch(s: Smoke, name, smi):
+    """One config served at full width: the depth (every layer unless its
+    weights, ARCH_BATCH rows of caches and ARCH_SLACK pass the card's
+    free memory, counted on the meta device), the weights drawn on the
+    card, one ``forward_embed`` of ARCH_EMBED, a prefill of ARCH_BATCH x
+    ARCH_PROMPT tokens and ARCH_NEW decode steps timed, one more decode
+    step traced, and the greedy check (at a no-drop capacity factor for
+    the MoE configs)."""
+    import copy
+    import dataclasses
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ParallelConfig, forward_embed, init_params
+    full = get_config(name)
+    par = ParallelConfig(attn_chunk_q=ARCH_CHUNK, attn_chunk_k=ARCH_CHUNK)
+    cache_len = ARCH_PROMPT + ARCH_NEW + 1
+    free, _ = torch.cuda.mem_get_info()
+    # weights and caches grow by the same bytes a repeat of the pattern:
+    # count one and two repeats on the meta device
+    one, two = (serving_bytes(at_depth(full, r), cache_len) for r in (1, 2))
+
+    def counted(r):
+        return tuple(a + (r - 1) * (b - a) for a, b in zip(one, two))
+
+    repeats = full.n_repeats
+    while repeats > 1 and sum(counted(repeats)) + ARCH_SLACK > free:
+        repeats -= 1
+    cfg = at_depth(full, repeats)
+    w_bytes, c_bytes = counted(repeats)
+    rec = {"arch": name, "layers": cfg.n_layers, "full_layers": full.n_layers,
+           "d_model": cfg.d_model, "free_bytes": free,
+           "cache_bytes": c_bytes, "num_params": cfg.num_params(),
+           "num_active_params": cfg.num_active_params()}
+    if cfg.n_layers < full.n_layers:
+        log(f"[archs {name}] depth {cfg.n_layers} of {full.n_layers}: "
+            f"{w_bytes / 1e9:.2f} GB of weights and {c_bytes / 1e9:.3f} GB "
+            f"of caches at this depth (meta device) leave the {ARCH_SLACK / 1e9:.0f} "
+            f"GB of activations and slack within {free / 1e9:.2f} GB free; "
+            f"{at_depth(full, repeats + 1).n_layers} layers would need "
+            f"{sum(counted(repeats + 1)) / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    params, rec["init_s"] = synced(torch, lambda: init_params(cfg, 0,
+                                                              device=s.dev))
+    rec["weight_bytes"] = params.nbytes()
+    assert rec["weight_bytes"] == w_bytes
+    eb = arch_batch(s, cfg, 1, *ARCH_EMBED)
+    with torch.inference_mode():
+        emb, t0 = synced(torch, lambda: forward_embed(params, eb, cfg, par))
+        emb, t = synced(torch, lambda: forward_embed(params, eb, cfg, par))
+    assert emb.shape == (ARCH_EMBED[0], cfg.d_model)
+    assert bool(torch.isfinite(emb).all())
+    assert bool(((emb.norm(dim=-1) - 1).abs() < 1e-3).all())
+    rec["embed_ms"], rec["embed_first_ms"] = t * 1e3, t0 * 1e3
+    pb = arch_batch(s, cfg, 0, ARCH_BATCH, ARCH_PROMPT)
+    toks, h_dec, t_pre, t_dec, state = serve_tokens(s, params, cfg, par, pb,
+                                                    ARCH_NEW, cache_len)
+    tokens = ARCH_BATCH * ARCH_PROMPT
+    active = cfg.num_active_params()
+    table = cfg.vocab * cfg.d_model * 2          # a decode reads B rows
+    rec.update(prefill_ms=t_pre * 1e3, prefill_tokens_per_s=tokens / t_pre,
+               prefill_bf16_peak_share=2.0 * active * tokens / t_pre / s.bf16,
+               decode_ms=statistics.median(t_dec) * 1e3,
+               decode_ms_min=min(t_dec) * 1e3,
+               decode_bound_ms=(2 * active - table + c_bytes) / s.bw * 1e3)
+    rec["decode_profile"] = profile_decode(s, params, cfg, par, state)
+    del state
+    t_check = time.perf_counter()
+    check_cfg = no_drop(cfg)
+    if check_cfg is not cfg:
+        # at the config's 1.25, a decode step (T = B tokens) drops pairs
+        # that the prefill of the whole sequence keeps: the reference's
+        # capacity semantics, not a fault; the check runs where neither
+        # drops any
+        nd, h_dec, _, _, st = serve_tokens(s, params, check_cfg, par, pb,
+                                           ARCH_NEW, cache_len)
+        del st
+        rec["tokens_equal_at_own_capacity"] = int((nd == toks).sum())
+        toks = nd
+    rec["greedy"] = greedy_check(s, params, check_cfg, par, pb, toks, h_dec)
+    if name in ARCH_F32_CHECK:
+        # bf16 rounding over the config's random layers moves decode's
+        # logits from the prefill's by more than GREEDY_MARGIN of their
+        # range: the hard limit holds a float32 copy of the same weights
+        del h_dec
+        free_card(s)
+        rec["greedy_bf16"] = rec.pop("greedy")
+        f32 = dataclasses.replace(check_cfg, dtype="float32")
+        p32 = copy.deepcopy(params).float()
+        t32, h32, _, _, st = serve_tokens(s, p32, f32, par, pb, ARCH_NEW,
+                                          cache_len)
+        del st
+        rec["greedy"] = greedy_check(s, p32, f32, par, pb, t32, h32)
+        rec["greedy"]["float32"] = True
+        del p32, h32
+        free_card(s)
+    assert_greedy(cfg, rec["greedy"])
+    rec["check_s"] = time.perf_counter() - t_check
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    prof = rec["decode_profile"]
+    kern = "not measured" if prof is None else prof["kernels"]
+    g = rec["greedy"]
+    bf16 = ""
+    if "greedy_bf16" in rec:
+        b = rec["greedy_bf16"]
+        bf16 = (f"; in bf16 {b['clear_unequal']} of {b['clear']} clear "
+                f"positions differ, the hidden states within "
+                f"{b['h_dev']:.3g}")
+    ring = ""
+    if "swa" in cfg.pattern:
+        w = min(cfg.sliding_window, cache_len)
+        ring = (f"; its {w}-slot rings wrap: the prompt's last {w} tokens "
+                f"fill them, decode writes slots {ARCH_PROMPT % w}.."
+                f"{(ARCH_PROMPT + ARCH_NEW - 1) % w}")
+    log(f"[archs {name}] {cfg.n_layers} of {full.n_layers} layers, d_model "
+        f"{cfg.d_model}: weights {rec['weight_bytes'] / 1e9:.2f} GB (drawn in "
+        f"{rec['init_s']:.1f} s), peak {rec['peak_bytes'] / 1e9:.2f} GB; "
+        f"forward_embed {ARCH_EMBED[0]} x {ARCH_EMBED[1]} "
+        f"{rec['embed_ms']:.1f} ms (first call {rec['embed_first_ms']:.1f}); "
+        f"prefill {ARCH_BATCH} x {ARCH_PROMPT} {rec['prefill_ms']:.1f} ms "
+        f"({rec['prefill_tokens_per_s']:.0f} tokens/s, "
+        f"{rec['prefill_bf16_peak_share']:.4f} of the bf16 peak at 2 x "
+        f"{active} FLOP a token); decode {rec['decode_ms']:.2f} ms a token "
+        f"(median of {ARCH_NEW}) against a {rec['decode_bound_ms']:.3f} ms "
+        f"bound (active weights but the token table, and {c_bytes / 1e9:.3f} "
+        f"GB of caches, at {s.bw / 1e12:.2f} TB/s); {kern} kernels a decode "
+        f"token; greedy == prefill argmax at {g['clear']} clear positions"
+        f"{' in float32' if g.get('float32') else ''} ({g['close']} close, "
+        f"{g['close_equal']} of them equal too; decode's hidden states "
+        f"within {g['h_dev']:.3g} of a row's largest entry of the "
+        f"prefill's)" + bf16 + ring + (
+            f"; tokens equal at the config's own capacity factor "
+            f"{rec['tokens_equal_at_own_capacity']} of "
+            f"{ARCH_BATCH * (ARCH_NEW + 1)}"
+            if "tokens_equal_at_own_capacity" in rec else "") + f"; {smi}")
+    del params
+    free_card(s)
+    return rec
+
+
+def train_depths(cfg):
+    """Training depths of ``cfg`` to try, largest first: one repeat of the
+    pattern and the tail (two repeats of a one-layer pattern without a
+    tail), then the repeat alone, then shorter prefixes of the pattern,
+    down to 2 layers."""
+    first = at_depth(cfg, 2 if len(cfg.pattern) == 1 and not cfg.tail
+                     else 1)
+    out = [first]
+    if cfg.tail:
+        out.append(at_depth(cfg, 1, tail=()))
+    out += [at_depth(cfg, 1, pattern=cfg.pattern[:k], tail=())
+            for k in range(len(cfg.pattern) - 1, 1, -1)]
+    return out
+
+
+def train_arch(s: Smoke, name, smi):
+    """One config trained at full width on one repeat (``train_depths``:
+    the first whose state, a probe step's memory above its state, a
+    saved layer input a further layer and ARCH_TRAIN_SLACK fit the card's
+    free memory), ARCH_TRAIN_STEPS of TRAIN_BATCH x TRAIN_SEQ tokens."""
+    import math
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import ParallelConfig
+    from repro_torch.train import TrainConfig
+    full = get_config(name)
+    par = ParallelConfig(remat="block", attn_chunk_q=ARCH_CHUNK,
+                         attn_chunk_k=ARCH_CHUNK, logits_chunk=ARCH_CHUNK)
+    warm, timed_n = ARCH_TRAIN_STEPS
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1,
+                       total_steps=warm + timed_n)
+
+    def batches(cfg, n):
+        return [lm_batch(0, i, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         vocab=cfg.vocab, cfg=cfg, device=s.dev)
+                for i in range(n)]
+
+    cands = train_depths(full)
+    free, _ = torch.cuda.mem_get_info()
+    probe = at_depth(full, 1, pattern=full.pattern[:2], tail=()) \
+        if len(full.pattern) >= 2 else at_depth(full, 2, tail=())
+    state, _, _, probe_peak, _ = train_steps(s, probe, par, tcfg,
+                                             batches(probe, 1))
+    del state
+    free_card(s)
+    overhead = probe_peak - train_state_bytes(probe)
+    per_layer = TRAIN_BATCH * TRAIN_SEQ * full.d_model * 2
+
+    def need(c):
+        return (train_state_bytes(c) + overhead
+                + (c.n_layers - probe.n_layers) * per_layer
+                + ARCH_TRAIN_SLACK)
+
+    run = next((c for c in cands if need(c) <= free), None)
+    assert run is not None, f"{name}: no training depth fits {free} bytes"
+    rec = {"arch": name, "layers": run.n_layers, "pattern": list(run.pattern),
+           "tail": list(run.tail), "state_bytes": train_state_bytes(run),
+           "need_bytes": need(run), "free_bytes": free,
+           "probe_overhead_bytes": overhead}
+    if run is not cands[0]:
+        log(f"[archs train {name}] cut to {run.n_layers} layers "
+            f"({list(run.pattern)} + {list(run.tail)}): {cands[0].n_layers} "
+            f"layers need {need(cands[0]) / 1e9:.2f} GB of {free / 1e9:.2f} "
+            f"GB free (state {train_state_bytes(cands[0]) / 1e9:.2f} GB)")
+    state, metrics, times, peak, unchanged = train_steps(
+        s, run, par, tcfg, batches(run, warm + timed_n))
+    del state
+    free_card(s)
+    timed = times[warm:]
+    step_s = statistics.median(timed)
+    rec.update(step_ms=step_s * 1e3, step_ms_all=[t * 1e3 for t in times],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+               bf16_peak_share=6.0 * run.num_active_params() * TRAIN_BATCH
+               * TRAIN_SEQ / step_s / s.bf16,
+               peak_bytes=peak, weights_unchanged=unchanged,
+               **{k: [m[k] for m in metrics]
+                  for k in ("loss", "ce_loss", "aux_loss", "grad_norm")})
+    assert all(math.isfinite(x) for x in rec["loss"] + rec["grad_norm"])
+    assert abs(rec["ce_loss"][0] - math.log(run.vocab)) < ARCH_LOSS_AT_INIT, \
+        (name, rec["ce_loss"][0])
+    if run.moe is not None:
+        assert min(rec["aux_loss"]) > 0, rec["aux_loss"]
+    log(f"[archs train {name}] {run.n_layers} layers x d_model "
+        f"{run.d_model}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: "
+        f"{rec['step_ms']:.1f} ms median of {timed_n} (all "
+        f"{[round(t, 1) for t in rec['step_ms_all']]}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s, {rec['bf16_peak_share']:.4f} "
+        f"of the bf16 peak; state {rec['state_bytes'] / 1e9:.2f} GB, peak "
+        f"{peak / 1e9:.2f} GB; ce_loss {rec['ce_loss']}, aux_loss "
+        f"{rec['aux_loss']}, grad norms {rec['grad_norm']}; unchanged "
+        f"(first rows, bf16) {unchanged}; {smi}")
+    return rec
+
+
+def archs_retrieval(s: Smoke, by_path, smi):
+    """``RetrievalService`` behind ARCH_RETRIEVAL at full width and depth:
+    radii at the 0.005 and 0.03 quantiles of a 1,024-document sample's
+    cosine distances, RETRIEVAL_DOCS documents of RETRIEVAL_SEQ tokens
+    indexed, RETRIEVAL_BATCH queries at each radius on every path against
+    a plain (``impl="ref"``) index of the same state, launches asserted
+    (``retrieval_queries``); K1, K2 and K3 each launched."""
+    np, torch = s.np, s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ParallelConfig, forward_embed, init_params
+    from repro_torch.serve import RetrievalConfig, RetrievalService
+    from repro_torch.streaming import DynamicHybridIndex
+    cfg = get_config(ARCH_RETRIEVAL)
+    par = ParallelConfig(attn_chunk_q=64, attn_chunk_k=64)
+    params = init_params(cfg, 0, device=s.dev)
+    rec = {"arch": cfg.name, "layers": cfg.n_layers,
+           "weight_bytes": params.nbytes()}
+
+    def batch(seed, i):
+        return arch_batch(s, cfg, seed, RETRIEVAL_BATCH, RETRIEVAL_SEQ, i)
+
+    with torch.no_grad():
+        sample = torch.cat([forward_embed(params, batch(1, i), cfg, par)
+                            for i in range(1024 // RETRIEVAL_BATCH)])
+    radii = pick_radii(sample.cpu().numpy(), "cosine")[1:3]
+    rcfg = RetrievalConfig(radius=radii[1])
+    svc = RetrievalService(cfg, par, params, rcfg, device=s.dev)
+    corpus = [batch(1, i) for i in range(RETRIEVAL_DOCS // RETRIEVAL_BATCH)]
+    n, rec["index_corpus_s"] = synced(torch, lambda: svc.index_corpus(corpus))
+    assert n == RETRIEVAL_DOCS
+    plain = DynamicHybridIndex(
+        svc.index.family, params=svc.index.params, impl="ref",
+        num_buckets=rcfg.num_buckets, m=rcfg.hll_m, cap=rcfg.cap,
+        delta_capacity=rcfg.delta_capacity, device=s.dev,
+        cost_model=svc.index.cost_model,
+        policy=svc.index.policy).load_state_dict(svc.index.state_dict())
+    rows = rows_by_id(svc.index, np.zeros((RETRIEVAL_DOCS, cfg.d_model),
+                                          np.float32))
+    qb = batch(2, 0)
+    total = {}
+    rec["radii"], rec["near"], rec["routes"] = radii, {}, {}
+    for i, r in enumerate(radii):
+        res, emb = svc.query(qb, radius=r)
+        _, launches, rec["near"][f"r{i}"] = retrieval_queries(
+            s, svc, plain, emb, r, rows, set(), f"archs retrieval r{i}")
+        by_path[f"archs retrieval r{i}"] = launches
+        rec["routes"][f"r{i}"] = (len(res.lsh_idx), len(res.lin_idx))
+        for path in launches.values():
+            for k, v in path.items():
+                total[k] = total.get(k, 0) + v
+    for k in ("linear_scan_dot", "lsh_scan", "route_estimate"):
+        assert total[k] > 0, f"archs retrieval: kernel {k} was not launched"
+    rec["launches"] = {k: total[k] for k in
+                       ("linear_scan_dot", "lsh_scan", "route_estimate")}
+    log(f"[archs retrieval] {cfg.name} at full width and depth "
+        f"({rec['weight_bytes'] / 1e9:.2f} GB): {n} documents of "
+        f"{RETRIEVAL_SEQ} tokens indexed in {rec['index_corpus_s']:.1f} s; "
+        f"radii {radii}; {RETRIEVAL_BATCH} queries a radius, sets equal "
+        f"the plain index's on every path (near-threshold exceptions "
+        f"{rec['near']}); routes (lsh, linear) {rec['routes']}; K1 / K2 / K3 "
+        f"launches over the paths {rec['launches']}; {smi}")
+    svc.shutdown()
+    del svc, plain, params
+    free_card(s)
+    return rec
+
+
+def drive_archs(s: Smoke, smi, by_path):
+    """The other layer kinds, last, on a card the earlier phases left
+    (less than ARCH_LEFT bytes allocated): each of ARCHS served at full
+    width (``serve_arch``; full depth but where the weights do not fit,
+    Llama-4 Maverick, whose depth is the most layers that fit), each but
+    ARCH_NO_TRAIN trained at full width on one repeat of its pattern
+    (``train_arch``; Maverick's one layer alone holds 16.1e9 expert
+    weights, a 193 GB training state), then ``RetrievalService`` behind
+    Zamba2 (``archs_retrieval``).  Returns the ``[archs]`` record."""
+    torch = s.torch
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    free_card(s)
+    assert torch.cuda.memory_allocated() < ARCH_LEFT, \
+        f"{torch.cuda.memory_allocated()} bytes left on the card"
+    rec = {"card": smi, "serve": {}, "train": {}}
+    for name in ARCHS:
+        t0 = time.perf_counter()
+        rec["serve"][name] = serve_arch(s, name, smi)
+        rec["serve"][name]["s"] = time.perf_counter() - t0
+    for name in ARCHS:
+        if name in ARCH_NO_TRAIN:
+            one = train_state_bytes(at_depth(get_config(name), 1))
+            log(f"[archs train {name}] no train step: a one-layer training "
+                f"state (bf16 weights and grads, float32 m and v; meta "
+                f"device) is {one / 1e9:.0f} GB")
+            rec["train"][name] = {"skipped": "state", "state_bytes": one}
+            continue
+        t0 = time.perf_counter()
+        rec["train"][name] = train_arch(s, name, smi)
+        rec["train"][name]["s"] = time.perf_counter() - t0
+    rec["retrieval"] = archs_retrieval(s, by_path, smi)
+    assert torch.cuda.memory_allocated() < ARCH_LEFT
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[archs] the phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def log_kernel_times(tag, kt):
     for k, v in kt.items():
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
@@ -3643,9 +4164,12 @@ def main() -> int:
     log("[sharded] " + json.dumps(
         {"card": smi, "webspam_static": sharded_static,
          "covertype_streaming": sharded, "retrieval": retrieval["sharded"]}))
-    # -- 7d. training on the dense path, last, on an empty card ---------
+    # -- 7d. training on the dense path, on an empty card ---------------
     train = drive_train(s, smi)
     log("[train] " + json.dumps(train))
+    # -- 7e. the other layer kinds, last, on an empty card ---------------
+    archs = drive_archs(s, smi, by_path)
+    log("[archs] " + json.dumps(archs))
     rkt = retrieval.pop("kernel_times")
     for name in ("linear_scan_dot", "lsh_scan"):
         timings[name]["retrieval d=4096"] = rkt[name]

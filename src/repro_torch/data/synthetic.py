@@ -27,15 +27,12 @@ def lm_batch(seed: int, step: int, *, batch: int, seq: int, vocab: int,
     """Deterministic token batch for (seed, step) on ``device`` (None:
     the GPU): int32 ``tokens`` (batch, seq) and their next tokens as
     ``labels``, drawn on the host so that every device sees the same.
-    ``cfg`` is the reference's: an audio or vision config, whose batches
-    also carry stub frames or image embeddings, raises until those
-    models are ported (Slice F2)."""
+    With an audio ``cfg`` (``encoder_layers``) the batch also carries
+    stub ``frames`` (batch, encoder_seq, d_model), with a vision one
+    (``num_image_tokens``) stub ``image_embeds`` (batch,
+    num_image_tokens, d_model): standard normal in bf16, drawn after the
+    tokens from the same generator."""
     from repro_torch.core.index import resolve_device
-    if cfg is not None and (getattr(cfg, "encoder_layers", 0)
-                            or getattr(cfg, "num_image_tokens", 0)):
-        raise NotImplementedError(
-            f"{cfg.name}: the stub frames and image embeddings of audio "
-            f"and vision batches come with their models (Slice F2)")
     device = resolve_device(device)
     state = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
     gen = torch.Generator().manual_seed(
@@ -43,7 +40,15 @@ def lm_batch(seed: int, step: int, *, batch: int, seq: int, vocab: int,
     toks = torch.randint(0, vocab, (batch, seq + 1), generator=gen,
                          dtype=torch.int32)
     toks = toks.to(device)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg is None:
+        return out
+    for key, n in (("frames", cfg.encoder_seq if cfg.encoder_layers else 0),
+                   ("image_embeds", cfg.num_image_tokens)):
+        if n:
+            out[key] = torch.randn((batch, n, cfg.d_model), generator=gen
+                                   ).to(torch.bfloat16).to(device)
+    return out
 
 
 @dataclasses.dataclass

@@ -75,28 +75,43 @@ def model_params_from_numpy(params, cfg, device):
     """A port ``Transformer`` on ``device`` holding the weights of the
     reference's ``init_params(cfg, key)`` pytree (leaves as numpy, e.g.
     float32 copies of bf16 weights: bf16 -> f32 -> bf16 is exact), cast
-    to ``cfg.param_dtype``.  The ``(repeats, ...)`` leaves of
-    ``params["blocks"]`` are unstacked into per-layer modules in the
+    to ``cfg.param_dtype`` (``FLOAT32_LEAVES``, the router and the SSM's
+    A_log, D and dt_bias, stay float32).  The ``(repeats, ...)`` leaves
+    of ``params["blocks"]`` are unstacked into per-layer modules in the
     reference's execution order: repeat by repeat, pattern position by
-    pattern position, then the tail."""
-    from repro_torch.models.transformer import from_leaves
+    pattern position, then the tail; the encoder's ``(encoder_layers,
+    ...)`` leaves likewise; ``shared`` and ``img_proj`` as they are."""
+    from repro_torch.models.transformer import FLOAT32_LEAVES, from_leaves
     dt = cfg.param_dtype
 
-    def leaf(a):
-        return _tensor(np.asarray(a, np.float32), dt, device)
+    def leaf(a, name=""):
+        return _tensor(np.asarray(a, np.float32),
+                       torch.float32 if name in FLOAT32_LEAVES else dt,
+                       device)
 
     def layer(tree, i=None):
-        return {k: ({kk: leaf(vv if i is None else vv[i])
+        return {k: ({kk: leaf(vv if i is None else vv[i], kk)
                      for kk, vv in v.items()} if isinstance(v, dict)
-                    else leaf(v if i is None else v[i]))
+                    else leaf(v if i is None else v[i], k))
                 for k, v in tree.items()}
 
-    layers = [layer(params["blocks"][pos], i)
-              for i in range(cfg.n_repeats)
-              for pos in range(len(cfg.pattern))]
-    layers += [layer(t) for t in params["tail"]]
-    return from_leaves(cfg, leaf(params["embed"]), layers,
-                       leaf(params["final_norm"]), leaf(params["lm_head"]))
+    tree = {"embed": leaf(params["embed"]),
+            "final_norm": leaf(params["final_norm"]),
+            "lm_head": leaf(params["lm_head"]),
+            "layers": [layer(params["blocks"][pos], i)
+                       for i in range(cfg.n_repeats)
+                       for pos in range(len(cfg.pattern))]
+            + [layer(t) for t in params["tail"]]}
+    if "shared" in params:
+        tree["shared"] = layer(params["shared"])
+    if "encoder" in params:
+        enc = params["encoder"]
+        tree["encoder"] = {"blocks": [layer(enc["blocks"], i)
+                                      for i in range(cfg.encoder_layers)],
+                           "final_norm": leaf(enc["final_norm"])}
+    if "img_proj" in params:
+        tree["img_proj"] = leaf(params["img_proj"])
+    return from_leaves(cfg, tree)
 
 
 def train_state_from_numpy(state, cfg, device):

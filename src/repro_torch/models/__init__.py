@@ -1,4 +1,6 @@
-"""Model zoo, its dense decoder-only path (one device)."""
+"""Model zoo: every layer kind of the ten configs (attention, sliding
+window, MoE, Mamba-1/2, the shared block, cross attention, the encoder),
+on one device."""
 from repro_torch.models.parallel import ParallelConfig
 from repro_torch.models.transformer import (Transformer, decode_step,
                                             forward_embed, forward_train,

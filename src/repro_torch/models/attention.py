@@ -1,19 +1,23 @@
 """Attention for the model zoo (one device).
 
 Prefill: blockwise ("flash-style") attention as an online softmax over
-KV chunks, in plain PyTorch: O(S * chunk) score memory, causal, GQA
-grouping.  Decode: one token against a KV cache updated in place.
+KV chunks, in plain PyTorch: O(S * chunk) score memory, causal,
+sliding-window and cross attention with GQA grouping.  Decode: one
+token against a KV cache updated in place (a ring buffer of the window
+for sliding-window layers), or against a cross-attention memory's
+static K/V.
 
 The arithmetic of ``repro.models.attention``: scores, softmax and the
-probability-value product in float32 from the parameter-dtype q, k, v.
-``flash_decode``'s sharded branch, the sliding-window ring buffer and
-cross attention come with Slices E and F.
+probability-value product in float32 from the parameter-dtype q, k, v
+(``probs_bf16`` rounds the probabilities to bf16 before the product).
+``flash_decode``'s sharded branch comes with Slice F3.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import apply_rope, dense_init, params_dict
 
@@ -43,50 +47,68 @@ def _divisor_chunk(s: int, c: int) -> int:
 
 
 # ------------------------------------------------------------- blockwise
+def _q_chunk(qc, qpos, kc, vc, k_pos, ck: int, causal: bool, window: int,
+             probs_bf16: bool):
+    """One q chunk (B, Hkv, G, cq, hd) against every KV chunk in order:
+    running max ``m``, sum ``l`` and float32 accumulator."""
+    b, hkv, g, cq, hd = qc.shape
+    scale = hd ** -0.5
+    m = torch.full((b, hkv, g, cq), _NEG, dtype=torch.float32,
+                   device=qc.device)
+    l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=qc.device)
+    acc = torch.zeros((b, hkv, g, cq, hd), dtype=torch.float32,
+                      device=qc.device)
+    for ks in range(0, kc.shape[2], ck):
+        kk, vv = kc[:, :, ks:ks + ck], vc[:, :, ks:ks + ck]
+        kpos = k_pos[ks:ks + ck]
+        s = torch.einsum("bngqh,bnkh->bngqk", qc, kk) * scale
+        mask = torch.ones((cq, kk.shape[2]), dtype=torch.bool,
+                          device=qc.device)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if window:
+            mask &= (qpos[:, None] - kpos[None, :]) < window
+        s = s.masked_fill(~mask, _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        if probs_bf16:
+            p = p.to(torch.bfloat16).float()
+        acc = acc * corr[..., None] + torch.einsum("bngqk,bnkh->bngqh", p, vv)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: torch.Tensor, k_pos: torch.Tensor, *,
-                        causal: bool, chunk_q: int = 512, chunk_k: int = 512
-                        ) -> torch.Tensor:
+                        causal: bool, window: int = 0, chunk_q: int = 512,
+                        chunk_k: int = 512, remat_qchunk: bool = False,
+                        probs_bf16: bool = False) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd) -> (B, Sq, H, hd).
 
-    Online softmax over KV chunks: per q chunk, running max ``m``, sum
-    ``l`` and float32 accumulator over the KV chunks in order.
+    Online softmax over KV chunks.  ``window``: a query attends to keys
+    less than ``window`` positions before it.  ``remat_qchunk``: each q
+    chunk runs under ``torch.utils.checkpoint``, so that the backward
+    pass recomputes its KV loop instead of keeping its probabilities.
+    ``probs_bf16``: the probabilities are rounded to bf16 before the
+    p @ v product (m and l stay float32).
     """
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     cq = _divisor_chunk(sq, chunk_q)
     ck = _divisor_chunk(sk, chunk_k)
-    scale = hd ** -0.5
     # (B, Hkv, G, Sq, hd) and (B, Hkv, Sk, hd), float32
     qg = q.reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4).float()
     kc = k.permute(0, 2, 1, 3).float()
     vc = v.permute(0, 2, 1, 3).float()
     outs = []
     for qs in range(0, sq, cq):
-        qc, qpos = qg[:, :, :, qs:qs + cq], q_pos[qs:qs + cq]
-        m = torch.full((b, hkv, g, cq), _NEG, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((b, hkv, g, cq), dtype=torch.float32,
-                        device=q.device)
-        acc = torch.zeros((b, hkv, g, cq, hd), dtype=torch.float32,
-                          device=q.device)
-        for ks in range(0, sk, ck):
-            kk, vv = kc[:, :, ks:ks + ck], vc[:, :, ks:ks + ck]
-            kpos = k_pos[ks:ks + ck]
-            s = torch.einsum("bngqh,bnkh->bngqk", qc, kk) * scale
-            mask = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
-            if causal:
-                mask &= qpos[:, None] >= kpos[None, :]
-            s = s.masked_fill(~mask, _NEG)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bngqk,bnkh->bngqh", p, vv)
-            m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+        args = (qg[:, :, :, qs:qs + cq], q_pos[qs:qs + cq], kc, vc, k_pos,
+                ck, causal, window, probs_bf16)
+        outs.append(checkpoint(_q_chunk, *args, use_reentrant=False)
+                    if remat_qchunk else _q_chunk(*args))
     out = torch.cat(outs, dim=3)                        # (B, Hkv, G, Sq, hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
     return out.to(q.dtype)
@@ -94,20 +116,32 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def self_attention(params, x: torch.Tensor, positions: torch.Tensor, *,
                    n_heads: int, n_kv: int, hd: int, rope_theta: float,
-                   causal: bool = True, chunk_q: int = 512,
-                   chunk_k: int = 512, return_kv: bool = False):
+                   causal: bool = True, window: int = 0, chunk_q: int = 512,
+                   chunk_k: int = 512, memory: Optional[torch.Tensor] = None,
+                   return_kv: bool = False, remat_qchunk: bool = False,
+                   probs_bf16: bool = False):
     """Full block: project -> rope -> blockwise attention -> out-proj.
-    With ``return_kv``, also returns the (post-rope) k, v for KV
-    caches."""
+
+    With ``memory`` (B, Sk, D), k and v come from it (cross attention:
+    no RoPE on q or k, key positions ``arange(Sk)``).  With
+    ``return_kv``, also returns the (post-rope) k, v for KV caches."""
     b, s, _ = x.shape
     q = (x @ params["wq"]).reshape(b, s, n_heads, hd)
-    k = (x @ params["wk"]).reshape(b, s, n_kv, hd)
-    v = (x @ params["wv"]).reshape(b, s, n_kv, hd)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
-    pos = positions[0] if positions.ndim > 1 else positions
-    out = blockwise_attention(q, k, v, pos, pos, causal=causal,
-                              chunk_q=chunk_q, chunk_k=chunk_k)
+    src = x if memory is None else memory
+    sk = src.shape[1]
+    k = (src @ params["wk"]).reshape(b, sk, n_kv, hd)
+    v = (src @ params["wv"]).reshape(b, sk, n_kv, hd)
+    q_pos = positions[0] if positions.ndim > 1 else positions
+    if memory is None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+        k_pos = q_pos
+    else:
+        k_pos = torch.arange(sk, dtype=torch.int32, device=x.device)
+    out = blockwise_attention(q, k, v, q_pos, k_pos, causal=causal,
+                              window=window, chunk_q=chunk_q,
+                              chunk_k=chunk_k, remat_qchunk=remat_qchunk,
+                              probs_bf16=probs_bf16)
     out = out.reshape(b, s, n_heads * hd) @ params["wo"]
     if return_kv:
         return out, k, v
@@ -147,10 +181,13 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_self_attention(params, x_tok: torch.Tensor, cache: dict,
                           lengths: torch.Tensor, *, n_heads: int, n_kv: int,
-                          hd: int, rope_theta: float
+                          hd: int, rope_theta: float, window: int = 0
                           ) -> Tuple[torch.Tensor, dict]:
     """One decode step.  x_tok: (B, D); cache: {"k","v"}: (B, S, Hkv, hd),
-    written in place at each row's position ``lengths``.
+    written in place at each row's position ``lengths``.  With
+    ``window`` the cache is a ring buffer: the slot is ``lengths % S``
+    and the valid slots are ``min(lengths + 1, window)``, each within the
+    window by construction.
 
     Returns (out (B, D), cache)."""
     b, _ = x_tok.shape
@@ -159,10 +196,25 @@ def decode_self_attention(params, x_tok: torch.Tensor, cache: dict,
     v = (x_tok @ params["wv"]).reshape(b, 1, n_kv, hd)
     q = apply_rope(q, lengths[:, None], rope_theta)[:, 0]
     k = apply_rope(k, lengths[:, None], rope_theta)[:, 0]
+    s_cache = cache["k"].shape[1]
     bidx = torch.arange(b, device=x_tok.device)
-    slot = lengths.long()
+    slot = (lengths % s_cache if window else lengths).long()
     cache["k"][bidx, slot] = k.to(cache["k"].dtype)
     cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    valid = torch.clamp(lengths + 1, max=window) if window else lengths + 1
     out = flash_decode(q, cache["k"], cache["v"],
-                       lengths + 1).reshape(b, n_heads * hd)
+                       valid).reshape(b, n_heads * hd)
     return out.to(x_tok.dtype) @ params["wo"], cache
+
+
+def decode_cross_attention(params, x_tok: torch.Tensor, memory_kv: dict, *,
+                           n_heads: int, n_kv: int, hd: int) -> torch.Tensor:
+    """Cross attention at decode: x_tok (B, D) against the memory's static
+    K/V ``{"k", "v"}`` (B, Sk, Hkv, hd), every key valid, no RoPE."""
+    b, _ = x_tok.shape
+    q = (x_tok @ params["wq"]).reshape(b, n_heads, hd)
+    mlen = memory_kv["k"].shape[1]
+    lengths = torch.full((b,), mlen, dtype=torch.int32, device=x_tok.device)
+    out = flash_decode(q, memory_kv["k"], memory_kv["v"],
+                       lengths).reshape(b, n_heads * hd)
+    return out.to(x_tok.dtype) @ params["wo"]

@@ -12,12 +12,32 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# a leaf of more float32 entries than this is drawn a slice along its
+# first axis at a time, so that its float32 draw never needs a second
+# full-size copy on the card (Llama-4 Maverick's (128, 5120, 8192) experts)
+DRAW_SLICE = 1 << 30
+
+
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
                scale: float = 1.0, dtype=torch.bfloat16,
                device=None) -> torch.Tensor:
     """Truncated-normal fan-in init, drawn in float32 on ``device`` from
-    ``gen`` (a generator on that device), then cast to ``dtype``."""
+    ``gen`` (a generator on that device), then cast to ``dtype``; a leaf
+    above DRAW_SLICE entries is drawn and cast one slice of its first
+    axis at a time."""
     std = scale / math.sqrt(shape[in_axis])
+    n = math.prod(shape)
+    if n <= DRAW_SLICE:
+        return _draw(gen, shape, std, dtype, device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_SLICE // (n // shape[0]))
+    for i in range(0, shape[0], rows):
+        out[i:i + rows] = _draw(gen, out[i:i + rows].shape, std, dtype,
+                                device)
+    return out
+
+
+def _draw(gen, shape, std, dtype, device) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std).to(dtype)

@@ -1,0 +1,139 @@
+"""Mixture-of-Experts MLP with sort-based (gather/scatter) dispatch, one
+device.
+
+The arithmetic of ``repro.models.moe.moe_apply``: a float32 router,
+softmax and top-k; the Switch-style load-balancing loss
+E * sum_e f_e p_e; the (token, choice) pairs sorted by expert with a
+stable sort, each pair's position in its expert's group, and the
+capacity clamp ``int(capacity_factor * T * top_k / E) or 1`` (pairs past
+it are dropped: their gate mass stays out of the combine); the kept
+tokens scattered into an (E, C, D) buffer, the stacked-expert products,
+and a float32 combine that adds each kept pair's gate-weighted output at
+its token.  No (tokens, experts, capacity) one-hot tensor.
+
+The combine is an ``index_add_``: on the GPU its float32 additions run
+in no fixed order (atomics), so outputs agree with another order within
+float32 rounding, not bit for bit.  Where the capacity is large (a
+capacity factor of E / top_k holds every token), the experts run in
+passes of at most MAX_BUFFER buffer entries, each pass over its experts'
+run of the sorted pairs, adding their outputs.  The per-shard dispatch
+(``_moe_apply_local``) comes with Slice F3.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import dense_init, params_dict
+
+
+# entries of the (experts, capacity, width) buffers a pass of moe_apply
+MAX_BUFFER = 1 << 28
+
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
+             num_experts: int, dtype=torch.bfloat16, device=None):
+    """The router (float32 whatever ``dtype``) and the stacked experts'
+    gated-MLP weights."""
+    return params_dict(
+        router=dense_init(gen, (d_model, num_experts), 0,
+                          dtype=torch.float32, device=device),
+        wi=dense_init(gen, (num_experts, d_model, d_ff), 1, dtype=dtype,
+                      device=device),
+        wg=dense_init(gen, (num_experts, d_model, d_ff), 1, dtype=dtype,
+                      device=device),
+        wo=dense_init(gen, (num_experts, d_ff, d_model), 1, dtype=dtype,
+                      device=device))
+
+
+def capacity(t: int, top_k: int, num_experts: int,
+             capacity_factor: float) -> int:
+    """Slots an expert keeps for ``t`` tokens (the reference's clamp)."""
+    return int(capacity_factor * t * top_k / num_experts) or 1
+
+
+def dispatch(probs: torch.Tensor, top_k: int, cap: int):
+    """The routing of (T, E) router probabilities: top-k, then the
+    (token, choice) pairs sorted stably by expert.  Returns (gate, token,
+    expert, slot) of the sorted pairs, float32 / int64 / int64 / int64,
+    where ``slot`` is ``expert * cap + position`` for a kept pair and
+    ``E * cap`` (past the buffer) for a dropped one, and the top-k
+    experts (T, top_k)."""
+    t, e = probs.shape
+    gate, expert = torch.topk(probs, top_k, dim=-1)           # (T, K)
+    flat_expert = expert.reshape(-1)
+    order = torch.sort(flat_expert, stable=True).indices
+    se = flat_expert[order]
+    sg = gate.reshape(-1)[order]
+    stok = torch.div(order, top_k, rounding_mode="floor")
+    counts = torch.bincount(se, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * top_k, device=probs.device) - starts[se]
+    slot = torch.where(pos < cap, se * cap + pos, e * cap)
+    return sg, stok, se, slot, expert
+
+
+def moe_apply(params, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float, act: str = "silu"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux_loss float32
+    0-d)."""
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+    t = b * s
+    xt = x.reshape(t, d)
+    probs = torch.softmax(xt.float() @ params["router"], dim=-1)  # (T, E)
+    cap = capacity(t, top_k, e, capacity_factor)
+    sg, stok, se, slot, expert = dispatch(probs, top_k, cap)
+
+    # Load-balancing aux loss (Switch-style): E * sum_e f_e * p_e.
+    density = torch.bincount(expert[:, 0], minlength=e).float() / t
+    aux = e * torch.sum(density * probs.mean(dim=0))
+
+    # the experts in passes of at most MAX_BUFFER entries of an
+    # (experts, capacity, width) buffer: one pass at the configs' own
+    # capacity factors; several where the capacity holds every token
+    f = params["wi"].shape[2]
+    per = max(1, MAX_BUFFER // (cap * max(d, f)))
+    xs = xt[stok]
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    if per >= e:
+        out = out.index_add(0, stok, _experts(params, xs, sg, slot, 0, e,
+                                              cap, act))
+        return out.reshape(b, s, d).to(x.dtype), aux
+    # a pass takes the sorted pairs of its experts, a contiguous run
+    # (one read of the bounds to the host)
+    firsts = torch.arange(0, e + per, per, device=x.device).clamp(max=e)
+    bounds = torch.searchsorted(se, firsts).tolist()
+    for i, e0 in enumerate(range(0, e, per)):
+        lo, hi = bounds[i], bounds[i + 1]
+        if lo == hi:
+            continue
+        g = min(per, e - e0)
+        out = out.index_add(0, stok[lo:hi], _experts(
+            params, xs[lo:hi], sg[lo:hi], slot[lo:hi] - e0 * cap, e0, g, cap,
+            act))
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _experts(params, xs, sg, local, e0: int, g: int, cap: int, act: str):
+    """Experts e0 .. e0 + g - 1 on sorted pairs' rows ``xs``: each pair
+    whose ``local`` slot lies in [0, g * cap) is written once into the
+    (g, cap, D) buffer, the rest (dropped) land on an extra row that is
+    cut off.  Returns each pair's gate-weighted output, float32 (0 for a
+    dropped pair)."""
+    d = xs.shape[1]
+    local = torch.where((local >= 0) & (local < g * cap), local, g * cap)
+    buf = torch.zeros((g * cap + 1, d), dtype=xs.dtype, device=xs.device)
+    buf = buf.index_copy(0, local, xs)[:-1].reshape(g, cap, d)
+    h = torch.bmm(buf, params["wi"][e0:e0 + g])
+    gt = torch.bmm(buf, params["wg"][e0:e0 + g])
+    if act == "silu":
+        h = F.silu(gt) * h
+    else:
+        h = torch.square(torch.relu(gt)) * h
+    y = torch.bmm(h, params["wo"][e0:e0 + g]).reshape(g * cap, d)
+    y = torch.cat([y, y.new_zeros((1, d))])
+    return y[local].float() * sg[:, None]

@@ -1,67 +1,117 @@
-"""Model assembly: the dense decoder-only transformer (one device).
+"""Model assembly: block-pattern transformer / SSM / MoE / hybrid LMs (one
+device).
 
 A model is a ``Transformer`` module: the token table, an
 ``nn.ModuleList`` of per-layer ``Layer`` modules in execution order
 (the reference scans a stacked copy of the block pattern; here the
 ``repeats`` copies and the ``tail`` are unrolled), the final norm and
-the LM head.  Entry points, with the reference's signatures (``params``
-is the module):
+the LM head; with a ``SHARED_ATTN`` layer kind, the one ``shared``
+attention block that every such layer runs (weight tying: its grads add
+up over the uses); with ``encoder_layers``, the bidirectional
+``encoder`` over stub audio frames; with ``num_image_tokens``, the
+``img_proj`` of stub image embeddings.  The encoder's output or the
+projected image tokens are the memory that ``CROSS`` layers attend to.
+Entry points, with the reference's signatures (``params`` is the
+module):
 
   forward_train(params, batch, cfg, par)   -> (loss, metrics)
   forward_embed(params, batch, cfg, par)   -> (B, D) f32 unit rows
   prefill(params, batch, cfg, par, cache_len) -> (h_last, caches, lengths)
   decode_step(params, caches, token, lengths, cfg, par) -> (h_last, caches)
 
-Decode writes each layer's KV cache in place (the reference's buffer
-donation).  ``forward_train`` with ``par.remat == "block"`` runs each
-layer under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint`` of the scanned block): the backward pass recomputes
-it from its input.  Only the ``ATTN`` layer kind is ported: any other
-kind (sliding window, MoE, Mamba, cross attention, the shared block)
-raises ``NotImplementedError``; those come with Slice F2.
+``batch`` holds (B, S) ``tokens`` (and ``labels`` to train), plus
+(B, encoder_seq, D) ``frames`` or (B, num_image_tokens, D)
+``image_embeds`` where the config has them.
+
+Each layer kind has its own decode cache (``init_caches``): a full KV
+cache (``ATTN``, ``MOE``, ``SHARED_ATTN``, ``CROSS``), a ring of
+``min(window, cache_len)`` slots (``SWA``: slot = position % size), the
+memory's K/V (``CROSS``), the conv window and the float32 SSM state
+(``MAMBA1`` / ``MAMBA2``).  Decode writes them in place (the reference's
+buffer donation).  A sliding-window prefill keeps the whole prompt's last
+``min(S, size)`` tokens in its ring; the reference's keeps only the last
+``size - S`` of a prompt shorter than the ring (w / 2 < S < w loses
+tokens), which the port does not copy.
+
+``forward_train`` with ``par.remat == "block"`` runs each repeat of the
+block pattern, each tail layer and each encoder layer under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+scanned bodies): the backward pass recomputes them from their inputs.
+Its loss adds 0.01 x the MoE layers' summed load-balancing loss.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, ArchConfig
+from repro_torch.configs.base import (ATTN, CROSS, MAMBA1, MAMBA2, MOE,
+                                      SHARED_ATTN, SWA, ArchConfig)
 from repro_torch.core.index import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as emb_lib
-from repro_torch.models.common import (mlp_apply, mlp_init, params_dict,
-                                       rmsnorm, rmsnorm_init)
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.common import (dense_init, mlp_apply, mlp_init,
+                                       params_dict, rmsnorm, rmsnorm_init)
 from repro_torch.models.parallel import ParallelConfig
 
-__all__ = ["Layer", "Transformer", "check_ported", "init_params",
+__all__ = ["Layer", "Transformer", "Encoder", "check_ported", "init_params",
            "forward_train", "hidden_states", "forward_embed", "init_caches",
-           "prefill", "decode_step"]
+           "prefill", "decode_step", "FLOAT32_LEAVES"]
+
+KINDS = (ATTN, SWA, MOE, MAMBA1, MAMBA2, SHARED_ATTN, CROSS)
+ATTN_KINDS = (ATTN, SWA, MOE, CROSS, SHARED_ATTN)
+# leaves that are float32 whatever the config's dtype (the reference's)
+FLOAT32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias"})
 
 
 class Layer(nn.Module):
-    """One ``ATTN`` block: pre-norm self-attention, then a pre-norm
-    gated MLP, each added to the residual stream."""
+    """One layer of ``kind``, holding the reference's leaves of that kind
+    under the reference's names: ``norm1``, ``attn``, ``norm2`` and
+    ``mlp`` or ``moe``, plus ``normx`` and ``xattn`` for ``CROSS``;
+    ``norm1`` and ``mixer`` for Mamba; only ``marker`` for
+    ``SHARED_ATTN``, whose weights live in ``Transformer.shared``.  A
+    leaf is a tensor or a dict of tensors."""
 
-    def __init__(self, norm1, attn: nn.ParameterDict, norm2,
-                 mlp: nn.ParameterDict):
+    def __init__(self, kind: str, **leaves):
         super().__init__()
-        self.norm1 = nn.Parameter(norm1, requires_grad=False)
-        self.attn = attn
-        self.norm2 = nn.Parameter(norm2, requires_grad=False)
-        self.mlp = mlp
+        self.kind = kind
+        for name, v in leaves.items():
+            if isinstance(v, nn.ParameterDict):
+                setattr(self, name, v)
+            elif isinstance(v, dict):
+                setattr(self, name, params_dict(**v))
+            else:
+                setattr(self, name, nn.Parameter(v, requires_grad=False))
+
+
+class Encoder(nn.Module):
+    """The Whisper-style bidirectional encoder: ``ATTN`` blocks run
+    without the causal mask, then a final norm."""
+
+    def __init__(self, blocks: Sequence[Layer], final_norm):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
 
 
 class Transformer(nn.Module):
-    def __init__(self, embed, blocks: Sequence[Layer], final_norm, lm_head):
+    def __init__(self, embed, blocks: Sequence[Layer], final_norm, lm_head,
+                 shared: Optional[Layer] = None,
+                 encoder: Optional[Encoder] = None, img_proj=None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.lm_head = nn.Parameter(lm_head, requires_grad=False)
+        self.shared = shared
+        self.encoder = encoder
+        self.img_proj = (None if img_proj is None
+                         else nn.Parameter(img_proj, requires_grad=False))
 
     @property
     def device(self) -> torch.device:
@@ -72,53 +122,113 @@ class Transformer(nn.Module):
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise unless every layer of ``cfg`` is a kind the port runs."""
-    kinds = set(cfg.pattern) | set(cfg.tail)
-    if kinds != {ATTN} or cfg.encoder_layers or cfg.num_image_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)} — only dense "
-            f"'{ATTN}' stacks are ported (the rest comes with Slice F2)")
+    """Raise ``ValueError`` for a layer kind the model zoo does not know,
+    or an MoE or Mamba layer without its ``moe`` / ``ssm`` spec.  Every
+    kind is ported; what stays unported is a ``ParallelConfig`` with a
+    ``mesh`` or ``moe_local_dispatch`` (Slice F3), which raises where it
+    is made."""
+    for kind in cfg.pattern + cfg.tail:
+        if kind not in KINDS:
+            raise ValueError(f"{cfg.name}: unknown layer kind {kind!r}")
+        if kind == MOE and cfg.moe is None:
+            raise ValueError(f"{cfg.name}: a '{MOE}' layer needs cfg.moe")
+        if kind in (MAMBA1, MAMBA2) and cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: a '{kind}' layer needs cfg.ssm")
+
+
+def layer_kinds(cfg: ArchConfig) -> List[str]:
+    """The kind of each layer in execution order: repeat by repeat,
+    pattern position by pattern position, then the tail."""
+    return list(cfg.pattern) * cfg.n_repeats + list(cfg.tail)
+
+
+def _dt_rank(cfg: ArchConfig) -> int:
+    return cfg.ssm.dt_rank or -(-cfg.d_model // 16)
 
 
 # ===================================================================== init
 
-def _init_layer(gen, cfg: ArchConfig, dt, device) -> Layer:
+def _attn_block(gen, cfg: ArchConfig, dt, device) -> Dict:
     d = cfg.d_model
-    return Layer(
-        rmsnorm_init(d, dt, device),
-        attn_lib.init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dt,
-                           device),
-        rmsnorm_init(d, dt, device),
-        mlp_init(gen, d, cfg.d_ff, dt, device))
+    return dict(norm1=rmsnorm_init(d, dt, device),
+                attn=attn_lib.init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.hd, dt, device),
+                norm2=rmsnorm_init(d, dt, device))
+
+
+def _init_layer(gen, kind: str, cfg: ArchConfig, dt, device) -> Layer:
+    d = cfg.d_model
+    if kind == SHARED_ATTN:
+        return Layer(kind, marker=torch.zeros((1,), dtype=dt, device=device))
+    if kind in (MAMBA1, MAMBA2):
+        s = cfg.ssm
+        mixer = (ssm_lib.init_mamba1(gen, d, s.d_state, s.expand, s.d_conv,
+                                     s.dt_rank, dt, device) if kind == MAMBA1
+                 else ssm_lib.init_mamba2(gen, d, s.d_state, s.expand,
+                                          s.d_conv, s.head_dim, dt, device))
+        return Layer(kind, norm1=rmsnorm_init(d, dt, device), mixer=mixer)
+    leaves = _attn_block(gen, cfg, dt, device)
+    if kind == MOE:
+        leaves["moe"] = moe_lib.init_moe(gen, d, cfg.d_ff,
+                                         cfg.moe.num_experts, dt, device)
+    else:
+        leaves["mlp"] = mlp_init(gen, d, cfg.d_ff, dt, device)
+    if kind == CROSS:
+        leaves["normx"] = rmsnorm_init(d, dt, device)
+        leaves["xattn"] = attn_lib.init_attn(gen, d, cfg.n_heads,
+                                             cfg.n_kv_heads, cfg.hd, dt,
+                                             device)
+    return Layer(kind, **leaves)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     """Random weights drawn on ``device`` (None: the GPU) from a
     generator seeded with ``seed``, one leaf at a time: each is drawn in
-    float32 and cast to ``cfg.param_dtype`` before the next.  On the
-    "meta" device the weights have shapes and dtypes only (no draws):
-    a model's bytes are counted there before it is built."""
+    float32 and cast to ``cfg.param_dtype`` (``FLOAT32_LEAVES`` stay
+    float32) before the next.  On the "meta" device the weights have
+    shapes and dtypes only (no draws): a model's bytes are counted there
+    before it is built."""
     check_ported(cfg)
     device = resolve_device(device)
     gen = (None if device.type == "meta"
            else torch.Generator(device=device).manual_seed(int(seed)))
-    dt = cfg.param_dtype
-    embed = emb_lib.init_table(gen, cfg.vocab, cfg.d_model, dt, device)
-    blocks = [_init_layer(gen, cfg, dt, device) for _ in range(cfg.n_layers)]
-    head = emb_lib.init_table(gen, cfg.vocab, cfg.d_model, dt, device)
-    return Transformer(embed, blocks, rmsnorm_init(cfg.d_model, dt, device),
-                       head)
+    dt, d = cfg.param_dtype, cfg.d_model
+    embed = emb_lib.init_table(gen, cfg.vocab, d, dt, device)
+    blocks = [_init_layer(gen, kind, cfg, dt, device)
+              for kind in layer_kinds(cfg)]
+    head = emb_lib.init_table(gen, cfg.vocab, d, dt, device)
+    shared = encoder = img_proj = None
+    if SHARED_ATTN in cfg.pattern + cfg.tail:
+        shared = Layer(ATTN, **_attn_block(gen, cfg, dt, device),
+                       mlp=mlp_init(gen, d, cfg.d_ff, dt, device))
+    if cfg.encoder_layers:
+        encoder = Encoder([_init_layer(gen, ATTN, cfg, dt, device)
+                           for _ in range(cfg.encoder_layers)],
+                          rmsnorm_init(d, dt, device))
+    if cfg.num_image_tokens:
+        img_proj = dense_init(gen, (d, d), 0, dtype=dt, device=device)
+    return Transformer(embed, blocks, rmsnorm_init(d, dt, device), head,
+                       shared, encoder, img_proj)
 
 
-def from_leaves(cfg: ArchConfig, embed, layers: List[Dict], final_norm,
-                lm_head) -> Transformer:
-    """A ``Transformer`` of given tensors; ``layers`` in execution order,
-    each ``{"norm1", "attn": {"wq", "wk", "wv", "wo"}, "norm2",
-    "mlp": {"wi", "wg", "wo"}}``."""
+def from_leaves(cfg: ArchConfig, tree) -> Transformer:
+    """A ``Transformer`` of given tensors: ``tree`` holds ``embed``,
+    ``final_norm``, ``lm_head``, ``layers`` (one dict of leaves a layer,
+    in execution order, as ``Layer`` takes them) and, where the config
+    has them, ``shared`` (a dict of an ``ATTN`` layer's leaves),
+    ``encoder`` ({"blocks": a list of such dicts, "final_norm"}) and
+    ``img_proj``."""
     check_ported(cfg)
-    blocks = [Layer(lp["norm1"], params_dict(**lp["attn"]), lp["norm2"],
-                    params_dict(**lp["mlp"])) for lp in layers]
-    return Transformer(embed, blocks, final_norm, lm_head)
+    blocks = [Layer(kind, **lp)
+              for kind, lp in zip(layer_kinds(cfg), tree["layers"])]
+    shared = (Layer(ATTN, **tree["shared"]) if tree.get("shared") is not None
+              else None)
+    enc = tree.get("encoder")
+    encoder = (None if enc is None else
+               Encoder([Layer(ATTN, **lp) for lp in enc["blocks"]],
+                       enc["final_norm"]))
+    return Transformer(tree["embed"], blocks, tree["final_norm"],
+                       tree["lm_head"], shared, encoder, tree.get("img_proj"))
 
 
 # ============================================================== forward
@@ -126,7 +236,8 @@ def from_leaves(cfg: ArchConfig, embed, layers: List[Dict], final_norm,
 def _attn_kwargs(cfg: ArchConfig, par: ParallelConfig):
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
                 rope_theta=cfg.rope_theta, chunk_q=par.attn_chunk_q,
-                chunk_k=par.attn_chunk_k)
+                chunk_k=par.attn_chunk_k, remat_qchunk=par.attn_remat,
+                probs_bf16=par.attn_probs_bf16)
 
 
 def _tokens(batch, device, key: str = "tokens") -> torch.Tensor:
@@ -138,69 +249,170 @@ def _tokens(batch, device, key: str = "tokens") -> torch.Tensor:
     return t.to(device=device, dtype=torch.int64)
 
 
+def _embeds(batch, key: str, device, dtype) -> torch.Tensor:
+    """A batch's stub ``frames`` or ``image_embeds`` (numpy, or a tensor
+    anywhere) in ``dtype`` on ``device``."""
+    t = batch[key]
+    if not isinstance(t, torch.Tensor):
+        t = torch.from_numpy(np.array(t, dtype=np.float32))
+    return t.to(device=device, dtype=dtype)
+
+
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
+def _zero(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
+def _fill_kv(cache, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a prompt's (B, S, Hkv, hd) k and v (positions 0..S-1) into a
+    KV cache: positions 0..S-1 of a full cache; the last min(S, size)
+    positions of a ring at slot position % size."""
+    s, size = k.shape[1], cache["k"].shape[1]
+    n = min(s, size)
+    slots = torch.arange(s - n, s, device=k.device) % size
+    cache["k"][:, slots] = k[:, s - n:]
+    cache["v"][:, slots] = v[:, s - n:]
+
+
 def _layer(lp: Layer, h: torch.Tensor, positions: torch.Tensor,
-           cfg: ArchConfig, par: ParallelConfig, cache=None) -> torch.Tensor:
-    """One layer on the (B, S, D) residual stream; with ``cache``, its
-    (post-RoPE) k and v written into the cache's first S positions."""
+           cfg: ArchConfig, par: ParallelConfig, memory=None, shared=None,
+           cache=None, causal: bool = True):
+    """One layer on the (B, S, D) residual stream -> (h, aux), aux the MoE
+    load-balancing loss (float32 0-d; 0 for other kinds).  With
+    ``cache``, the layer's decode cache is written: k and v, the memory's
+    K/V, or the SSM's conv window and final state."""
+    eps, kind = cfg.norm_eps, lp.kind
+    aux = _zero(h.device)
+    if kind in (MAMBA1, MAMBA2):
+        s = cfg.ssm
+        x = rmsnorm(h, lp.norm1, eps)
+        want = cache is not None
+        if kind == MAMBA1:
+            out = ssm_lib.mamba1_block(
+                lp.mixer, x, d_state=s.d_state, chunk=s.chunk,
+                dt_rank=_dt_rank(cfg), return_state=want,
+                remat=par.ssm_remat)
+        else:
+            out = ssm_lib.mamba2_block(
+                lp.mixer, x, d_state=s.d_state, head_dim=s.head_dim,
+                chunk=s.chunk, norm_eps=eps, return_state=want,
+                remat=par.ssm_remat)
+        if want:
+            out, state = out
+            cache["conv"].copy_(state["conv"])
+            cache["ssm"].copy_(state["ssm"])
+        return h + out, aux
+    p = shared if kind == SHARED_ATTN else lp
+    window = cfg.sliding_window if kind == SWA else 0
     a, k, v = attn_lib.self_attention(
-        lp.attn, rmsnorm(h, lp.norm1, cfg.norm_eps), positions,
-        causal=True, return_kv=True, **_attn_kwargs(cfg, par))
+        p.attn, rmsnorm(h, p.norm1, eps), positions, causal=causal,
+        window=window, return_kv=True, **_attn_kwargs(cfg, par))
     if cache is not None:
-        cache["k"][:, :h.shape[1]] = k
-        cache["v"][:, :h.shape[1]] = v
+        _fill_kv(cache, k, v)
     h = h + a
-    return h + mlp_apply(lp.mlp, rmsnorm(h, lp.norm2, cfg.norm_eps),
-                         cfg.mlp_act)
+    if kind == CROSS:
+        x, mk, mv = attn_lib.self_attention(
+            lp.xattn, rmsnorm(h, lp.normx, eps), positions, causal=False,
+            memory=memory, return_kv=True, **_attn_kwargs(cfg, par))
+        if cache is not None:
+            cache["mem_k"].copy_(mk)
+            cache["mem_v"].copy_(mv)
+        h = h + x
+    h2 = rmsnorm(h, p.norm2, eps)
+    if kind == MOE:
+        mo, aux = moe_lib.moe_apply(
+            lp.moe, h2, top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act)
+        return h + mo, aux
+    return h + mlp_apply(p.mlp, h2, cfg.mlp_act), aux
 
 
-def _forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
+def _layers(lps: Sequence[Layer], h, positions, cfg, par, memory, shared):
+    """Layers in order -> (h, the sum of their aux losses)."""
+    aux = _zero(h.device)
+    for lp in lps:
+        h, a = _layer(lp, h, positions, cfg, par, memory, shared)
+        aux = aux + a
+    return h, aux
+
+
+def _memory(params: Transformer, batch, cfg: ArchConfig, par: ParallelConfig,
+            remat: bool = False) -> Optional[torch.Tensor]:
+    """What ``CROSS`` layers attend to: the encoder over the stub
+    ``frames`` (bidirectional; each layer checkpointed with ``remat``),
+    ``image_embeds @ img_proj``, or None."""
+    dev, dt = params.device, cfg.param_dtype
+    if cfg.encoder_layers:
+        h = _embeds(batch, "frames", dev, dt)
+        pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev)
+        for lp in params.encoder.blocks:
+            if remat:
+                h, _ = checkpoint(_layer, lp, h, pos, cfg, par, causal=False,
+                                  use_reentrant=False)
+            else:
+                h, _ = _layer(lp, h, pos, cfg, par, causal=False)
+        return rmsnorm(h, params.encoder.final_norm, cfg.norm_eps)
+    if cfg.num_image_tokens:
+        return _embeds(batch, "image_embeds", dev, dt) @ params.img_proj
+    return None
+
+
+def _forward(params: Transformer, batch, cfg: ArchConfig,
              par: ParallelConfig, caches=None) -> torch.Tensor:
-    """(B, S, D) final-normed hidden states of (B, S) tokens; with
-    ``caches``, each layer's k and v written into its cache."""
+    """(B, S, D) final-normed hidden states of a batch; with ``caches``
+    (``init_caches`` of the batch's size), each layer's cache written."""
+    tokens = _tokens(batch, params.device)
     b, s = tokens.shape
     h = emb_lib.embed(params.embed, tokens)
     positions = _positions(b, s, params.device)
+    memory = _memory(params, batch, cfg, par)
     for i, lp in enumerate(params.blocks):
-        h = _layer(lp, h, positions, cfg, par,
-                   None if caches is None else caches["blocks"][i])
+        h, _ = _layer(lp, h, positions, cfg, par, memory, params.shared,
+                      None if caches is None else caches["blocks"][i])
     return rmsnorm(h, params.final_norm, cfg.norm_eps)
 
 
 def forward_train(params: Transformer, batch, cfg: ArchConfig,
                   par: ParallelConfig):
-    """batch: tokens (B, S), labels (B, S) with -1 = ignore (numpy, or
-    tensors anywhere) -> (loss, {"ce_loss", "aux_loss"}), float32 0-d.
+    """batch: tokens (B, S), labels (B, S) with -1 = ignore, and the
+    config's frames or image embeddings (numpy, or tensors anywhere) ->
+    (loss, {"ce_loss", "aux_loss"}), float32 0-d.
 
     The loss is ``softmax_xent`` over ``par.logits_chunk`` chunks of the
-    sequence; ``aux_loss`` is 0 on the dense path (the reference adds
-    0.01 x the MoE load-balance loss)."""
-    check_ported(cfg)
+    sequence, plus 0.01 x ``aux_loss``, the MoE layers' summed
+    load-balancing loss (0 without MoE layers)."""
     tokens = _tokens(batch, params.device)
     labels = _tokens(batch, params.device, "labels")
     b, s = tokens.shape
+    remat = par.remat == "block"
     h = emb_lib.embed(params.embed, tokens)
     positions = _positions(b, s, params.device)
-    for lp in params.blocks:
-        if par.remat == "block":
-            h = checkpoint(_layer, lp, h, positions, cfg, par,
-                           use_reentrant=False)
+    memory = _memory(params, batch, cfg, par, remat)
+    n = len(cfg.pattern)
+    groups = [params.blocks[i:i + n]
+              for i in range(0, n * cfg.n_repeats, n)]
+    groups += [[lp] for lp in params.blocks[n * cfg.n_repeats:]]
+    aux = _zero(params.device)
+    for g in groups:
+        if remat:
+            h, a = checkpoint(_layers, g, h, positions, cfg, par, memory,
+                              params.shared, use_reentrant=False)
         else:
-            h = _layer(lp, h, positions, cfg, par)
+            h, a = _layers(g, h, positions, cfg, par, memory, params.shared)
+        aux = aux + a
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     loss = emb_lib.softmax_xent(params.lm_head, h, labels,
                                 chunk=par.logits_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=params.device)
     return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 def hidden_states(params: Transformer, batch, cfg: ArchConfig,
                   par: ParallelConfig) -> torch.Tensor:
-    """(B, S, D) final-normed hidden states of a token batch."""
-    return _forward(params, _tokens(batch, params.device), cfg, par)
+    """(B, S, D) final-normed hidden states of a batch."""
+    return _forward(params, batch, cfg, par)
 
 
 def forward_embed(params: Transformer, batch, cfg: ArchConfig,
@@ -217,20 +429,54 @@ def forward_embed(params: Transformer, batch, cfg: ArchConfig,
 
 # =============================================================== caches
 
-def init_caches(cfg: ArchConfig, b: int, cache_len: int, device=None
+def _cache_for(kind: str, cfg: ArchConfig, b: int, cache_len: int,
+               memory_len: int, device) -> Dict[str, torch.Tensor]:
+    dt = cfg.param_dtype
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+
+    def z(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if kind in ATTN_KINDS:
+        size = min(cfg.sliding_window, cache_len) if kind == SWA \
+            else cache_len
+        c = {"k": z(b, size, hkv, hd), "v": z(b, size, hkv, hd)}
+        if kind == CROSS:
+            c["mem_k"] = z(b, memory_len, hkv, hd)
+            c["mem_v"] = z(b, memory_len, hkv, hd)
+        return c
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    conv_ch = di if kind == MAMBA1 else di + 2 * s.d_state
+    state = ((b, di, s.d_state) if kind == MAMBA1
+             else (b, di // s.head_dim, s.head_dim, s.d_state))
+    return {"conv": z(b, s.d_conv - 1, conv_ch),
+            "ssm": z(*state, dtype=torch.float32)}
+
+
+def init_caches(cfg: ArchConfig, b: int, cache_len: int, device=None,
+                memory_len: int = 0
                 ) -> Dict[str, List[Dict[str, torch.Tensor]]]:
-    """Zeroed KV caches, one ``{"k", "v"}`` of (B, cache_len, Hkv, hd)
-    a layer, in ``cfg.param_dtype`` on ``device`` (None: the GPU)."""
+    """Zeroed decode caches on ``device`` (None: the GPU), one dict a
+    layer in execution order: ``{"k", "v"}`` of (B, cache_len, Hkv, hd)
+    (a ring of min(sliding_window, cache_len) slots for ``SWA``), plus
+    ``{"mem_k", "mem_v"}`` of (B, memory_len, Hkv, hd) for ``CROSS``, in
+    ``cfg.param_dtype``; ``{"conv": (B, d_conv - 1, channels), "ssm":
+    float32 state}`` for Mamba."""
     check_ported(cfg)
     device = resolve_device(device)
-    shape = (b, cache_len, cfg.n_kv_heads, cfg.hd)
-
-    def z():
-        return torch.zeros(shape, dtype=cfg.param_dtype, device=device)
-    return {"blocks": [{"k": z(), "v": z()} for _ in range(cfg.n_layers)]}
+    return {"blocks": [_cache_for(kind, cfg, b, cache_len, memory_len,
+                                  device) for kind in layer_kinds(cfg)]}
 
 
 # ============================================================== prefill
+
+def _memory_len(batch, cfg: ArchConfig) -> int:
+    """The length of the batch's memory: its frames or image tokens."""
+    if cfg.encoder_layers:
+        return batch["frames"].shape[1]
+    return batch["image_embeds"].shape[1] if cfg.num_image_tokens else 0
+
 
 def prefill(params: Transformer, batch, cfg: ArchConfig, par: ParallelConfig,
             cache_len: int):
@@ -239,25 +485,58 @@ def prefill(params: Transformer, batch, cfg: ArchConfig, par: ParallelConfig,
     Returns (h_last (B, D), caches, lengths (B,) int32)."""
     tokens = _tokens(batch, params.device)
     b, s = tokens.shape
-    caches = init_caches(cfg, b, cache_len, device=params.device)
-    h = _forward(params, tokens, cfg, par, caches)
+    caches = init_caches(cfg, b, cache_len, device=params.device,
+                         memory_len=_memory_len(batch, cfg))
+    h = _forward(params, batch, cfg, par, caches)
     lengths = torch.full((b,), s, dtype=torch.int32, device=params.device)
     return h[:, -1], caches, lengths
 
 
 # =============================================================== decode
 
+def _decode_layer(lp: Layer, h: torch.Tensor, cache, lengths, cfg, shared):
+    eps, kind = cfg.norm_eps, lp.kind
+    if kind in (MAMBA1, MAMBA2):
+        s = cfg.ssm
+        x = rmsnorm(h, lp.norm1, eps)
+        if kind == MAMBA1:
+            y, st = ssm_lib.mamba1_decode(lp.mixer, x, cache,
+                                          d_state=s.d_state,
+                                          dt_rank=_dt_rank(cfg))
+        else:
+            y, st = ssm_lib.mamba2_decode(lp.mixer, x, cache,
+                                          d_state=s.d_state,
+                                          head_dim=s.head_dim, norm_eps=eps)
+        cache["conv"].copy_(st["conv"])
+        cache["ssm"].copy_(st["ssm"])
+        return h + y
+    p = shared if kind == SHARED_ATTN else lp
+    out, _ = attn_lib.decode_self_attention(
+        p.attn, rmsnorm(h, p.norm1, eps), cache, lengths,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+        rope_theta=cfg.rope_theta,
+        window=cfg.sliding_window if kind == SWA else 0)
+    h = h + out
+    if kind == CROSS:
+        h = h + attn_lib.decode_cross_attention(
+            lp.xattn, rmsnorm(h, lp.normx, eps),
+            {"k": cache["mem_k"], "v": cache["mem_v"]},
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd)
+    h2 = rmsnorm(h, p.norm2, eps)
+    if kind == MOE:
+        mo, _ = moe_lib.moe_apply(
+            lp.moe, h2[:, None], top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act)
+        return h + mo[:, 0]
+    return h + mlp_apply(p.mlp, h2, cfg.mlp_act)
+
+
 def decode_step(params: Transformer, caches, token: torch.Tensor,
                 lengths: torch.Tensor, cfg: ArchConfig, par: ParallelConfig):
     """One token for the whole batch.  token: (B,) -> (h_last, caches);
-    the caches are updated in place."""
+    the caches are updated in place.  ``CROSS`` layers read the memory's
+    K/V that prefill left in their caches."""
     h = emb_lib.embed(params.embed, token.long())
     for lp, cache in zip(params.blocks, caches["blocks"]):
-        out, _ = attn_lib.decode_self_attention(
-            lp.attn, rmsnorm(h, lp.norm1, cfg.norm_eps), cache, lengths,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
-            rope_theta=cfg.rope_theta)
-        h = h + out
-        h = h + mlp_apply(lp.mlp, rmsnorm(h, lp.norm2, cfg.norm_eps),
-                          cfg.mlp_act)
+        h = _decode_layer(lp, h, cache, lengths, cfg, params.shared)
     return rmsnorm(h, params.final_norm, cfg.norm_eps), caches

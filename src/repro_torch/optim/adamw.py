@@ -4,7 +4,8 @@ The moments are float32 whatever the parameters' dtype (the
 mixed-precision convention).  ``update`` works in place under
 ``torch.no_grad()`` — the counterpart of the reference's donated state —
 in the reference's order of operations, in float32, each parameter cast
-back to its own dtype at the end.
+back to its own dtype at the end; a large leaf a slice of rows at a
+time (elementwise, so the same values).
 """
 from __future__ import annotations
 
@@ -12,6 +13,10 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
+
+
+# entries a slice of a leaf's elementwise update (``slices``)
+SLICE = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,12 +53,26 @@ def update(grads: Dict[str, torch.Tensor], opt_state: Dict[str, Any],
     c1 = 1.0 - cfg.b1 ** t
     c2 = 1.0 - cfg.b2 ** t
     for k, p in params.items():
-        g = grads[k].float()
-        m = opt_state["m"][k].mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v = opt_state["v"][k].mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        del g
-        pf = p.float()
-        u = (m / c1).div_(torch.sqrt(v / c2).add_(cfg.eps))
-        u.add_(cfg.weight_decay * pf)
-        p.copy_(pf - lr * u)
+        for g, m, v, ps in zip(*(slices(t) for t in (
+                grads[k], opt_state["m"][k], opt_state["v"][k], p))):
+            g = g.float()
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+            del g
+            pf = ps.float()
+            u = (m / c1).div_(torch.sqrt(v / c2).add_(cfg.eps))
+            u.add_(cfg.weight_decay * pf)
+            ps.copy_(pf - lr * u)
     return params, opt_state
+
+
+def slices(t: torch.Tensor):
+    """Views of ``t`` along its first axis of at most SLICE entries each
+    (``t`` itself when it has no more): the elementwise updates' float32
+    temporaries stay that small (a 262,144 x 5,376 table would need about
+    five 5.6 GB ones at once)."""
+    n = t.numel()
+    if n <= SLICE or t.ndim == 0:
+        return [t]
+    rows = max(1, SLICE // (n // t.shape[0]))
+    return list(t.split(rows))

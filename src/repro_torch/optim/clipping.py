@@ -5,11 +5,14 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.optim.adamw import slices
+
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the float32 sum of squares of every leaf (a 0-d tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+    """sqrt of the float32 sum of squares of every leaf (a 0-d tensor);
+    a large leaf summed a slice of rows at a time (``adamw.slices``)."""
+    return torch.sqrt(sum(torch.sum(torch.square(s.float()))
+                          for x in tree.values() for s in slices(x)))
 
 
 def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float
@@ -21,7 +24,10 @@ def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for k, g in grads.items():
-        grads[k] = (g.float() * scale).to(g.dtype)
+        out = torch.empty_like(g)         # a slice of rows at a time
+        for o, s in zip(slices(out), slices(g)):
+            o.copy_(s.float() * scale)
+        grads[k] = out
     return grads, norm
 
 

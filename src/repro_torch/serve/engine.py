@@ -2,8 +2,10 @@
 
 ``make_serve_prefill`` / ``make_serve_step`` build the functions one
 generation step runs: the prompt's prefill (then its first greedy
-token), and one new token for the whole batch against the KV caches,
-which the step updates in place.
+token), and one new token for the whole batch against the decode
+caches, which the step updates in place.  A batch of an audio or vision
+config carries its stub ``frames`` or ``image_embeds``: the prefill
+encodes them once, and decode reads their K/V from the caches.
 """
 from __future__ import annotations
 

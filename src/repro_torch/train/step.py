@@ -9,8 +9,10 @@ device metrics: no host read.
 
 ``state_tree`` / ``load_state_tree`` give the state in the reference's
 layout — ``params["blocks"]`` as one ``(repeats, ...)`` leaf a pattern
-position, ``m`` and ``v`` alike — so that either package's
-``CheckpointManager`` restores the other's training checkpoints.
+position, the tail's layers, ``shared``, the encoder's blocks as
+``(encoder_layers, ...)`` leaves, ``img_proj``; ``m`` and ``v`` alike —
+so that either package's ``CheckpointManager`` restores the other's
+training checkpoints.
 ``state_specs``, ``param_specs`` and ``batch_specs`` place the state on a
 mesh and come with model parallelism (Slice F3).
 """
@@ -68,7 +70,12 @@ def make_train_step(cfg: ArchConfig, par: ParallelConfig,
 
     def grad_fn(params, names, mb):
         loss, metrics = forward_train(params, mb, cfg, par)
-        grads = torch.autograd.grad(loss, [p for _, p in names])
+        # a leaf the loss does not read (a shared layer's marker) gets a
+        # zero grad, as jax.grad gives it
+        grads = torch.autograd.grad(loss, [p for _, p in names],
+                                    allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for (_, p), g in zip(names, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 
@@ -123,10 +130,14 @@ def _ref_path(name: str, cfg: ArchConfig):
     """The path in the reference's params tree of the port's parameter
     ``name``, and its index on the stacked leaf's repeat axis (None for
     an unstacked leaf).  Layer i of the port is repeat i // len(pattern)
-    of pattern position i % len(pattern), then the tail."""
+    of pattern position i % len(pattern), then the tail; encoder layer j
+    is index j of the ``encoder.blocks`` leaves; ``shared.*`` and
+    ``img_proj`` are unstacked."""
     parts = name.split(".")
+    if parts[:2] == ["encoder", "blocks"]:
+        return ("encoder", "blocks") + tuple(parts[3:]), int(parts[2])
     if parts[0] != "blocks":
-        return (name,), None
+        return tuple(parts), None
     i, rest, n = int(parts[1]), tuple(parts[2:]), len(cfg.pattern)
     if i >= n * cfg.n_repeats:
         return ("tail", i - n * cfg.n_repeats) + rest, None
@@ -156,6 +167,8 @@ def params_tree(flat: Dict[str, torch.Tensor], cfg: ArchConfig):
 
     tree["blocks"] = tuple(stack(b) for b in tree["blocks"])
     tree["tail"] = tuple(tree["tail"])
+    if "encoder" in tree:
+        tree["encoder"] = stack(tree["encoder"])
     return tree
 
 

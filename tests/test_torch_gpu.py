@@ -22,12 +22,13 @@ from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
 from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
 from torch_cases import (DOT_CASES, GROUPED_CASES, L1_CASES,  # noqa: E402
-                         LSH_CASES, RADII, ROUTE_CASES, SIMHASH_CASES,
-                         TOL, TRAIN_CASES,
+                         LSH_CASES, RADII, ROUTE_CASES, SCAN_CASES,
+                         SERVE_ARCHS, SIMHASH_CASES, TOL, TRAIN_CASES,
                          as_tensor, dist64, dot_inputs, grouped_parts,
                          handcrafted_ids, hll_regs, l1_inputs, lsh_dist64,
                          lsh_inputs, masks_outside_band_agree, on_device,
                          pair, route_estimate_per_segment, route_tables,
+                         scan_device_vs_cpu, serve_device_vs_cpu,
                          simhash_flips, simhash_inputs,
                          train_device_vs_cpu, unit_rows_np)
 
@@ -619,3 +620,20 @@ def test_cuda_train_step_matches_cpu(cuda, arch, remat, microbatch):
     weights and batches, TF32 off (``torch_cases.train_device_vs_cpu``
     asserts its tolerances)."""
     train_device_vs_cpu(arch, remat, microbatch, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_cuda_prefill_decode_matches_cpu(cuda, arch):
+    """Each layer kind's float32 prefill and decode steps on the card
+    against the CPU, TF32 off (``torch_cases.serve_device_vs_cpu``
+    asserts its tolerances)."""
+    serve_device_vs_cpu(arch, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scan,tail,n,chunk", SCAN_CASES)
+def test_cuda_ssm_scan_matches_cpu(cuda, scan, tail, n, chunk):
+    """The Mamba-1 and SSD chunk scans at Falcon-Mamba's and Zamba2's
+    widths, 1 x 2,048 steps, on the card against the CPU."""
+    scan_device_vs_cpu(scan, tail, n, chunk, cuda)

@@ -47,6 +47,7 @@ from repro_torch.models import (ParallelConfig, decode_step,  # noqa: E402
                                 forward_embed, hidden_states, init_params,
                                 prefill)
 from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models.transformer import check_ported  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.serve import generate  # noqa: E402
 
@@ -298,10 +299,23 @@ def test_init_params_shapes_and_scale():
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_NAMES
                                   if a not in DENSE + ("mistral-nemo-12b",)])
-def test_unported_layer_kinds_raise(arch):
-    cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        init_params(cfg, device="cpu")
+def test_init_params_has_the_reference_leaves(arch):
+    """Every layer kind's ``init_params``: the reference's leaf shapes and
+    dtypes (the router and the SSM's A_log, D and dt_bias float32 in a
+    bf16 model), through ``train.params_tree``'s layout."""
+    from repro_torch.train.step import params_tree
+    jc = jconfigs.reduced_config(jconfigs.get_config(arch))
+    tc = tconfigs.reduced_config(tconfigs.get_config(arch))
+    p = init_params(tc, seed=0, device="cpu")
+    ref = jax.eval_shape(lambda: jinit_params(jc, jax.random.PRNGKey(0)))
+    want = {jax.tree_util.keystr(k): (v.shape, str(v.dtype))
+            for k, v in jax.tree_util.tree_leaves_with_path(ref)}
+    got = {jax.tree_util.keystr(k): (tuple(v.shape),
+                                     str(v.dtype).split(".")[-1])
+           for k, v in jax.tree_util.tree_leaves_with_path(
+               params_tree(dict(p.named_parameters()), tc))}
+    assert got == want
+    assert not any(w.requires_grad for w in p.parameters())
 
 
 def test_device_defaults_to_the_gpu():
@@ -341,16 +355,51 @@ def test_lm_batch_contract():
 
 
 @pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-11b"])
-def test_lm_batch_raises_for_unported_inputs(arch):
-    """The reference's batch for an audio or vision config also carries
-    stub frames or image embeddings; the port's raises until Slice F."""
+def test_lm_batch_carries_stub_inputs(arch):
+    """An audio or vision config's batch also carries stub frames or
+    image embeddings of the reference's shapes and dtype (bf16, standard
+    normal), deterministic in (seed, step), and so does the iterator's;
+    a dense config's batch has tokens and labels only."""
     cfg = tconfigs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        lm_batch(0, 0, batch=1, seq=4, vocab=cfg.vocab, cfg=cfg,
+    jcfg = jconfigs.get_config(arch)
+    key = "frames" if cfg.encoder_layers else "image_embeds"
+    ref = jax.eval_shape(lambda: jlm_batch(0, 0, batch=2, seq=4,
+                                           vocab=cfg.vocab, cfg=jcfg))
+    a = lm_batch(0, 0, batch=2, seq=4, vocab=cfg.vocab, cfg=cfg,
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        next(LMDataIterator(seed=0, batch=1, seq=4, vocab=cfg.vocab,
+    assert set(a) == set(ref) == {"tokens", "labels", key}
+    assert tuple(a[key].shape) == ref[key].shape == (2, 1536, cfg.d_model)
+    assert a[key].dtype == torch.bfloat16 and str(ref[key].dtype) == \
+        "bfloat16"
+    x = a[key].float()
+    assert abs(float(x.mean())) < 0.01 and abs(float(x.std()) - 1) < 0.01
+    b = next(LMDataIterator(seed=0, batch=2, seq=4, vocab=cfg.vocab,
                             cfg=cfg, device="cpu"))
+    assert torch.equal(a[key], b[key]) and torch.equal(a["tokens"],
+                                                       b["tokens"])
+    assert not torch.equal(a[key], lm_batch(0, 1, batch=2, seq=4,
+                                            vocab=cfg.vocab, cfg=cfg,
+                                            device="cpu")[key])
     dense = tconfigs.get_config("yi-6b")
     assert set(lm_batch(0, 0, batch=1, seq=4, vocab=8, cfg=dense,
                         device="cpu")) == {"tokens", "labels"}
+
+
+def test_model_parallel_knobs_raise():
+    """What stays unported raises where it is made, naming Slice F3: a
+    mesh, and the per-shard MoE dispatch (the reference takes it only
+    under a mesh); the single-device knobs are accepted."""
+    with pytest.raises(NotImplementedError, match="Slice F3"):
+        ParallelConfig(mesh=object())
+    with pytest.raises(NotImplementedError, match="Slice F3"):
+        ParallelConfig(moe_local_dispatch=True)
+    par = ParallelConfig(attn_remat=True, attn_probs_bf16=True,
+                         ssm_remat=True)
+    assert (par.attn_remat, par.attn_probs_bf16, par.ssm_remat) == \
+        (True, True, True)
+    for arch in tconfigs.ARCH_NAMES:
+        check_ported(tconfigs.get_config(arch))
+    bad = dataclasses.replace(tconfigs.get_config("yi-6b"),
+                              pattern=("conv",), repeats=32)
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        check_ported(bad)

@@ -160,3 +160,39 @@ def test_adamw_matches_reference(dtype, lr_tensor):
         for mom in ("m", "v"):
             np.testing.assert_allclose(ts[mom][k].numpy(),
                                        np.asarray(js[mom][k]), **REF)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_large_leaves_update_a_slice_at_a_time(dtype, monkeypatch):
+    """AdamW and the clip over a leaf above ``adamw.SLICE`` entries, a
+    slice of rows at a time: AdamW's weights and moments equal one pass's
+    bit for bit (elementwise updates); the clip's norm within float32
+    rounding of the sum's order, each grad scaled by min(1, 1 / norm) as
+    one pass scales it, the caller's grads left as they were."""
+    from repro_torch.optim import adamw, clipping
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(37, 11, generator=gen).to(dtype),
+              "b": torch.randn(5, generator=gen).to(dtype)}
+    grads = {k: torch.randn(v.shape, generator=gen).to(dtype)
+             for k, v in params.items()}
+    outs = []
+    for cut in (1 << 26, 40):
+        monkeypatch.setattr(adamw, "SLICE", cut)
+        assert len(adamw.slices(params["w"])) == (1 if cut > 407 else 13)
+        p = {k: v.clone() for k, v in params.items()}
+        opt = adamw_init(p)
+        for _ in range(2):
+            adamw_update(grads, opt, p, 1e-2)
+        g = {k: v.clone() for k, v in grads.items()}
+        clipped, norm = clipping.clip_by_global_norm(g, 1.0)
+        assert all(torch.equal(g[k], grads[k]) for k in g)
+        scale = torch.clamp(1.0 / norm, max=1.0)
+        for k in g:
+            assert torch.equal(clipped[k], (g[k].float() * scale).to(dtype))
+        outs.append((norm, p, opt))
+    (n1, p1, o1), (n2, p2, o2) = outs
+    torch.testing.assert_close(n2, n1, rtol=1e-6, atol=0)
+    for k in params:
+        assert torch.equal(p1[k], p2[k])
+        assert torch.equal(o1["m"][k], o2["m"][k])
+        assert torch.equal(o1["v"][k], o2["v"][k])

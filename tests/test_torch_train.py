@@ -47,6 +47,7 @@ from repro.train import init_state as jinit_state  # noqa: E402
 from repro.train import make_train_step as jmake_train_step  # noqa: E402
 from repro.train import train_loop as jtrain_loop  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.data import lm_batch  # noqa: E402
 from repro_torch.interop import (model_params_from_numpy,  # noqa: E402
                                  train_state_from_numpy)
 from repro_torch.launch import roofline  # noqa: E402
@@ -221,24 +222,22 @@ def test_train_step_matches_reference(dtype, remat, microbatch):
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_NAMES)
 def test_reduced_train_step(arch):
-    """``test_arch_smoke.test_reduced_train_step`` on the port: one
-    optimizer step, loss finite, params update, shapes and dtypes kept.
-    The other layer kinds raise until Slice F2."""
+    """``test_arch_smoke.test_reduced_train_step`` on the port, every
+    layer kind: one optimizer step (with the config's stub frames or
+    image embeddings), loss and grad norm finite, params update, shapes
+    and dtypes kept; an MoE config's aux loss above 0."""
     cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
-    if arch not in DENSE:
-        with pytest.raises(NotImplementedError, match="Slice F2"):
-            init_state(cfg, device="cpu")
-        return
     state = init_state(cfg, 0, device="cpu")
     before = {k: v.detach().clone()
               for k, v in state["params"].named_parameters()}
     step = make_train_step(cfg, _pars("block", 8, 8)[1],
                            TrainConfig(total_steps=10, warmup_steps=0))
-    tok = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator(
-    ).manual_seed(0))
-    new_state, metrics = step(state, {"tokens": tok, "labels": tok})
+    batch = lm_batch(0, 0, batch=2, seq=16, vocab=cfg.vocab, cfg=cfg,
+                     device="cpu")
+    new_state, metrics = step(state, batch)
     assert np.isfinite(float(metrics["loss"]))
     assert np.isfinite(float(metrics["grad_norm"]))
+    assert (float(metrics["aux_loss"]) > 0) == (cfg.moe is not None)
     after = dict(new_state["params"].named_parameters())
     assert any(not torch.equal(after[k].detach(), v)
                for k, v in before.items())

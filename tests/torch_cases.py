@@ -409,15 +409,118 @@ def simhash_packed_as_kernel(x, rc, L, k):
 
 
 # The train step on the card against the CPU, float32 with TF32 off:
-# (arch, remat, microbatch) on a 2-layer reduced config.
+# (arch, remat, microbatch) on a reduced config (``reduced_arch``), one
+# case a layer kind beyond the dense ones.
 TRAIN_CASES = [("yi-6b", "block", 1), ("yi-6b", "none", 2),
-               ("mistral-nemo-12b", "block", 1), ("nemotron-4-15b", "none", 1)]
+               ("mistral-nemo-12b", "block", 1), ("nemotron-4-15b", "none", 1),
+               ("gemma3-27b", "block", 1), ("granite-moe-1b-a400m", "none", 1),
+               ("falcon-mamba-7b", "block", 1), ("zamba2-1.2b", "none", 2),
+               ("llama-3.2-vision-11b", "block", 1),
+               ("whisper-small", "none", 1)]
 TRAIN_RTOL = 1e-4
+# Every config that is not dense: float32 prefill and decode on the card
+# against the CPU, within SERVE_TOL.
+SERVE_ARCHS = ("gemma3-27b", "granite-moe-1b-a400m",
+               "llama4-maverick-400b-a17b", "falcon-mamba-7b", "zamba2-1.2b",
+               "llama-3.2-vision-11b", "whisper-small")
+SERVE_TOL = dict(rtol=1e-4, atol=1e-4)
+# The SSM scans at full width, 1 x 2,048 steps: (scan, x's trailing
+# shape, d_state, chunk) of Falcon-Mamba 7B and Zamba2 1.2B.
+SCAN_CASES = [("mamba1", (8192,), 16, 64), ("ssd", (64, 64), 64, 64)]
+
+
+def reduced_arch(arch, dtype="float32"):
+    """``reduced_config(arch)`` in ``dtype``: one repeat of the block
+    pattern and the tail, two repeats where the pattern is one layer and
+    there is no tail."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    cfg = reduced_config(get_config(arch))
+    if len(cfg.pattern) == 1 and not cfg.tail:
+        cfg = dataclasses.replace(cfg, n_layers=2, repeats=2)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def serve_device_vs_cpu(arch, device, prompt=8, new=4):
+    """Float32 ``prefill`` of ``prompt`` tokens (with the config's stub
+    frames or image embeddings) and ``new`` ``decode_step`` s of
+    ``reduced_arch(arch)`` on ``device`` and on the CPU, the same weights
+    (seed 0 drawn on the CPU), TF32 off.  Asserts each h and every cache
+    leaf within SERVE_TOL; returns the largest deviation over the h's."""
+    import copy
+    from repro_torch.data import lm_batch
+    from repro_torch.models import (ParallelConfig, decode_step, init_params,
+                                    prefill)
+    cfg = reduced_arch(arch)
+    par = ParallelConfig(attn_chunk_q=4, attn_chunk_k=4)
+    cpu = init_params(cfg, 0, device="cpu")
+    dev = copy.deepcopy(cpu).to(device)
+    full = lm_batch(7, 0, batch=2, seq=prompt + new, vocab=cfg.vocab,
+                    cfg=cfg, device="cpu")
+    full.pop("labels")
+    batch = dict(full, tokens=full["tokens"][:, :prompt])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = 0.0
+    try:
+        with torch.no_grad():
+            hc, cc, lc = prefill(cpu, batch, cfg, par, prompt + new)
+            hd, cd, ld = prefill(dev, {k: v.to(device) for k, v in
+                                       batch.items()}, cfg, par,
+                                 prompt + new)
+            pairs = [(hd, hc)]
+            for t in range(prompt, prompt + new):
+                tok = full["tokens"][:, t]
+                hc, cc = decode_step(cpu, cc, tok, lc, cfg, par)
+                hd, cd = decode_step(dev, cd, tok.to(device), ld, cfg, par)
+                lc, ld = lc + 1, ld + 1
+                pairs.append((hd, hc))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, c in pairs:
+        torch.testing.assert_close(a.cpu(), c, **SERVE_TOL)
+        worst = max(worst, float((a.cpu() - c).abs().max()))
+    for a, c in zip(cd["blocks"], cc["blocks"]):
+        for k in c:
+            torch.testing.assert_close(a[k].cpu(), c[k], **SERVE_TOL)
+    return worst
+
+
+def scan_device_vs_cpu(scan, tail, n, chunk, device, s=2048):
+    """``ssm.mamba1_scan`` or ``ssd_scan`` on (1, s, *tail) inputs
+    (dt at the blocks' softplus(-4.6) scale, A from the blocks' A_log
+    range, a random carried state) on ``device`` and on the CPU; asserts
+    y and the final state within rtol 1e-4 and an atol of 1e-4 x the
+    largest entry; returns their largest relative deviations."""
+    from repro_torch.models import ssm
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, s) + tail, generator=g)
+    dt = torch.rand((1, s) + tail[:1], generator=g) * 0.02
+    bm = torch.randn((1, s, n), generator=g)
+    cm = torch.randn((1, s, n), generator=g)
+    if scan == "mamba1":
+        dt = torch.rand((1, s) + tail, generator=g) * 0.02
+        a = -torch.arange(1, n + 1, dtype=torch.float32).repeat(tail[0], 1)
+        h0 = torch.randn((1, tail[0], n), generator=g)
+        fn = ssm.mamba1_scan
+    else:
+        a = -torch.rand(tail[:1], generator=g) - 0.5
+        h0 = torch.randn((1,) + tail + (n,), generator=g)
+        fn = ssm.ssd_scan
+    args = (x, dt, bm, cm, a, h0)
+    yc, hc = fn(*args, chunk=chunk)
+    yd, hd = fn(*(t.to(device) for t in args), chunk=chunk)
+    out = []
+    for d_, c in ((yd, yc), (hd, hc)):
+        scale = float(c.abs().max())
+        torch.testing.assert_close(d_.cpu(), c, rtol=1e-4, atol=1e-4 * scale)
+        out.append(float((d_.cpu() - c).abs().max()) / scale)
+    return out
 
 
 def train_device_vs_cpu(arch, remat, microbatch, device, steps=3):
-    """``steps`` steps of ``make_train_step`` on a float32 2-layer
-    ``reduced_config(arch)`` on ``device`` and on the CPU, from the same
+    """``steps`` steps of ``make_train_step`` on a float32
+    ``reduced_arch(arch)`` on ``device`` and on the CPU, from the same
     weights (seed 0 drawn on the CPU, carried over by ``state_tree``) on
     the same batches.  Asserts loss, grad norm and lr within TRAIN_RTOL
     (relative) each step, and each final weight leaf within TRAIN_RTOL
@@ -428,14 +531,11 @@ def train_device_vs_cpu(arch, remat, microbatch, device, steps=3):
     largest relative deviation of the metrics, the largest leaf's
     relative norm deviation, the largest entry's deviation over
     lr x steps)."""
-    import dataclasses
-    from repro_torch.configs import get_config, reduced_config
     from repro_torch.data import lm_batch
     from repro_torch.models import ParallelConfig
     from repro_torch.train import (TrainConfig, init_state, load_state_tree,
                                    make_train_step, state_tree)
-    cfg = dataclasses.replace(reduced_config(get_config(arch)), n_layers=2,
-                              repeats=2, dtype="float32")
+    cfg = reduced_arch(arch)
     par = ParallelConfig(remat=remat, attn_chunk_q=16, attn_chunk_k=16,
                          logits_chunk=16)
     tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=steps,
@@ -450,7 +550,7 @@ def train_device_vs_cpu(arch, remat, microbatch, device, steps=3):
         f_dev = make_train_step(cfg, par, tcfg)
         dev_metrics = 0.0
         for i in range(steps):
-            b = lm_batch(5, i, batch=4, seq=32, vocab=cfg.vocab,
+            b = lm_batch(5, i, batch=4, seq=32, vocab=cfg.vocab, cfg=cfg,
                          device="cpu")
             cpu, mc = f_cpu(cpu, b)
             dev, md = f_dev(dev, {k: v.to(device) for k, v in b.items()})
@@ -465,7 +565,9 @@ def train_device_vs_cpu(arch, remat, microbatch, device, steps=3):
     dev_norm = dev_entry = 0.0
     for name, p in dev["params"].named_parameters():
         a, c = p.detach().cpu(), ref[name].detach()
-        rel = float(torch.linalg.norm(a - c) / torch.linalg.norm(c))
+        # a leaf of zeros (a shared layer's marker) must stay zeros
+        rel = float(torch.linalg.norm(a - c)
+                    / torch.clamp(torch.linalg.norm(c), min=1e-30))
         assert rel <= TRAIN_RTOL, (name, rel)
         dev_norm = max(dev_norm, rel)
         dev_entry = max(dev_entry, float((a - c).abs().max())
