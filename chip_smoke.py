@@ -123,6 +123,29 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``RetrievalService`` behind Zamba2 at full size (8,192 documents,
      64 queries at two radii on every path against a plain index, K1,
      K2 and K3 launched); an ``[archs]`` JSON line;
+  8d. model parallelism on the single-controller ``ShardMesh``, last
+     (``drive_mesh``), each model freed before the next: a. Yi-6B at
+     full width on 4 layers, one train step on a (4, 2) debug mesh
+     against one with mesh=None from the same seed-0 state (the loss
+     within 1e-3 relative, the first moments within 0.05 of each leaf's
+     largest entry, past it with a planted fault: the first model
+     shard's table rows given no gradient; the weights within
+     test_distributed's 0.05);
+     b. Yi-6B at full width and depth (the depth counted as ``drive_train``
+     counts it) trained on that mesh, 1 + 3 steps of 1 x 2,048 tokens,
+     beside the same steps with mesh=None; c. Yi-6B served (4 x 2,048,
+     32 tokens) with mesh=None, the sequence-sharded decode over 'model'
+     and over every axis, the greedy rule against
+     a mesh=None prefill; d. Granite-MoE at full width and depth with the
+     per-shard MoE dispatch on a (4, 2) mesh, prefill timed against the
+     global dispatch, each data shard held to the global dispatch of its
+     own tokens (one MoE layer in bf16, the model in float32); e. ``gpipe``
+     over Yi-6B's 32 layers in 4 stages of 8, 8 micro-batches of 1 x 512,
+     held to the sequential stack and timed beside it; f. ``apply_ef``
+     over 8 shards of one Yi-6B layer's gradient-shaped leaves (5.54 GB
+     of float32), against the plain mean and over 50 steps; g.
+     ``launch.train --reduced --devices 8`` in a subprocess; a ``[mesh]``
+     JSON line;
   9. a ``[sharded]`` JSON line (batch ms global / per_shard / single-host,
      routes, churn, merges, checkpoint, skew and padded rows, peak
      memory) and a ``[durability]`` JSON line with the checkpoint and restore times
@@ -3146,7 +3169,7 @@ def train_steps(s, cfg, par, tcfg, batches):
     start at 1.0, where a bf16 ulp, 2 ** -7, outweighs an update of
     lr x (1 + weight decay))."""
     torch = s.torch
-    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train import init_state, make_jitted_train_step
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -3159,7 +3182,7 @@ def train_steps(s, cfg, par, tcfg, batches):
                 if p.ndim == 2}
 
     before = watched()
-    step = make_train_step(cfg, par, tcfg)
+    step = make_jitted_train_step(cfg, par, tcfg)
     metrics, times = [], []
     for b in batches:
         torch.cuda.synchronize()
@@ -3490,13 +3513,13 @@ def serve_tokens(s: Smoke, params, cfg, par, pb, new, cache_len):
         (h, caches, lengths), t_pre = synced(
             torch, lambda: prefill(params, pb, cfg, par, cache_len))
         finite &= torch.isfinite(h).all()
-        tok = greedy_sample(params.lm_head, h)
+        tok = greedy_sample(params.lm_head, h, par)
         out, hs, t_dec = [tok], [h], []
         for _ in range(new):
             (h, caches), t = synced(torch, lambda: decode_step(
                 params, caches, tok, lengths, cfg, par))
             finite &= torch.isfinite(h).all()
-            tok = greedy_sample(params.lm_head, h)
+            tok = greedy_sample(params.lm_head, h, par)
             lengths = lengths + 1
             out.append(tok)
             hs.append(h)
@@ -3907,6 +3930,537 @@ def drive_archs(s: Smoke, smi, by_path):
     return rec
 
 
+MESH_ARCH = "yi-6b"
+MESH_MOE = "granite-moe-1b-a400m"
+MESH_SHAPE = (4, 2)                   # ("data", "model")
+MESH_TRAIN_LAYERS = 4                 # a: the depth of the mesh check
+MESH_TRAIN_BATCH = (4, 512)           # a: a batch row a data shard
+MESH_LOSS_RTOL = 1e-3                 # a: mesh step vs mesh=None step
+MESH_M_RTOL = 0.05                    # a: first moments, of a leaf's max
+MESH_PARAM_ATOL = 0.05                # a: test_distributed's own bound
+MESH_TRAIN_STEPS = (1, 3)             # b: warm-up, timed
+# c: (name, mesh shape, ParallelConfig fields) of the sharded decodes
+MESH_SERVE = (("seq_model", (2, 4), {"decode_seq_shard": ("model",)}),
+              ("seq_all", (2, 4), {"batch_axes": (),
+                                   "decode_seq_shard": ("data", "model")}))
+MESH_CACHE = ARCH_PROMPT + ARCH_NEW   # 2,080 slots: a multiple of 8 shards
+MESH_MOE_TOL = 2e-2                   # d: one MoE layer, bf16, of max |out|
+MESH_MOE_ROW_TOL = 1e-3               # d: float32 model rows, of row max
+MESH_MOE_ROW_SHARE = 1e-2             # d: share of rows past it allowed
+MESH_PIPE = (4, 8, 512)               # e: stages, micro-batches, tokens
+MESH_PIPE_TOL = 2e-2                  # e: of max |sequential|, bf16
+MESH_EF_SHARDS, MESH_EF_STEPS = 8, 50  # f
+MESH_EF_RELERR = 0.02                 # f: test_distributed's bound
+
+
+def mesh_pars(s, shape, **kw):
+    """A ``ParallelConfig`` on a debug mesh of ``shape`` on the card (a
+    shape over ("data", "model")): ARCH_CHUNK attention chunks and the
+    fields ``kw``."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import ParallelConfig
+    return ParallelConfig(mesh=make_debug_mesh(shape, device=s.dev),
+                          **dict(dict(attn_chunk_q=ARCH_CHUNK,
+                                      attn_chunk_k=ARCH_CHUNK), **kw))
+
+
+def moment_gap(ref, got):
+    """The largest entry of |got - ref| over the largest |ref| of its
+    leaf, over the leaves of two dicts of first moments: (gap, leaf)."""
+    gap, leaf = 0.0, None
+    for n, r in ref.items():
+        g = float((got[n] - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        if leaf is None or g > gap:
+            gap, leaf = g, n
+    return gap, leaf
+
+
+def vocab_shard_grad_dropped():
+    """A planted fault for ``mesh_train_check``: while it is entered, the
+    vocab-sharded ``embed`` and ``softmax_xent`` send no gradient into
+    the first model shard's rows of their tables (the rows detached; the
+    forward pass is unchanged)."""
+    import contextlib
+    from repro_torch.models import embedding
+    sound = embedding._vocab_shards
+
+    def faulty(table, par):
+        mesh, shards = sound(table, par)
+        return mesh, [(off, t.detach() if i == 0 else t)
+                      for i, (off, t) in enumerate(shards)]
+
+    @contextlib.contextmanager
+    def planted():
+        embedding._vocab_shards = faulty
+        try:
+            yield
+        finally:
+            embedding._vocab_shards = sound
+    return planted()
+
+
+def mesh_train_check(s: Smoke):
+    """a. Yi-6B at full width on MESH_TRAIN_LAYERS layers: one step on the
+    MESH_SHAPE mesh and one with mesh=None, from two states of seed 0, on
+    one batch of MESH_TRAIN_BATCH, at the reference test's schedule (no
+    warm-up).  The losses are held within MESH_LOSS_RTOL.  The backward
+    pass is held by the first moments (0.1 x the clipped grads; one step
+    moves a weight by about lr whatever its grad, so the weights cannot
+    tell a wrong grad): within MESH_M_RTOL of each leaf's largest entry,
+    and a third step on the mesh with a planted fault
+    (``vocab_shard_grad_dropped``) must land past that limit."""
+    import math
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.models import ParallelConfig
+    from repro_torch.train import TrainConfig
+    cfg = at_depth(get_config(MESH_ARCH), MESH_TRAIN_LAYERS)
+    kw = dict(remat="block", attn_chunk_q=TRAIN_CHUNK,
+              attn_chunk_k=TRAIN_CHUNK, logits_chunk=TRAIN_CHUNK)
+    tcfg = TrainConfig(total_steps=10, warmup_steps=0)
+    b, seq = MESH_TRAIN_BATCH
+    batch = [lm_batch(0, 0, batch=b, seq=seq, vocab=cfg.vocab, device=s.dev)]
+    par = mesh_pars(s, MESH_SHAPE, **kw)
+    plain, m0, t0, _, _ = train_steps(s, cfg, ParallelConfig(**kw), tcfg,
+                                      batch)
+    mesh, m1, t1, peak, unchanged = train_steps(s, cfg, par, tcfg, batch)
+    ref = dict(plain["params"].named_parameters())
+    gap = max(float((p.detach().float() - ref[n].detach().float())
+                    .abs().max())
+              for n, p in mesh["params"].named_parameters())
+    del ref
+    m_gap, m_leaf = moment_gap(plain["opt"]["m"], mesh["opt"]["m"])
+    del mesh
+    free_card(s)
+    with vocab_shard_grad_dropped():
+        fault, m2, _, _, _ = train_steps(s, cfg, par, tcfg, batch)
+    f_gap, f_leaf = moment_gap(plain["opt"]["m"], fault["opt"]["m"])
+    del plain, fault
+    l0, l1 = m0[0]["loss"], m1[0]["loss"]
+    rec = {"layers": cfg.n_layers, "batch": [b, seq], "loss": l1,
+           "loss_no_mesh": l0, "loss_rel_gap": abs(l1 - l0) / abs(l0),
+           "m_rel_gap": m_gap, "m_rel_gap_leaf": m_leaf,
+           "fault_m_rel_gap": f_gap, "fault_m_rel_gap_leaf": f_leaf,
+           "fault_loss": m2[0]["loss"], "param_max_abs_gap": gap,
+           "step_ms": t1[0] * 1e3, "step_ms_no_mesh": t0[0] * 1e3,
+           "peak_bytes": peak, "lr": m1[0]["lr"],
+           "weights_unchanged": unchanged}
+    log(f"[mesh a] {MESH_ARCH} {cfg.n_layers} layers x d_model "
+        f"{cfg.d_model}, {b} x {seq} tokens, a {MESH_SHAPE} mesh: loss "
+        f"{l1:.6f} against {l0:.6f} without a mesh ({rec['loss_rel_gap']:.3g} "
+        f"relative, limit {MESH_LOSS_RTOL}); first moments within "
+        f"{m_gap:.4g} of a leaf's largest entry ({m_leaf}; limit "
+        f"{MESH_M_RTOL}), with the first model shard's table rows given "
+        f"no gradient {f_gap:.4g} ({f_leaf}; must pass the limit); "
+        f"weights after one step at lr {m1[0]['lr']:.3g} within {gap:.4g} "
+        f"(limit {MESH_PARAM_ATOL}); one step {t1[0] * 1e3:.1f} ms "
+        f"(no mesh {t0[0] * 1e3:.1f}, each a first call); peak "
+        f"{peak / 1e9:.2f} GB")
+    assert math.isfinite(l1) and rec["loss_rel_gap"] <= MESH_LOSS_RTOL, rec
+    assert m_gap <= MESH_M_RTOL < f_gap, rec
+    assert gap <= MESH_PARAM_ATOL, rec
+    assert m1[0]["lr"] > 0 and not unchanged, rec
+    return rec
+
+
+def mesh_train_full(s: Smoke, smi):
+    """b. Yi-6B at full width and, where the state fits (the
+    TRAIN_PROBE_LAYERS probe step's memory above its state, counted as
+    ``drive_train`` counts it), full depth on the MESH_SHAPE mesh:
+    MESH_TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens.  A batch of
+    one row cannot split over the data shards (the reference's placement
+    refuses it too): the batch is replicated (``batch_axes=()``).  The
+    same steps with mesh=None first, in the same call."""
+    import dataclasses
+    import math
+    import statistics
+    torch = s.torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import roofline
+    from repro_torch.train import TrainConfig
+    full = get_config(MESH_ARCH)
+    par = mesh_pars(s, MESH_SHAPE, batch_axes=(), remat="block",
+                    attn_chunk_q=TRAIN_CHUNK, attn_chunk_k=TRAIN_CHUNK,
+                    logits_chunk=TRAIN_CHUNK)
+    warm, timed_n = MESH_TRAIN_STEPS
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1,
+                       total_steps=warm + timed_n)
+
+    def batches(n):
+        return [lm_batch(0, i, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         vocab=full.vocab, device=s.dev) for i in range(n)]
+
+    free, _ = torch.cuda.mem_get_info()
+    probe = at_depth(full, TRAIN_PROBE_LAYERS)
+    state, _, _, probe_peak, _ = train_steps(s, probe, par, tcfg, batches(1))
+    del state
+    free_card(s)
+    overhead = probe_peak - train_state_bytes(probe)
+    per_layer = TRAIN_BATCH * TRAIN_SEQ * full.d_model * 2
+
+    def need(layers):
+        return (train_state_bytes(at_depth(full, layers)) + overhead
+                + (layers - TRAIN_PROBE_LAYERS) * per_layer + TRAIN_SLACK)
+
+    layers = full.n_layers
+    while layers > TRAIN_PROBE_LAYERS and need(layers) > free:
+        layers -= 1
+    run = at_depth(full, layers)
+    # mesh=None first, then the mesh: two versions compare in one call
+    state, _, plain_times, plain_peak, _ = train_steps(
+        s, run, dataclasses.replace(par, mesh=None, batch_axes=None),
+        tcfg, batches(warm + timed_n))
+    del state
+    free_card(s)
+    state, metrics, times, peak, unchanged = train_steps(
+        s, run, par, tcfg, batches(warm + timed_n))
+    del state
+    free_card(s)
+    timed = times[warm:]
+    step_s = statistics.median(timed)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    flops = roofline.model_flops(run, shape)
+    rec = {"layers": layers, "full_layers": full.n_layers,
+           "state_bytes": train_state_bytes(run), "need_bytes": need(layers),
+           "free_bytes": free, "probe_overhead_bytes": overhead,
+           "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "bf16_peak_share": flops / step_s / s.bf16, "peak_bytes": peak,
+           "loss": [m["loss"] for m in metrics],
+           "grad_norm": [m["grad_norm"] for m in metrics],
+           "weights_unchanged": unchanged,
+           "no_mesh": {"step_ms": statistics.median(plain_times[warm:])
+                       * 1e3, "step_ms_all": [t * 1e3 for t in plain_times],
+                       "peak_bytes": plain_peak}}
+    log(f"[mesh b] {MESH_ARCH} {layers} of {full.n_layers} layers on the "
+        f"{MESH_SHAPE} mesh, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: "
+        f"{rec['step_ms']:.1f} ms median of {timed_n} (all "
+        f"{[round(t, 1) for t in rec['step_ms_all']]}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s, {rec['bf16_peak_share']:.4f} "
+        f"of the bf16 peak; peak {peak / 1e9:.2f} GB (state "
+        f"{rec['state_bytes'] / 1e9:.2f} GB); losses {rec['loss']}; without "
+        f"a mesh in this call {rec['no_mesh']['step_ms']:.1f} ms (all "
+        f"{[round(t, 1) for t in rec['no_mesh']['step_ms_all']]}), peak "
+        f"{plain_peak / 1e9:.2f} GB; {smi}")
+    assert all(math.isfinite(x) for x in rec["loss"] + rec["grad_norm"])
+    assert abs(rec["loss"][0] - math.log(full.vocab)) < LOSS_AT_INIT, rec
+    assert not unchanged, unchanged
+    return rec
+
+
+def mesh_serve(s: Smoke, smi):
+    """c. Yi-6B served at full width and depth: a prefill of ARCH_BATCH x
+    ARCH_PROMPT tokens and ARCH_NEW decode steps with mesh=None, then on
+    each of MESH_SERVE's meshes, its greedy tokens held to a mesh=None
+    prefill's argmax at clear positions (``greedy_check``).  e. ``gpipe``
+    over the same weights (``mesh_gpipe``)."""
+    import statistics
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ParallelConfig, init_params
+    cfg = get_config(MESH_ARCH)
+    params = init_params(cfg, 0, device=s.dev)
+    par0 = ParallelConfig(attn_chunk_q=ARCH_CHUNK, attn_chunk_k=ARCH_CHUNK)
+    pb = arch_batch(s, cfg, 0, ARCH_BATCH, ARCH_PROMPT)
+    rec = {}
+    toks0 = None
+    for name, shape, kw in (("none", None, {}),) + MESH_SERVE:
+        par = par0 if shape is None else mesh_pars(s, shape, **kw)
+        toks, h, t_pre, t_dec, state = serve_tokens(s, params, cfg, par, pb,
+                                                    ARCH_NEW, MESH_CACHE)
+        del state
+        r = {"prefill_ms": t_pre * 1e3,
+             "decode_ms": statistics.median(t_dec) * 1e3,
+             "decode_ms_min": min(t_dec) * 1e3}
+        if toks0 is None:
+            toks0 = toks
+        else:
+            r["mesh"] = {"shape": list(shape), **{k: list(v) if isinstance(
+                v, tuple) else v for k, v in kw.items()}}
+            r["tokens_equal_no_mesh"] = int((toks == toks0).sum())
+            r["greedy"] = greedy_check(s, params, cfg, par0, pb, toks, h)
+            assert_greedy(cfg, r["greedy"])
+        del h
+        rec[name] = r
+        g = r.get("greedy")
+        log(f"[mesh c] {MESH_ARCH} serving, {name}: prefill {ARCH_BATCH} x "
+            f"{ARCH_PROMPT} {r['prefill_ms']:.1f} ms, decode "
+            f"{r['decode_ms']:.2f} ms a token (median of {ARCH_NEW}; no mesh "
+            f"{rec['none']['decode_ms']:.2f})" + (
+                "" if g is None else
+                f"; greedy == the mesh=None prefill's argmax at {g['clear']} "
+                f"clear positions ({g['close']} close, {g['close_equal']} "
+                f"equal too; hidden states within {g['h_dev']:.3g}); tokens "
+                f"equal to the mesh=None decode's "
+                f"{r['tokens_equal_no_mesh']} of {toks.numel()}") +
+            f"; {smi}")
+    pipe = mesh_gpipe(s, params, cfg, par0, smi)
+    del params
+    free_card(s)
+    return rec, pipe
+
+
+def mesh_gpipe(s: Smoke, params, cfg, par0, smi):
+    """e. ``gpipe`` over the model's layers in MESH_PIPE[0] stages (the
+    'stage' axis of a (stages, 2) mesh) on MESH_PIPE[1] micro-batches of
+    1 x MESH_PIPE[2] embedded tokens, held to the sequential stack; each
+    timed twice, sequential, pipe, pipe, sequential."""
+    import statistics
+    torch = s.torch
+    from repro_torch.data import lm_batch
+    from repro_torch.distributed import bubble_fraction, gpipe
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import _layers
+    stages, n_micro, seq = MESH_PIPE
+    per = cfg.n_layers // stages
+    mesh = make_debug_mesh((stages, 2), ("stage", "model"), device=s.dev)
+    pos = torch.arange(seq, dtype=torch.int32, device=s.dev).expand(1, seq)
+
+    def stage_fn(layers, h):
+        return _layers(layers, h, pos, cfg, par0, None, params.shared)[0]
+
+    stage_params = [list(params.blocks[i * per:(i + 1) * per])
+                    for i in range(stages)]
+    toks = lm_batch(3, 0, batch=n_micro, seq=seq, vocab=cfg.vocab,
+                    device=s.dev)["tokens"].long()
+    times = {"pipe": [], "sequential": []}
+    with torch.inference_mode():
+        xs = params.embed[toks][:, None]             # (n_micro, 1, seq, D)
+        stage_fn(stage_params[0], xs[0])            # warm-up
+        for name in ("sequential", "pipe", "pipe", "sequential"):
+            if name == "pipe":
+                out, t = synced(torch, lambda: gpipe(
+                    stage_fn, stage_params, xs, mesh=mesh, axis="stage"))
+            else:
+                ref, t = synced(torch, lambda: torch.stack(
+                    [stage_fn(list(params.blocks[:stages * per]), x)
+                     for x in xs]))
+            times[name].append(t * 1e3)
+        err = float((out.float() - ref.float()).abs().max()
+                    / ref.float().abs().max())
+    t_pipe = statistics.median(times["pipe"]) / 1e3
+    t_seq = statistics.median(times["sequential"]) / 1e3
+    rec = {"stages": stages, "micro_batches": n_micro, "tokens": seq,
+           "layers_a_stage": per, "pipe_ms": t_pipe * 1e3,
+           "sequential_ms": t_seq * 1e3, "ms_all": times,
+           "ratio": t_pipe / t_seq,
+           "bubble_fraction": bubble_fraction(n_micro, stages),
+           "schedule_ratio": (n_micro + stages - 1) / n_micro,
+           "max_rel_err": err}
+    log(f"[mesh e] gpipe of {stages * per} layers in {stages} stages of "
+        f"{per}, {n_micro} micro-batches of 1 x {seq} tokens: "
+        f"{t_pipe * 1e3:.1f} ms against {t_seq * 1e3:.1f} ms sequential "
+        f"(medians of {times}; x{rec['ratio']:.3f}; the schedule runs every stage each of "
+        f"n_micro + n_stages - 1 steps: x{rec['schedule_ratio']:.3f}); "
+        f"bubble fraction {rec['bubble_fraction']:.4f}; within {err:.3g} of "
+        f"the sequential stack's largest entry (limit {MESH_PIPE_TOL}); {smi}")
+    assert rec["bubble_fraction"] == 3 / 11 or MESH_PIPE[:2] != (4, 8)
+    assert err <= MESH_PIPE_TOL, rec
+    return rec
+
+
+def mesh_moe(s: Smoke, smi):
+    """d. Granite-MoE at full width and depth, ``moe_local_dispatch`` on
+    the MESH_SHAPE mesh (one batch row a data shard): a prefill of
+    ARCH_BATCH x ARCH_PROMPT tokens timed against the global dispatch
+    (global, local, local, global after a warm-up).  The local dispatch
+    is each shard's global dispatch on its own tokens: held on the first
+    MoE layer's input (bf16, each row against ``moe_apply`` of that row
+    alone, the same routing, within MESH_MOE_TOL of the largest entry)
+    and on the whole model in float32 (each row's final hidden states
+    against a mesh=None prefill of that row alone; rows within
+    MESH_MOE_ROW_TOL of their largest entry but a MESH_MOE_ROW_SHARE
+    share: a routing near-tie may flip on one side)."""
+    import copy
+    import dataclasses
+    import statistics
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (ParallelConfig, hidden_states,
+                                    init_params, prefill)
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.common import rmsnorm
+    cfg = get_config(MESH_MOE)
+    params = init_params(cfg, 0, device=s.dev)
+    par0 = ParallelConfig(attn_chunk_q=ARCH_CHUNK, attn_chunk_k=ARCH_CHUNK)
+    parl = mesh_pars(s, MESH_SHAPE, moe_local_dispatch=True)
+    pb = arch_batch(s, cfg, 0, ARCH_BATCH, ARCH_PROMPT)
+    times = {"global": [], "local": []}
+    with torch.inference_mode():
+        prefill(params, pb, cfg, par0, ARCH_PROMPT)
+        for name in ("global", "local", "local", "global"):
+            _, t = synced(torch, lambda: prefill(
+                params, pb, cfg, parl if name == "local" else par0,
+                ARCH_PROMPT))
+            times[name].append(t * 1e3)
+        lp = next(lp for lp in params.blocks if lp.kind == "moe")
+        x = rmsnorm(params.embed[pb["tokens"].long()], lp.norm2,
+                    cfg.norm_eps)
+        kw = dict(top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
+                  act=cfg.mlp_act)
+        local, _ = moe_lib.moe_apply(lp.moe, x, par=parl, **kw)
+        rows = torch.cat([moe_lib.moe_apply(lp.moe, x[r:r + 1], **kw)[0]
+                          for r in range(x.shape[0])])
+        layer_err = float((local.float() - rows.float()).abs().max()
+                          / rows.float().abs().max())
+        glob, _ = moe_lib.moe_apply(lp.moe, x, **kw)
+        global_gap = float((glob.float() - rows.float()).abs().max()
+                           / rows.float().abs().max())
+    del local, rows, glob, x
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = copy.deepcopy(params).float()
+    del params
+    free_card(s)
+    with torch.inference_mode():
+        h = hidden_states(p32, pb, cfg32, parl).float()
+        dev = torch.cat([
+            ((h[r:r + 1] - hidden_states(p32, {"tokens": pb["tokens"][
+                r:r + 1]}, cfg32, par0).float()).abs().amax(-1)
+             / h[r:r + 1].abs().amax(-1)) for r in range(h.shape[0])])
+    share = float((dev > MESH_MOE_ROW_TOL).float().mean())
+    rec = {"layers": cfg.n_layers, "batch": [ARCH_BATCH, ARCH_PROMPT],
+           "prefill_ms": times, "prefill_ms_local": statistics.median(
+               times["local"]),
+           "prefill_ms_global": statistics.median(times["global"]),
+           "layer_max_rel_err": layer_err,
+           "layer_global_vs_rows_gap": global_gap,
+           "f32_row_dev_max": float(dev.max()),
+           "f32_row_dev_median": float(dev.median()),
+           "f32_rows_past_tol_share": share}
+    log(f"[mesh d] {MESH_MOE} {cfg.n_layers} layers x d_model {cfg.d_model} "
+        f"({cfg.moe.num_experts} experts, top {cfg.moe.top_k}, capacity "
+        f"factor {cfg.moe.capacity_factor}), {ARCH_BATCH} x {ARCH_PROMPT} "
+        f"tokens on the {MESH_SHAPE} mesh: prefill local dispatch "
+        f"{times['local']} ms, global {times['global']} ms; the first MoE "
+        f"layer's local output within {layer_err:.3g} of each row's own "
+        f"dispatch (limit {MESH_MOE_TOL}; the global dispatch of the batch "
+        f"is {global_gap:.3g} away: the capacity binds); float32 model rows "
+        f"within {rec['f32_row_dev_median']:.3g} median, "
+        f"{rec['f32_row_dev_max']:.3g} max of their largest entry, "
+        f"{share:.4%} past {MESH_MOE_ROW_TOL}; {smi}")
+    assert layer_err <= MESH_MOE_TOL, rec
+    assert share <= MESH_MOE_ROW_SHARE, rec
+    del p32, h
+    free_card(s)
+    return rec
+
+
+def mesh_ef(s: Smoke, smi):
+    """f. ``apply_ef`` over MESH_EF_SHARDS shards of a 'pod' axis, each
+    holding gradient-shaped leaves of one Yi-6B layer (N(0, 0.01), seed
+    0): the first step's reduction against the plain mean (relative error
+    below MESH_EF_RELERR, as test_distributed's), then MESH_EF_STEPS
+    steps of the same grads: the applied sum within
+    ``tests/test_optim.py``'s bound (0.01 x the largest entry of
+    steps x the mean, + 1e-4), leaf by leaf."""
+    import statistics
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import apply_ef, init_ef
+    cfg = at_depth(get_config(MESH_ARCH), 1)
+    shapes = {n: p.shape for n, p in
+              init_params(cfg, device="meta").blocks[0].named_parameters()}
+    n = MESH_EF_SHARDS
+    mesh = make_debug_mesh((n,), ("pod",), device=s.dev)
+    gen = torch.Generator(device=s.dev).manual_seed(0)
+    grads = [{k: torch.randn(v, generator=gen, device=s.dev) * 0.01
+              for k, v in shapes.items()} for _ in range(n)]
+    ef = [init_ef(g) for g in grads]
+    mean = {k: sum(g[k] for g in grads) / n for k in shapes}
+    applied = {k: torch.zeros_like(v) for k, v in mean.items()}
+    times, first = [], None
+    for step in range(MESH_EF_STEPS):
+        (red, ef), t = synced(torch, lambda: apply_ef(grads, ef, mesh, "pod",
+                                                      n))
+        times.append(t * 1e3)
+        if first is None:
+            first = max(float((red[0][k] - mean[k]).abs().max()
+                              / mean[k].abs().max()) for k in shapes)
+            assert all(torch.equal(r[k], red[0][k]) for r in red[1:]
+                       for k in shapes)
+        for k in shapes:
+            applied[k] += red[0][k]
+        del red
+    errs = {}
+    for k in shapes:
+        want = MESH_EF_STEPS * mean[k]
+        err = float((applied[k] - want).abs().max())
+        bound = 0.01 * float(want.abs().max()) + 1e-4
+        errs[k] = (err, bound)
+        assert err < bound, (k, err, bound)
+    entries = sum(v.numel() for v in mean.values())
+    rec = {"shards": n, "entries_a_shard": entries,
+           "bytes_float32_all_shards": 4 * n * entries,
+           "first_step_rel_err": first, "steps": MESH_EF_STEPS,
+           "step_ms_median": statistics.median(times),
+           "step_ms_first": times[0],
+           "applied_err_over_bound_max": max(e / b for e, b in errs.values())}
+    log(f"[mesh f] apply_ef over {n} shards of {entries} entries each (one "
+        f"{MESH_ARCH} layer's leaves, {4 * n * entries / 1e9:.2f} GB of "
+        f"float32 grads): first step within {first:.4g} of the plain mean "
+        f"(limit {MESH_EF_RELERR}); after {MESH_EF_STEPS} steps the applied "
+        f"sum within {rec['applied_err_over_bound_max']:.3g} of its bound, "
+        f"leaf by leaf; {rec['step_ms_median']:.1f} ms a step (median; first "
+        f"{times[0]:.1f}); {smi}")
+    assert first < MESH_EF_RELERR, rec
+    del grads, ef, mean, applied
+    free_card(s)
+    return rec
+
+
+def mesh_launch(s: Smoke):
+    """g. ``python -m repro_torch.launch.train --reduced --devices 8
+    --steps 4`` in a subprocess: the launcher's debug mesh on the card."""
+    import math
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         MESH_ARCH, "--reduced", "--devices", "8", "--steps", "4"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    final = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("final loss:")]
+    assert final and math.isfinite(float(final[-1].split()[-1])), out.stdout
+    rec = {"s": time.perf_counter() - t0,
+           "final_loss": float(final[-1].split()[-1])}
+    log(f"[mesh g] launch.train --reduced --devices 8 --steps 4 in a "
+        f"subprocess: final loss {rec['final_loss']:.6f}, {rec['s']:.1f} s")
+    return rec
+
+
+def drive_mesh(s: Smoke, smi):
+    """Model parallelism on the ``ShardMesh`` (phase 8d), last, on a card
+    the earlier phases left (less than ARCH_LEFT bytes allocated), each
+    model freed before the next: a. ``mesh_train_check``, b.
+    ``mesh_train_full``, c. and e. ``mesh_serve`` (with ``mesh_gpipe``),
+    d. ``mesh_moe``, f. ``mesh_ef``, g. ``mesh_launch``.  Returns the
+    ``[mesh]`` record."""
+    torch = s.torch
+    t_phase = time.perf_counter()
+    free_card(s)
+    assert torch.cuda.memory_allocated() < ARCH_LEFT, \
+        f"{torch.cuda.memory_allocated()} bytes left on the card"
+    rec = {"card": smi}
+    rec["a_train_check"] = mesh_train_check(s)
+    free_card(s)
+    rec["b_train_full"] = mesh_train_full(s, smi)
+    rec["c_serve"], rec["e_gpipe"] = mesh_serve(s, smi)
+    rec["d_moe_local"] = mesh_moe(s, smi)
+    rec["f_apply_ef"] = mesh_ef(s, smi)
+    rec["g_launch"] = mesh_launch(s)
+    assert torch.cuda.memory_allocated() < ARCH_LEFT
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] the phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def log_kernel_times(tag, kt):
     for k, v in kt.items():
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
@@ -4170,6 +4724,9 @@ def main() -> int:
     # -- 7e. the other layer kinds, last, on an empty card ---------------
     archs = drive_archs(s, smi, by_path)
     log("[archs] " + json.dumps(archs))
+    # -- 7f. model parallelism on the ShardMesh, on an empty card --------
+    mesh = drive_mesh(s, smi)
+    log("[mesh] " + json.dumps(mesh))
     rkt = retrieval.pop("kernel_times")
     for name in ("linear_scan_dot", "lsh_scan"):
         timings[name]["retrieval d=4096"] = rkt[name]

@@ -32,7 +32,8 @@ terms mode, one launch a shard), the searches from
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import math
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,45 +54,155 @@ _HASH_CHUNK = 65536
 
 
 class ShardMesh:
-    """One ``torch.device`` per shard, along one named axis.
+    """One ``torch.device`` per shard, over one or more named axes.
 
-    ``mesh.shape[axis]`` is the shard count, as for the reference's
-    ``jax.sharding.Mesh``.  ``psum`` / ``pmax`` take one tensor per shard
-    and return the reduction, one copy per shard on its device."""
+    ``ShardMesh(devices, "data")`` is a one-axis mesh of ``len(devices)``
+    shards; ``ShardMesh(devices, ("data", "model"), (4, 2))`` a 4 x 2
+    one, the shards in row-major order of the coordinates (shard i at
+    ``coords(i)``), as for the reference's ``jax.sharding.Mesh``:
+    ``mesh.shape[name]`` is an axis's size.
 
-    def __init__(self, devices: Sequence, axis: str = "data"):
-        if not devices:
-            raise ValueError("a mesh needs at least one shard")
+    The collectives take one tensor per shard and return one per shard,
+    on its device.  Over ``names`` (a name, a tuple of names, or None for
+    every axis) the shards that share their coordinates on the other
+    axes form a group; each group reduces in the order of its ranks along
+    ``names`` (``axis_index``) on its first shard's device."""
+
+    def __init__(self, devices: Sequence, axis: Union[str, Sequence[str]]
+                 = "data", shape: Optional[Sequence[int]] = None):
         self.devices = tuple(torch.device(d) for d in devices)
-        self.axis = axis
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        sizes = ((len(self.devices),) if shape is None
+                 else tuple(int(n) for n in shape))
+        if len(names) != len(sizes) or len(set(names)) != len(names):
+            raise ValueError(f"axes {names} do not name the {len(sizes)} "
+                             f"dimensions of the shape {sizes} once each")
+        if not self.devices or math.prod(sizes) != len(self.devices):
+            raise ValueError(f"{len(self.devices)} devices for a mesh of "
+                             f"shape {sizes}")
+        self.axis_names, self._sizes = names, sizes
+        # the one-axis meshes of the sharded indexes name their axis here
+        self.axis = names[0] if len(names) == 1 else None
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis: len(self.devices)}
+        return dict(zip(self.axis_names, self._sizes))
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
-    def _reduce(self, tensors: Sequence[torch.Tensor], op) -> List[torch.Tensor]:
+    def _names(self, names) -> Tuple[str, ...]:
+        if names is None:
+            return self.axis_names
+        names = (names,) if isinstance(names, str) else tuple(names)
+        for n in names:
+            if n not in self.axis_names:
+                raise KeyError(f"axis {n!r} is not in the mesh "
+                               f"{self.axis_names}")
+        return names
+
+    def axis_size(self, names=None) -> int:
+        """The product of the sizes of ``names`` (1 for none)."""
+        return math.prod(self.shape[n] for n in self._names(names))
+
+    def coords(self, shard: int) -> Dict[str, int]:
+        """Shard ``shard``'s index along each axis (row-major)."""
+        out = {}
+        for n, size in zip(reversed(self.axis_names), reversed(self._sizes)):
+            shard, out[n] = divmod(shard, size)
+        return {n: out[n] for n in self.axis_names}
+
+    def axis_index(self, shard: int, names=None) -> int:
+        """Shard ``shard``'s rank over ``names``, row-major in the order
+        given (the reference's ``rank * size + axis_index`` loop)."""
+        c, rank = self.coords(shard), 0
+        for n in self._names(names):
+            rank = rank * self.shape[n] + c[n]
+        return rank
+
+    def groups(self, names=None) -> List[List[int]]:
+        """The shards that reduce together over ``names``, each group in
+        rank order."""
+        names = self._names(names)
+        out: Dict[tuple, List[int]] = {}
+        for i in range(self.size):
+            c = self.coords(i)
+            out.setdefault(tuple(c[n] for n in self.axis_names
+                                 if n not in names), []).append(i)
+        return [sorted(g, key=lambda i: self.axis_index(i, names))
+                for g in out.values()]
+
+    def sub(self, names) -> "ShardMesh":
+        """The mesh of ``names`` alone (in the order given): the shards
+        at coordinate 0 on every other axis."""
+        names = self._names(names)
+        g = next(g for g in self.groups(names)
+                 if all(self.coords(g[0])[n] == 0 for n in self.axis_names
+                        if n not in names))
+        return ShardMesh([self.devices[i] for i in g], names,
+                         [self.shape[n] for n in names])
+
+    def _check(self, tensors: Sequence) -> None:
         if len(tensors) != self.size:
             raise ValueError(f"{len(tensors)} tensors for {self.size} shards")
-        home = self.devices[0]
-        acc = tensors[0].to(home)
-        for t in tensors[1:]:
-            acc = op(acc, t.to(home))
-        return [acc.to(d) for d in self.devices]
 
-    def psum(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Sum over the shards, in shard order."""
-        return self._reduce(tensors, torch.add)
+    def _reduce(self, tensors: Sequence[torch.Tensor], op, names=None
+                ) -> List[torch.Tensor]:
+        self._check(tensors)
+        out: List[Optional[torch.Tensor]] = [None] * self.size
+        for g in self.groups(names):
+            home = self.devices[g[0]]
+            acc = tensors[g[0]].to(home)
+            for i in g[1:]:
+                acc = op(acc, tensors[i].to(home))
+            for i in g:
+                out[i] = acc.to(self.devices[i])
+        return out
 
-    def pmax(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Elementwise max over the shards."""
-        return self._reduce(tensors, torch.maximum)
+    def psum(self, tensors: Sequence[torch.Tensor], names=None
+             ) -> List[torch.Tensor]:
+        """Sum over ``names``, in rank order."""
+        return self._reduce(tensors, torch.add, names)
+
+    def pmax(self, tensors: Sequence[torch.Tensor], names=None
+             ) -> List[torch.Tensor]:
+        """Elementwise max over ``names``."""
+        return self._reduce(tensors, torch.maximum, names)
+
+    def pmin(self, tensors: Sequence[torch.Tensor], names=None
+             ) -> List[torch.Tensor]:
+        """Elementwise min over ``names``."""
+        return self._reduce(tensors, torch.minimum, names)
+
+    def all_gather(self, tensors: Sequence[torch.Tensor], names=None
+                   ) -> List[torch.Tensor]:
+        """Each shard gets its group's tensors stacked on a new leading
+        axis, in rank order."""
+        self._check(tensors)
+        out: List[Optional[torch.Tensor]] = [None] * self.size
+        for g in self.groups(names):
+            home = self.devices[g[0]]
+            stacked = torch.stack([tensors[i].to(home) for i in g])
+            for i in g:
+                out[i] = stacked.to(self.devices[i])
+        return out
+
+    def ppermute(self, tensors: Sequence[torch.Tensor], names,
+                 perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+        """Within each group over ``names``, rank ``src`` sends its tensor
+        to rank ``dst`` for each (src, dst) of ``perm``; a shard that
+        receives nothing gets zeros (``lax.ppermute``)."""
+        self._check(tensors)
+        out = [torch.zeros_like(t) for t in tensors]
+        for g in self.groups(names):
+            for src, dst in perm:
+                out[g[dst]] = tensors[g[src]].to(self.devices[g[dst]])
+        return out
 
     def __repr__(self) -> str:
-        return f"ShardMesh({[str(d) for d in self.devices]}, axis={self.axis!r})"
+        return (f"ShardMesh({[str(d) for d in self.devices]}, "
+                f"shape={self.shape})")
 
 
 def make_mesh(shards: int, device="cuda", axis: str = "data") -> ShardMesh:

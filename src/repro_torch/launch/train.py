@@ -5,9 +5,11 @@
 
 Trains on the GPU unless ``--device cpu`` asks for the CPU.  A restart
 after a crash resumes from the latest committed checkpoint in
-``--ckpt-dir``.  One process, one device: ``--devices`` and
-``--coordinator`` (the reference's debug mesh and multi-host start) come
-with model parallelism (Slice F3) and raise.
+``--ckpt-dir``.  ``--devices N`` trains on the reference's debug mesh,
+(N / 2, 2) over ("data", "model"), every shard on that one device.
+``--coordinator`` (the reference's multi-host start) raises: the port
+runs one controller, so there is no second host to start, and no machine
+here has one to test it on.
 """
 from __future__ import annotations
 
@@ -28,16 +30,17 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--coordinator", default=None,
-                    help="host:port of a multi-host start (Slice F3)")
+                    help="host:port of a multi-host start (not supported)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="a debug mesh of N devices (Slice F3)")
+                    help="a debug mesh of N shards on the one device")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
-    if args.coordinator or args.devices:
+    if args.coordinator:
         raise NotImplementedError(
-            "--coordinator / --devices: model parallelism is not ported "
-            "yet (Slice F3)")
+            "--coordinator: a multi-host start has no counterpart on the "
+            "port's single controller (every shard of a mesh is driven "
+            "from one process), and no machine here could test one")
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.parallel import ParallelConfig
@@ -48,7 +51,13 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    par = ParallelConfig(mesh=None, attn_chunk_q=min(128, args.seq),
+    mesh = None
+    if args.devices:
+        from repro_torch.launch.mesh import make_debug_mesh
+        mesh = make_debug_mesh((args.devices // 2, 2), ("data", "model"),
+                               device="cuda" if args.device is None
+                               else args.device)
+    par = ParallelConfig(mesh=mesh, attn_chunk_q=min(128, args.seq),
                          attn_chunk_k=min(128, args.seq),
                          logits_chunk=min(512, args.seq))
     hist = train_loop(

@@ -1,4 +1,4 @@
-"""Attention for the model zoo (one device).
+"""Attention for the model zoo.
 
 Prefill: blockwise ("flash-style") attention as an online softmax over
 KV chunks, in plain PyTorch: O(S * chunk) score memory, causal,
@@ -10,7 +10,9 @@ static K/V.
 The arithmetic of ``repro.models.attention``: scores, softmax and the
 probability-value product in float32 from the parameter-dtype q, k, v
 (``probs_bf16`` rounds the probabilities to bf16 before the product).
-``flash_decode``'s sharded branch comes with Slice F3.
+Under a mesh, ``flash_decode`` shards the cache's sequence over
+``par.decode_seq_shard`` (a partial softmax a shard, merged by
+log-sum-exp through the mesh).
 """
 from __future__ import annotations
 
@@ -36,6 +38,11 @@ def init_attn(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
                       device=device),
         wo=dense_init(gen, (n_heads * hd, d_model), 0, dtype=dtype,
                       device=device))
+
+
+def attn_specs(par, stacked: bool = True):
+    return {"wq": par.w_col(stacked), "wk": par.w_col(stacked),
+            "wv": par.w_col(stacked), "wo": par.w_row(stacked)}
 
 
 def _divisor_chunk(s: int, c: int) -> int:
@@ -149,13 +156,14 @@ def self_attention(params, x: torch.Tensor, positions: torch.Tensor, *,
 
 
 # --------------------------------------------------------------- decode
-def _plain_decode(q, k_cache, v_cache, lengths):
-    """q: (B, Hkv, G, hd); caches (B, S, Hkv, hd); lengths (B,) tokens
-    valid.  Returns the partial softmax (m, l, o), float32."""
+def _plain_decode(q, k_cache, v_cache, lengths, seq_offset: int = 0):
+    """q: (B, Hkv, G, hd); caches (B, S, Hkv, hd) holding positions
+    ``seq_offset`` .. ``seq_offset + S - 1``; lengths (B,) tokens valid.
+    Returns the partial softmax (m, l, o), float32."""
     b, s, hkv, hd = k_cache.shape
     scale = hd ** -0.5
     s_ = torch.einsum("bngh,bsnh->bngs", q.float(), k_cache.float()) * scale
-    pos = torch.arange(s, dtype=torch.int32, device=q.device)
+    pos = seq_offset + torch.arange(s, dtype=torch.int32, device=q.device)
     valid = pos[None, :] < lengths[:, None]              # (B, S)
     s_ = s_.masked_fill(~valid[:, None, None, :], _NEG)
     m = s_.amax(dim=-1)
@@ -166,28 +174,53 @@ def _plain_decode(q, k_cache, v_cache, lengths):
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, lengths: torch.Tensor
-                 ) -> torch.Tensor:
-    """Single-token attention vs a KV cache on one device.
+                 v_cache: torch.Tensor, lengths: torch.Tensor, par=None, *,
+                 seq_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """Single-token attention vs a (possibly seq-sharded) KV cache.
 
-    q: (B, H, hd); caches: (B, S, Hkv, hd); lengths: (B,)."""
+    q: (B, H, hd); caches: (B, S, Hkv, hd); lengths: (B,).  ``seq_axes``:
+    mesh axes sharding the cache's S dim.  Each shard (rank r over
+    ``seq_axes``, row-major) computes the partial softmax of its S / n
+    positions from ``r * S / n``; the parts merge by log-sum-exp: a pmax
+    of m, psums of the rescaled l and o (flash-decoding).  A batch row
+    needs no other row, so the batch runs whole in each shard."""
     b, h, hd = q.shape
     hkv = k_cache.shape[2]
-    m, l, o = _plain_decode(q.reshape(b, hkv, h // hkv, hd), k_cache,
-                            v_cache, lengths)
-    out = o / torch.clamp(l, min=1e-30)[..., None]
+    qg = q.reshape(b, hkv, h // hkv, hd)
+    if not (par is not None and par.active and seq_axes):
+        m, l, o = _plain_decode(qg, k_cache, v_cache, lengths)
+        out = o / torch.clamp(l, min=1e-30)[..., None]
+        return out.reshape(b, h, hd).to(q.dtype)
+    mesh = par.mesh.sub(seq_axes)
+    s, n = k_cache.shape[1], mesh.size
+    if s % n:
+        raise ValueError(f"cache length {s} does not split over {n} "
+                         f"shards of {seq_axes}")
+    s_loc = s // n
+    parts = [_plain_decode(qg, k_cache[:, r * s_loc:(r + 1) * s_loc],
+                           v_cache[:, r * s_loc:(r + 1) * s_loc], lengths,
+                           seq_offset=r * s_loc) for r in range(n)]
+    mg = mesh.pmax([m for m, _, _ in parts])
+    corr = [torch.exp(m - g) for (m, _, _), g in zip(parts, mg)]
+    lg = mesh.psum([l * c for (_, l, _), c in zip(parts, corr)])
+    og = mesh.psum([o * c[..., None] for (_, _, o), c in zip(parts, corr)])
+    out = og[0] / torch.clamp(lg[0], min=1e-30)[..., None]
     return out.reshape(b, h, hd).to(q.dtype)
 
 
 def decode_self_attention(params, x_tok: torch.Tensor, cache: dict,
                           lengths: torch.Tensor, *, n_heads: int, n_kv: int,
-                          hd: int, rope_theta: float, window: int = 0
+                          hd: int, rope_theta: float, par=None,
+                          seq_axes: Tuple[str, ...] = (), window: int = 0
                           ) -> Tuple[torch.Tensor, dict]:
     """One decode step.  x_tok: (B, D); cache: {"k","v"}: (B, S, Hkv, hd),
     written in place at each row's position ``lengths``.  With
     ``window`` the cache is a ring buffer: the slot is ``lengths % S``
     and the valid slots are ``min(lengths + 1, window)``, each within the
-    window by construction.
+    window by construction; a ring never shards its sequence.  Under a
+    mesh with ``par.decode_kv_head_shard`` the caches are laid out by KV
+    head (each head's whole sequence: the plain path); else the sequence
+    shards over ``seq_axes`` (``flash_decode``).
 
     Returns (out (B, D), cache)."""
     b, _ = x_tok.shape
@@ -202,8 +235,17 @@ def decode_self_attention(params, x_tok: torch.Tensor, cache: dict,
     cache["k"][bidx, slot] = k.to(cache["k"].dtype)
     cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
     valid = torch.clamp(lengths + 1, max=window) if window else lengths + 1
-    out = flash_decode(q, cache["k"], cache["v"],
-                       valid).reshape(b, n_heads * hd)
+    if window:
+        seq_axes = ()
+    elif par is not None and par.active and par.decode_kv_head_shard:
+        kvspec = (par.batch(), None, par.model_axis, None)
+        par.shard(cache["k"], *kvspec)
+        par.shard(cache["v"], *kvspec)
+        par.shard(q.reshape(b, n_kv, n_heads // n_kv, hd), par.batch(),
+                  par.model_axis, None, None)
+        seq_axes = ()
+    out = flash_decode(q, cache["k"], cache["v"], valid, par,
+                       seq_axes=seq_axes).reshape(b, n_heads * hd)
     return out.to(x_tok.dtype) @ params["wo"], cache
 
 

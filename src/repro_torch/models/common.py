@@ -93,6 +93,11 @@ def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return h @ params["wo"]
 
 
+def mlp_specs(par, stacked: bool = True):
+    return {"wi": par.w_col(stacked), "wg": par.w_col(stacked),
+            "wo": par.w_row(stacked)}
+
+
 def params_dict(**tensors: torch.Tensor) -> nn.ParameterDict:
     """Named weights, created without gradients so that serving builds no
     autograd graph; a training state turns them on for the module it

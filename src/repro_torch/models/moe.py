@@ -1,5 +1,4 @@
-"""Mixture-of-Experts MLP with sort-based (gather/scatter) dispatch, one
-device.
+"""Mixture-of-Experts MLP with sort-based (gather/scatter) dispatch.
 
 The arithmetic of ``repro.models.moe.moe_apply``: a float32 router,
 softmax and top-k; the Switch-style load-balancing loss
@@ -16,8 +15,9 @@ in no fixed order (atomics), so outputs agree with another order within
 float32 rounding, not bit for bit.  Where the capacity is large (a
 capacity factor of E / top_k holds every token), the experts run in
 passes of at most MAX_BUFFER buffer entries, each pass over its experts'
-run of the sorted pairs, adding their outputs.  The per-shard dispatch
-(``_moe_apply_local``) comes with Slice F3.
+run of the sorted pairs, adding their outputs.  Under a mesh,
+``moe_local_dispatch`` gives each batch shard its own sort and capacity
+(``_moe_apply_local``, the reference's ``shard_map``).
 """
 from __future__ import annotations
 
@@ -48,6 +48,16 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
                       device=device))
 
 
+def moe_specs(par, stacked: bool = True):
+    st = (None,) if stacked else ()
+    ma = par.model_axis if par.active else None
+    fa = par.fsdp_axis()
+    return {"router": st + (None, None),
+            "wi": st + (ma, fa, None),
+            "wg": st + (ma, fa, None),
+            "wo": st + (ma, fa, None)}
+
+
 def capacity(t: int, top_k: int, num_experts: int,
              capacity_factor: float) -> int:
     """Slots an expert keeps for ``t`` tokens (the reference's clamp)."""
@@ -76,36 +86,90 @@ def dispatch(probs: torch.Tensor, top_k: int, cap: int):
 
 
 def moe_apply(params, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float, act: str = "silu"
+              capacity_factor: float, act: str = "silu", par=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux_loss float32
-    0-d)."""
+    0-d).  Under a mesh with ``par.moe_local_dispatch``, where the batch
+    has a token for each batch shard, each shard dispatches its own
+    tokens (``_moe_apply_local``)."""
     b, s, d = x.shape
-    e = params["router"].shape[1]
     t = b * s
+    if par is not None and par.active and par.moe_local_dispatch \
+            and t >= par.axis_size(par.batch_axes_):
+        return _moe_apply_local(params, x, top_k=top_k,
+                                capacity_factor=capacity_factor, act=act,
+                                par=par)
+    e = params["router"].shape[1]
     xt = x.reshape(t, d)
     probs = torch.softmax(xt.float() @ params["router"], dim=-1)  # (T, E)
     cap = capacity(t, top_k, e, capacity_factor)
     sg, stok, se, slot, expert = dispatch(probs, top_k, cap)
+    out = _combine(params, xt, sg, stok, se, slot, cap, act)
+    return out.reshape(b, s, d).to(x.dtype), _aux_loss(probs, expert)
 
-    # Load-balancing aux loss (Switch-style): E * sum_e f_e * p_e.
+
+def _aux_loss(probs: torch.Tensor, expert: torch.Tensor) -> torch.Tensor:
+    """Load-balancing aux loss (Switch-style): E * sum_e f_e * p_e."""
+    t, e = probs.shape
     density = torch.bincount(expert[:, 0], minlength=e).float() / t
-    aux = e * torch.sum(density * probs.mean(dim=0))
+    return e * torch.sum(density * probs.mean(dim=0))
 
-    # the experts in passes of at most MAX_BUFFER entries of an
-    # (experts, capacity, width) buffer: one pass at the configs' own
-    # capacity factors; several where the capacity holds every token
-    f = params["wi"].shape[2]
+
+def _moe_apply_local(params, x: torch.Tensor, *, top_k: int,
+                     capacity_factor: float, act: str, par):
+    """The reference's per-shard dispatch: the (B * S, D) tokens split
+    into n = ``par.axis_size(par.batch_axes_)`` contiguous runs of
+    t = B * S / n, one a batch shard (rank order over the batch axes).
+    Each shard routes, sorts and clamps its own run with the capacity of
+    t tokens; shard r's kept pairs fill slots r * cap .. of each expert's
+    row in one (E, n * cap, D) buffer, whose experts run once; each shard
+    combines its own pairs.  The aux loss is the shards' mean (a psum
+    over the batch axes / n)."""
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+    mesh = par.mesh.sub(par.batch_axes_)
+    n = mesh.size
+    if (b * s) % n:
+        raise ValueError(f"{b * s} tokens do not split over {n} batch "
+                         f"shards")
+    t = b * s // n
+    cap = capacity(t, top_k, e, capacity_factor)
+    xt = x.reshape(b * s, d)
+    pairs, auxes = [], []
+    for r in range(n):
+        probs = torch.softmax(xt[r * t:(r + 1) * t].float()
+                              @ params["router"], dim=-1)
+        sg, stok, se, slot, expert = dispatch(probs, top_k, cap)
+        auxes.append(_aux_loss(probs, expert))
+        slot = torch.where(slot < e * cap, slot + se * (n - 1) * cap
+                           + r * cap, e * n * cap)
+        pairs.append((sg, stok + r * t, se, slot))
+    sg, stok, se, slot = (torch.cat(p) for p in zip(*pairs))
+    # each expert's pairs contiguous (shard by shard) for the passes; a
+    # token's pairs keep their order by expert
+    order = torch.sort(se, stable=True).indices
+    out = _combine(params, xt, sg[order], stok[order], se[order],
+                   slot[order], n * cap, act)
+    return out.reshape(b, s, d).to(x.dtype), mesh.psum(auxes)[0] / n
+
+
+def _combine(params, xt, sg, stok, se, slot, cap: int, act: str):
+    """The experts on the pairs (sorted by expert) and the float32
+    combine into (T, D).  The experts run in passes of at most
+    MAX_BUFFER entries of an (experts, cap, width) buffer: one pass at
+    the configs' own capacity factors; several where the capacity holds
+    every token."""
+    t, d = xt.shape
+    e, f = params["wi"].shape[0], params["wi"].shape[2]
     per = max(1, MAX_BUFFER // (cap * max(d, f)))
     xs = xt[stok]
-    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    out = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
     if per >= e:
-        out = out.index_add(0, stok, _experts(params, xs, sg, slot, 0, e,
-                                              cap, act))
-        return out.reshape(b, s, d).to(x.dtype), aux
+        return out.index_add(0, stok, _experts(params, xs, sg, slot, 0, e,
+                                               cap, act))
     # a pass takes the sorted pairs of its experts, a contiguous run
     # (one read of the bounds to the host)
-    firsts = torch.arange(0, e + per, per, device=x.device).clamp(max=e)
+    firsts = torch.arange(0, e + per, per, device=xt.device).clamp(max=e)
     bounds = torch.searchsorted(se, firsts).tolist()
     for i, e0 in enumerate(range(0, e, per)):
         lo, hi = bounds[i], bounds[i + 1]
@@ -115,7 +179,7 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
         out = out.index_add(0, stok[lo:hi], _experts(
             params, xs[lo:hi], sg[lo:hi], slot[lo:hi] - e0 * cap, e0, g, cap,
             act))
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return out
 
 
 def _experts(params, xs, sg, local, e0: int, g: int, cap: int, act: str):

@@ -53,6 +53,17 @@ def init_mamba1(gen: torch.Generator, d_model: int, d_state: int,
                             device=device))
 
 
+def mamba1_specs(par, stacked: bool = True):
+    st = (None,) if stacked else ()
+    ma = par.model_axis if par.active else None
+    fa = par.fsdp_axis()
+    return {"in_proj": st + (fa, ma), "conv_w": st + (None, ma),
+            "conv_b": st + (ma,), "x_proj": st + (ma, None),
+            "dt_proj": st + (None, ma), "dt_bias": st + (ma,),
+            "A_log": st + (ma, None), "D": st + (ma,),
+            "out_proj": st + (ma, fa)}
+
+
 def init_mamba2(gen: torch.Generator, d_model: int, d_state: int,
                 expand: int, d_conv: int, head_dim: int,
                 dtype=torch.bfloat16, device=None):
@@ -74,6 +85,16 @@ def init_mamba2(gen: torch.Generator, d_model: int, d_state: int,
 
 
 # ----------------------------------------------------------------- conv
+def mamba2_specs(par, stacked: bool = True):
+    st = (None,) if stacked else ()
+    ma = par.model_axis if par.active else None
+    fa = par.fsdp_axis()
+    return {"in_proj": st + (fa, ma), "conv_w": st + (None, ma),
+            "conv_b": st + (ma,), "A_log": st + (ma,),
+            "dt_bias": st + (ma,), "D": st + (ma,),
+            "gate_norm": st + (ma,), "out_proj": st + (ma, fa)}
+
+
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                 ) -> torch.Tensor:
     """Depthwise causal conv as kernel-size shifts, in float32.

@@ -1,5 +1,4 @@
-"""Model assembly: block-pattern transformer / SSM / MoE / hybrid LMs (one
-device).
+"""Model assembly: block-pattern transformer / SSM / MoE / hybrid LMs.
 
 A model is a ``Transformer`` module: the token table, an
 ``nn.ModuleList`` of per-layer ``Layer`` modules in execution order
@@ -38,10 +37,17 @@ block pattern, each tail layer and each encoder layer under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
 scanned bodies): the backward pass recomputes them from their inputs.
 Its loss adds 0.01 x the MoE layers' summed load-balancing loss.
+
+Under a mesh (``par.mesh``) the entry points run the per-shard sites of
+``models.parallel`` (the vocab-sharded embed, loss and sample, the
+sequence-sharded decode, the per-shard MoE dispatch) and check the
+layouts: the activations between layers (``par.shard_activations``)
+and, in ``prefill``, each cache against ``cache_specs``.
+``param_specs`` and ``cache_specs`` are the reference's spec trees.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,12 +62,14 @@ from repro_torch.models import embedding as emb_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (dense_init, mlp_apply, mlp_init,
-                                       params_dict, rmsnorm, rmsnorm_init)
+                                       mlp_specs, params_dict, rmsnorm,
+                                       rmsnorm_init)
 from repro_torch.models.parallel import ParallelConfig
 
 __all__ = ["Layer", "Transformer", "Encoder", "check_ported", "init_params",
-           "forward_train", "hidden_states", "forward_embed", "init_caches",
-           "prefill", "decode_step", "FLOAT32_LEAVES"]
+           "param_specs", "forward_train", "hidden_states", "forward_embed",
+           "init_caches", "cache_specs", "init_specs_placeholder",
+           "layer_cache_specs", "prefill", "decode_step", "FLOAT32_LEAVES"]
 
 KINDS = (ATTN, SWA, MOE, MAMBA1, MAMBA2, SHARED_ATTN, CROSS)
 ATTN_KINDS = (ATTN, SWA, MOE, CROSS, SHARED_ATTN)
@@ -123,10 +131,7 @@ class Transformer(nn.Module):
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``ValueError`` for a layer kind the model zoo does not know,
-    or an MoE or Mamba layer without its ``moe`` / ``ssm`` spec.  Every
-    kind is ported; what stays unported is a ``ParallelConfig`` with a
-    ``mesh`` or ``moe_local_dispatch`` (Slice F3), which raises where it
-    is made."""
+    or an MoE or Mamba layer without its ``moe`` / ``ssm`` spec."""
     for kind in cfg.pattern + cfg.tail:
         if kind not in KINDS:
             raise ValueError(f"{cfg.name}: unknown layer kind {kind!r}")
@@ -231,6 +236,58 @@ def from_leaves(cfg: ArchConfig, tree) -> Transformer:
                        tree["lm_head"], shared, encoder, tree.get("img_proj"))
 
 
+# ================================================================ specs
+
+def _layer_specs(kind: str, cfg: ArchConfig, par: ParallelConfig,
+                 stacked: bool = True):
+    st = (None,) if stacked else ()
+    if kind == SHARED_ATTN:
+        return {"marker": st}
+    out = {"norm1": st}
+    if kind in (ATTN, SWA, MOE, CROSS):
+        out["attn"] = attn_lib.attn_specs(par, stacked)
+        out["norm2"] = st
+        if kind == MOE:
+            out["moe"] = moe_lib.moe_specs(par, stacked)
+        else:
+            out["mlp"] = mlp_specs(par, stacked)
+        if kind == CROSS:
+            out["normx"] = st
+            out["xattn"] = attn_lib.attn_specs(par, stacked)
+    elif kind == MAMBA1:
+        out["mixer"] = ssm_lib.mamba1_specs(par, stacked)
+    elif kind == MAMBA2:
+        out["mixer"] = ssm_lib.mamba2_specs(par, stacked)
+    return out
+
+
+def param_specs(cfg: ArchConfig, par: ParallelConfig) -> Dict[str, Any]:
+    """The spec tree of the reference's params layout (one stacked
+    ``(repeats, ...)`` leaf a pattern position: a leading None); a
+    parameter of the port takes its leaf's spec through
+    ``train.step.named_specs``."""
+    specs: Dict[str, Any] = {
+        "embed": par.w_vocab(),
+        "blocks": tuple(_layer_specs(k, cfg, par, True)
+                        for k in cfg.pattern),
+        "tail": tuple(_layer_specs(k, cfg, par, False) for k in cfg.tail),
+        "final_norm": (),
+        "lm_head": par.w_vocab(),
+    }
+    if SHARED_ATTN in cfg.pattern + cfg.tail:
+        specs["shared"] = {
+            "norm1": (), "attn": attn_lib.attn_specs(par, False),
+            "norm2": (), "mlp": mlp_specs(par, False),
+        }
+    if cfg.encoder_layers:
+        specs["encoder"] = {"blocks": _layer_specs(ATTN, cfg, par, True),
+                            "final_norm": ()}
+    if cfg.num_image_tokens:
+        specs["img_proj"] = (par.fsdp_axis(),
+                             par.model_axis if par.active else None)
+    return specs
+
+
 # ============================================================== forward
 
 def _attn_kwargs(cfg: ArchConfig, par: ParallelConfig):
@@ -325,7 +382,8 @@ def _layer(lp: Layer, h: torch.Tensor, positions: torch.Tensor,
     if kind == MOE:
         mo, aux = moe_lib.moe_apply(
             lp.moe, h2, top_k=cfg.moe.top_k,
-            capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act)
+            capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act,
+            par=par)
         return h + mo, aux
     return h + mlp_apply(p.mlp, h2, cfg.mlp_act), aux
 
@@ -336,7 +394,7 @@ def _layers(lps: Sequence[Layer], h, positions, cfg, par, memory, shared):
     for lp in lps:
         h, a = _layer(lp, h, positions, cfg, par, memory, shared)
         aux = aux + a
-    return h, aux
+    return par.shard_activations(h), aux
 
 
 def _memory(params: Transformer, batch, cfg: ArchConfig, par: ParallelConfig,
@@ -354,9 +412,11 @@ def _memory(params: Transformer, batch, cfg: ArchConfig, par: ParallelConfig,
                                   use_reentrant=False)
             else:
                 h, _ = _layer(lp, h, pos, cfg, par, causal=False)
+            par.shard_activations(h)
         return rmsnorm(h, params.encoder.final_norm, cfg.norm_eps)
     if cfg.num_image_tokens:
-        return _embeds(batch, "image_embeds", dev, dt) @ params.img_proj
+        return par.shard_activations(
+            _embeds(batch, "image_embeds", dev, dt) @ params.img_proj)
     return None
 
 
@@ -366,12 +426,13 @@ def _forward(params: Transformer, batch, cfg: ArchConfig,
     (``init_caches`` of the batch's size), each layer's cache written."""
     tokens = _tokens(batch, params.device)
     b, s = tokens.shape
-    h = emb_lib.embed(params.embed, tokens)
+    h = par.shard_activations(emb_lib.embed(params.embed, tokens, par))
     positions = _positions(b, s, params.device)
     memory = _memory(params, batch, cfg, par)
     for i, lp in enumerate(params.blocks):
         h, _ = _layer(lp, h, positions, cfg, par, memory, params.shared,
                       None if caches is None else caches["blocks"][i])
+        par.shard_activations(h)
     return rmsnorm(h, params.final_norm, cfg.norm_eps)
 
 
@@ -388,7 +449,7 @@ def forward_train(params: Transformer, batch, cfg: ArchConfig,
     labels = _tokens(batch, params.device, "labels")
     b, s = tokens.shape
     remat = par.remat == "block"
-    h = emb_lib.embed(params.embed, tokens)
+    h = par.shard_activations(emb_lib.embed(params.embed, tokens, par))
     positions = _positions(b, s, params.device)
     memory = _memory(params, batch, cfg, par, remat)
     n = len(cfg.pattern)
@@ -404,7 +465,7 @@ def forward_train(params: Transformer, batch, cfg: ArchConfig,
             h, a = _layers(g, h, positions, cfg, par, memory, params.shared)
         aux = aux + a
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
-    loss = emb_lib.softmax_xent(params.lm_head, h, labels,
+    loss = emb_lib.softmax_xent(params.lm_head, h, labels, par,
                                 chunk=par.logits_chunk)
     return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
@@ -469,6 +530,56 @@ def init_caches(cfg: ArchConfig, b: int, cache_len: int, device=None,
                                   device) for kind in layer_kinds(cfg)]}
 
 
+def cache_specs(cfg: ArchConfig, par: ParallelConfig):
+    """The spec tree of the reference's caches layout (one stacked cache
+    a pattern position, then the tail); ``layer_cache_specs`` maps it
+    onto the port's layers."""
+    if not par.active:
+        return init_specs_placeholder()
+    batch = par.batch()
+    seqax = par.decode_seq_shard or None
+
+    def spec_for(kind, stacked):
+        st = (None,) if stacked else ()
+        if kind in (ATTN, MOE, SHARED_ATTN, CROSS):
+            if par.decode_kv_head_shard:
+                kv = st + (batch, None, par.model_axis, None)
+            else:
+                kv = st + (batch, seqax, None, None)
+            c = {"k": kv, "v": kv}
+            if kind == CROSS:
+                c["mem_k"] = st + (batch, None, None, None)
+                c["mem_v"] = st + (batch, None, None, None)
+            return c
+        if kind == SWA:
+            kv = st + (batch, None, None, None)
+            return {"k": kv, "v": kv}
+        ma = par.model_axis
+        if kind == MAMBA1:
+            return {"conv": st + (batch, None, ma),
+                    "ssm": st + (batch, ma, None)}
+        return {"conv": st + (batch, None, ma),
+                "ssm": st + (batch, ma, None, None)}
+
+    return {
+        "blocks": tuple(spec_for(k, True) for k in cfg.pattern),
+        "tail": tuple(spec_for(k, False) for k in cfg.tail),
+    }
+
+
+def init_specs_placeholder():
+    return {"blocks": (), "tail": ()}
+
+
+def layer_cache_specs(cfg: ArchConfig, par: ParallelConfig
+                      ) -> List[Dict[str, tuple]]:
+    """``cache_specs`` a layer in execution order, as ``init_caches``
+    lays the caches out (a stacked spec without its leading None)."""
+    tree, n = cache_specs(cfg, par), len(cfg.pattern)
+    return ([{k: v[1:] for k, v in tree["blocks"][i % n].items()}
+             for i in range(n * cfg.n_repeats)] + list(tree["tail"]))
+
+
 # ============================================================== prefill
 
 def _memory_len(batch, cfg: ArchConfig) -> int:
@@ -487,6 +598,10 @@ def prefill(params: Transformer, batch, cfg: ArchConfig, par: ParallelConfig,
     b, s = tokens.shape
     caches = init_caches(cfg, b, cache_len, device=params.device,
                          memory_len=_memory_len(batch, cfg))
+    if par.active:
+        for c, spec in zip(caches["blocks"], layer_cache_specs(cfg, par)):
+            for k, t in c.items():
+                par.check(t, spec[k], even=True)
     h = _forward(params, batch, cfg, par, caches)
     lengths = torch.full((b,), s, dtype=torch.int32, device=params.device)
     return h[:, -1], caches, lengths
@@ -494,7 +609,8 @@ def prefill(params: Transformer, batch, cfg: ArchConfig, par: ParallelConfig,
 
 # =============================================================== decode
 
-def _decode_layer(lp: Layer, h: torch.Tensor, cache, lengths, cfg, shared):
+def _decode_layer(lp: Layer, h: torch.Tensor, cache, lengths, cfg, par,
+                  shared):
     eps, kind = cfg.norm_eps, lp.kind
     if kind in (MAMBA1, MAMBA2):
         s = cfg.ssm
@@ -514,7 +630,8 @@ def _decode_layer(lp: Layer, h: torch.Tensor, cache, lengths, cfg, shared):
     out, _ = attn_lib.decode_self_attention(
         p.attn, rmsnorm(h, p.norm1, eps), cache, lengths,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
-        rope_theta=cfg.rope_theta,
+        rope_theta=cfg.rope_theta, par=par,
+        seq_axes=() if kind == SWA else par.decode_seq_shard,
         window=cfg.sliding_window if kind == SWA else 0)
     h = h + out
     if kind == CROSS:
@@ -526,7 +643,8 @@ def _decode_layer(lp: Layer, h: torch.Tensor, cache, lengths, cfg, shared):
     if kind == MOE:
         mo, _ = moe_lib.moe_apply(
             lp.moe, h2[:, None], top_k=cfg.moe.top_k,
-            capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act)
+            capacity_factor=cfg.moe.capacity_factor, act=cfg.mlp_act,
+            par=par)
         return h + mo[:, 0]
     return h + mlp_apply(p.mlp, h2, cfg.mlp_act)
 
@@ -536,7 +654,7 @@ def decode_step(params: Transformer, caches, token: torch.Tensor,
     """One token for the whole batch.  token: (B,) -> (h_last, caches);
     the caches are updated in place.  ``CROSS`` layers read the memory's
     K/V that prefill left in their caches."""
-    h = emb_lib.embed(params.embed, token.long())
+    h = emb_lib.embed(params.embed, token.long(), par)
     for lp, cache in zip(params.blocks, caches["blocks"]):
-        h = _decode_layer(lp, h, cache, lengths, cfg, params.shared)
+        h = _decode_layer(lp, h, cache, lengths, cfg, par, params.shared)
     return rmsnorm(h, params.final_norm, cfg.norm_eps), caches

@@ -25,7 +25,7 @@ def make_serve_prefill(cfg: ArchConfig, par: ParallelConfig,
     def serve_prefill(params, batch):
         h_last, caches, lengths = prefill(params, batch, cfg, par,
                                           cache_len)
-        token = greedy_sample(params.lm_head, h_last)
+        token = greedy_sample(params.lm_head, h_last, par)
         return token, caches, lengths
     return serve_prefill
 
@@ -34,7 +34,7 @@ def make_serve_step(cfg: ArchConfig, par: ParallelConfig):
     def serve_step(params, caches, token, lengths):
         h_last, caches = decode_step(params, caches, token, lengths, cfg,
                                      par)
-        nxt = greedy_sample(params.lm_head, h_last)
+        nxt = greedy_sample(params.lm_head, h_last, par)
         return nxt, caches, lengths + 1
     return serve_step
 

@@ -13,8 +13,12 @@ position, the tail's layers, ``shared``, the encoder's blocks as
 ``(encoder_layers, ...)`` leaves, ``img_proj``; ``m`` and ``v`` alike —
 so that either package's ``CheckpointManager`` restores the other's
 training checkpoints.
-``state_specs``, ``param_specs`` and ``batch_specs`` place the state on a
-mesh and come with model parallelism (Slice F3).
+``state_specs`` and ``batch_specs`` are the reference's spec trees of the
+state and the batch; ``named_specs`` gives each of the port's tensors
+its leaf's spec.  Under a mesh the state and each batch are checked
+against them (``check_state``, ``check_batch``: every dim a multiple of
+its axes' size, as a placed array needs) and the step is the same eager
+step: its mesh sites are in the model code.
 """
 from __future__ import annotations
 
@@ -25,13 +29,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import forward_train, init_params
+from repro_torch.models import forward_train, init_params, param_specs
 from repro_torch.models.parallel import ParallelConfig
 from repro_torch.models.transformer import check_ported
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm_, warmup_cosine)
 
-__all__ = ["TrainConfig", "init_state", "make_train_step",
+__all__ = ["TrainConfig", "init_state", "state_specs", "batch_specs",
+           "named_specs", "check_state", "check_batch", "make_train_step",
            "make_jitted_train_step", "params_tree", "state_tree",
            "load_state_tree"]
 
@@ -54,6 +59,60 @@ def init_state(cfg: ArchConfig, seed: int = 0,
     params = init_params(cfg, seed, device=device).requires_grad_(True)
     return {"params": params,
             "opt": adamw_init(dict(params.named_parameters()))}
+
+
+def state_specs(cfg: ArchConfig, par: ParallelConfig,
+                tcfg: TrainConfig = TrainConfig()):
+    """The spec tree of the reference's state (the moments follow the
+    params)."""
+    ps = param_specs(cfg, par)
+    return {"params": ps, "opt": {"m": ps, "v": ps, "step": ()}}
+
+
+def batch_specs(cfg: ArchConfig, par: ParallelConfig):
+    b = par.batch()
+    out = {"tokens": (b, None), "labels": (b, None)}
+    if cfg.encoder_layers:
+        out["frames"] = (b, None, None)
+    if cfg.num_image_tokens:
+        out["image_embeds"] = (b, None, None)
+    return out
+
+
+def named_specs(tree, names, cfg: ArchConfig) -> Dict[str, tuple]:
+    """The spec of each of the port's tensors ``names`` (keyed like
+    ``named_parameters()``) in a spec tree of the reference's params
+    layout: its leaf's, without the leading entry of a stacked leaf."""
+    out = {}
+    for name in names:
+        path, rep = _ref_path(name, cfg)
+        spec = tree
+        for p in path:
+            spec = spec[p]
+        out[name] = spec[1:] if rep is not None else spec
+    return out
+
+
+def check_state(state, cfg: ArchConfig, par: ParallelConfig,
+                tcfg: TrainConfig = TrainConfig()) -> None:
+    """Raise ``ValueError`` unless the state lies on the mesh as
+    ``state_specs`` lays it out: each weight and moment, and the step."""
+    specs = state_specs(cfg, par, tcfg)
+    weights = dict(state["params"].named_parameters())
+    for tree, flat in ((specs["params"], weights),
+                       (specs["opt"]["m"], state["opt"]["m"]),
+                       (specs["opt"]["v"], state["opt"]["v"])):
+        for name, spec in named_specs(tree, flat, cfg).items():
+            par.check(flat[name], spec, even=True)
+    par.check(state["opt"]["step"], specs["opt"]["step"], even=True)
+
+
+def check_batch(batch, cfg: ArchConfig, par: ParallelConfig) -> None:
+    """Raise ``ValueError`` unless ``batch`` lies on the mesh as
+    ``batch_specs`` lays it out."""
+    for k, spec in batch_specs(cfg, par).items():
+        if k in batch:
+            par.check(batch[k], spec, even=True)
 
 
 def make_train_step(cfg: ArchConfig, par: ParallelConfig,
@@ -121,8 +180,19 @@ def make_train_step(cfg: ArchConfig, par: ParallelConfig,
 def make_jitted_train_step(cfg: ArchConfig, par: ParallelConfig,
                            tcfg: TrainConfig = TrainConfig()) -> Callable:
     """The reference's launcher entry: the same eager step (its in-place
-    update is the donation)."""
-    return make_train_step(cfg, par, tcfg)
+    update is the donation); under a mesh, the state and the batch are
+    checked against ``state_specs`` and ``batch_specs`` (the reference's
+    in_shardings) each step."""
+    step = make_train_step(cfg, par, tcfg)
+    if not par.active:
+        return step
+
+    def mesh_step(state, batch):
+        check_state(state, cfg, par, tcfg)
+        check_batch(batch, cfg, par)
+        return step(state, batch)
+
+    return mesh_step
 
 
 # ------------------------------------------------ the reference's layout

@@ -22,11 +22,13 @@ from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
 from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
 from torch_cases import (DOT_CASES, GROUPED_CASES, L1_CASES,  # noqa: E402
-                         LSH_CASES, RADII, ROUTE_CASES, SCAN_CASES,
+                         LSH_CASES, MESH_SERVE_CASES, MESH_SITES,
+                         MESH_TRAIN_CASES, RADII, ROUTE_CASES, SCAN_CASES,
                          SERVE_ARCHS, SIMHASH_CASES, TOL, TRAIN_CASES,
                          as_tensor, dist64, dot_inputs, grouped_parts,
                          handcrafted_ids, hll_regs, l1_inputs, lsh_dist64,
-                         lsh_inputs, masks_outside_band_agree, on_device,
+                         lsh_inputs, masks_outside_band_agree,
+                         mesh_site_device_vs_cpu, on_device,
                          pair, route_estimate_per_segment, route_tables,
                          scan_device_vs_cpu, serve_device_vs_cpu,
                          simhash_flips, simhash_inputs,
@@ -637,3 +639,28 @@ def test_cuda_ssm_scan_matches_cpu(cuda, scan, tail, n, chunk):
     """The Mamba-1 and SSD chunk scans at Falcon-Mamba's and Zamba2's
     widths, 1 x 2,048 steps, on the card against the CPU."""
     scan_device_vs_cpu(scan, tail, n, chunk, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,mesh,kw", MESH_TRAIN_CASES)
+def test_cuda_mesh_train_step_matches_cpu(cuda, arch, mesh, kw):
+    """3 float32 train steps on a debug mesh of the card and of the CPU
+    (the vocab-sharded loss; Granite-MoE's per-shard dispatch)."""
+    train_device_vs_cpu(arch, "block", 1, cuda, mesh=mesh, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,mesh,kw", MESH_SERVE_CASES)
+def test_cuda_mesh_prefill_decode_matches_cpu(cuda, arch, mesh, kw):
+    """Float32 prefill and decode on a debug mesh of the card and of the
+    CPU: the sequence-sharded decode over 'model' and over every axis,
+    the KV-head layout, Granite-MoE's per-shard dispatch."""
+    serve_device_vs_cpu(arch, cuda, mesh=mesh, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", MESH_SITES)
+def test_cuda_mesh_site_matches_cpu(cuda, site):
+    """Each per-shard site alone on the card against the CPU."""
+    mesh_site_device_vs_cpu(site, cuda)
+

@@ -43,6 +43,7 @@ from repro.models.transformer import forward_embed as jforward_embed  # noqa: E4
 from repro.serve import generate as jgenerate  # noqa: E402
 from repro_torch.data import LMDataIterator, lm_batch  # noqa: E402
 from repro_torch.interop import model_params_from_numpy  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import (ParallelConfig, decode_step,  # noqa: E402
                                 forward_embed, hidden_states, init_params,
                                 prefill)
@@ -330,7 +331,7 @@ def test_device_defaults_to_the_gpu():
         generate(params, toks, tc, TPAR, cache_len=8, max_new_tokens=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm_batch(0, 0, batch=1, seq=4, vocab=8)
-    with pytest.raises(NotImplementedError, match="Slice F"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         ParallelConfig(mesh=object())
 
 
@@ -386,13 +387,15 @@ def test_lm_batch_carries_stub_inputs(arch):
 
 
 def test_model_parallel_knobs_raise():
-    """What stays unported raises where it is made, naming Slice F3: a
-    mesh, and the per-shard MoE dispatch (the reference takes it only
-    under a mesh); the single-device knobs are accepted."""
-    with pytest.raises(NotImplementedError, match="Slice F3"):
+    """A mesh that is not a ``ShardMesh`` raises where it is made; a
+    debug mesh and the per-shard MoE dispatch (which the reference takes
+    only under a mesh) are accepted, as are the single-device knobs."""
+    with pytest.raises(TypeError, match="ShardMesh"):
         ParallelConfig(mesh=object())
-    with pytest.raises(NotImplementedError, match="Slice F3"):
-        ParallelConfig(moe_local_dispatch=True)
+    assert not ParallelConfig(moe_local_dispatch=True).active
+    mesh = make_debug_mesh((2, 2), device="cpu")
+    par = ParallelConfig(mesh=mesh, moe_local_dispatch=True)
+    assert par.active and par.mesh is mesh and par.n_model == 2
     par = ParallelConfig(attn_remat=True, attn_probs_bf16=True,
                          ssm_remat=True)
     assert (par.attn_remat, par.attn_probs_bf16, par.ssm_remat) == \

@@ -7,7 +7,9 @@ the schedule's shape), and each function against ``repro.optim`` on the
 same numpy inputs at rtol 1e-6: both compute in float32 in the same
 order of operations, so they differ only where XLA and PyTorch round a
 power, a cosine or a sum of squares differently.  The int8 error-feedback
-quantizer needs the mesh and comes with Slice F3.
+all-reduce (``optim.compression``) on a one-shard mesh takes
+``test_optim.py``'s unbiasedness test; ``tests/test_torch_mesh.py`` holds
+it to the reference on eight shards.
 """
 import numpy as np
 import pytest
@@ -17,9 +19,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import repro.optim as jopt  # noqa: E402
+from repro_torch.core.distributed import ShardMesh  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
-                               adamw_update, clip_by_global_norm,
-                               clip_by_global_norm_, global_norm,
+                               adamw_update, apply_ef, clip_by_global_norm,
+                               clip_by_global_norm_, global_norm, init_ef,
                                warmup_cosine)
 
 REF = dict(rtol=1e-6, atol=1e-7)
@@ -196,3 +199,21 @@ def test_large_leaves_update_a_slice_at_a_time(dtype, monkeypatch):
         assert torch.equal(p1[k], p2[k])
         assert torch.equal(o1["m"][k], o2["m"][k])
         assert torch.equal(o1["v"][k], o2["v"][k])
+
+
+def test_ef_quantizer_unbiased_over_steps():
+    """``test_optim.py``'s error-feedback test on the port's ``apply_ef``
+    (one shard: the pmax is the identity): the sum of 50 compressed
+    updates converges to 50 x the true gradient."""
+    rng = np.random.default_rng(1)
+    g_true = torch.from_numpy(rng.normal(size=(256,)).astype(np.float32)
+                              * 0.01)
+    mesh = ShardMesh(["cpu"], "pod")
+    ef = [init_ef({"g": g_true})]
+    applied = torch.zeros_like(g_true)
+    for _ in range(50):
+        red, ef = apply_ef([{"g": g_true}], ef, mesh, "pod", 1)
+        applied += red[0]["g"]
+    total_err = float((applied - 50 * g_true).abs().max())
+    assert total_err < 0.01 * float((50 * g_true).abs().max()) + 1e-4
+

@@ -439,8 +439,13 @@ def test_launch_train_main_on_the_cpu(tmp_path, caplog):
         hist = launch_train.main(argv + ["--steps", "5"])
     assert "restored checkpoint at step 3" in caplog.text
     assert hist["step"][-1] == 4
-    with pytest.raises(NotImplementedError, match="Slice F3"):
-        launch_train.main(argv + ["--devices", "4"])
+    # --devices 4: resumes step 5 and trains on a 2 x 2 debug mesh
+    with caplog.at_level(logging.INFO, logger="repro_torch.train"):
+        hist = launch_train.main(argv + ["--steps", "6", "--devices", "4"])
+    assert hist["step"] == [5] and np.isfinite(hist["loss"][-1])
+    assert "restored checkpoint at step 5" in caplog.text
+    with pytest.raises(NotImplementedError, match="single controller"):
+        launch_train.main(argv + ["--coordinator", "localhost:1234"])
 
 
 # ---------------------------------------------------------------- roofline

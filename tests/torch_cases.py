@@ -441,18 +441,28 @@ def reduced_arch(arch, dtype="float32"):
     return dataclasses.replace(cfg, dtype=dtype)
 
 
-def serve_device_vs_cpu(arch, device, prompt=8, new=4):
+def serve_device_vs_cpu(arch, device, prompt=8, new=4, mesh=None,
+                        **par_kw):
     """Float32 ``prefill`` of ``prompt`` tokens (with the config's stub
     frames or image embeddings) and ``new`` ``decode_step`` s of
     ``reduced_arch(arch)`` on ``device`` and on the CPU, the same weights
-    (seed 0 drawn on the CPU), TF32 off.  Asserts each h and every cache
+    (seed 0 drawn on the CPU), TF32 off; with ``mesh`` (a shape over
+    ("data", "model")), each on a debug mesh of its device with the
+    ``ParallelConfig`` fields ``par_kw``.  Asserts each h and every cache
     leaf within SERVE_TOL; returns the largest deviation over the h's."""
     import copy
     from repro_torch.data import lm_batch
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import (ParallelConfig, decode_step, init_params,
                                     prefill)
     cfg = reduced_arch(arch)
-    par = ParallelConfig(attn_chunk_q=4, attn_chunk_k=4)
+
+    def par_on(d):
+        return ParallelConfig(
+            mesh=None if mesh is None else make_debug_mesh(mesh, device=d),
+            attn_chunk_q=4, attn_chunk_k=4, **par_kw)
+
+    par, par_dev = par_on("cpu"), par_on(device)
     cpu = init_params(cfg, 0, device="cpu")
     dev = copy.deepcopy(cpu).to(device)
     full = lm_batch(7, 0, batch=2, seq=prompt + new, vocab=cfg.vocab,
@@ -466,13 +476,14 @@ def serve_device_vs_cpu(arch, device, prompt=8, new=4):
         with torch.no_grad():
             hc, cc, lc = prefill(cpu, batch, cfg, par, prompt + new)
             hd, cd, ld = prefill(dev, {k: v.to(device) for k, v in
-                                       batch.items()}, cfg, par,
+                                       batch.items()}, cfg, par_dev,
                                  prompt + new)
             pairs = [(hd, hc)]
             for t in range(prompt, prompt + new):
                 tok = full["tokens"][:, t]
                 hc, cc = decode_step(cpu, cc, tok, lc, cfg, par)
-                hd, cd = decode_step(dev, cd, tok.to(device), ld, cfg, par)
+                hd, cd = decode_step(dev, cd, tok.to(device), ld, cfg,
+                                     par_dev)
                 lc, ld = lc + 1, ld + 1
                 pairs.append((hd, hc))
     finally:
@@ -518,7 +529,8 @@ def scan_device_vs_cpu(scan, tail, n, chunk, device, s=2048):
     return out
 
 
-def train_device_vs_cpu(arch, remat, microbatch, device, steps=3):
+def train_device_vs_cpu(arch, remat, microbatch, device, steps=3,
+                        mesh=None, **par_kw):
     """``steps`` steps of ``make_train_step`` on a float32
     ``reduced_arch(arch)`` on ``device`` and on the CPU, from the same
     weights (seed 0 drawn on the CPU, carried over by ``state_tree``) on
@@ -530,14 +542,22 @@ def train_device_vs_cpu(arch, remat, microbatch, device, steps=3):
     opposite signs near 0 ends up to 2 lr x steps apart.  Returns (the
     largest relative deviation of the metrics, the largest leaf's
     relative norm deviation, the largest entry's deviation over
-    lr x steps)."""
+    lr x steps).  With ``mesh`` (a shape over ("data", "model")), each
+    device trains on a debug mesh of its own with the ``ParallelConfig``
+    fields ``par_kw``."""
     from repro_torch.data import lm_batch
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import ParallelConfig
     from repro_torch.train import (TrainConfig, init_state, load_state_tree,
-                                   make_train_step, state_tree)
+                                   make_jitted_train_step, state_tree)
     cfg = reduced_arch(arch)
-    par = ParallelConfig(remat=remat, attn_chunk_q=16, attn_chunk_k=16,
-                         logits_chunk=16)
+
+    def par_on(d):
+        return ParallelConfig(
+            mesh=None if mesh is None else make_debug_mesh(mesh, device=d),
+            remat=remat, attn_chunk_q=16, attn_chunk_k=16, logits_chunk=16,
+            **par_kw)
+
     tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=steps,
                        microbatch=microbatch)
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -546,8 +566,8 @@ def train_device_vs_cpu(arch, remat, microbatch, device, steps=3):
         cpu = init_state(cfg, 0, tcfg, device="cpu")
         dev = load_state_tree(init_state(cfg, 1, tcfg, device=device),
                               state_tree(cpu, cfg), cfg)
-        f_cpu = make_train_step(cfg, par, tcfg)
-        f_dev = make_train_step(cfg, par, tcfg)
+        f_cpu = make_jitted_train_step(cfg, par_on("cpu"), tcfg)
+        f_dev = make_jitted_train_step(cfg, par_on(device), tcfg)
         dev_metrics = 0.0
         for i in range(steps):
             b = lm_batch(5, i, batch=4, seq=32, vocab=cfg.vocab, cfg=cfg,
@@ -573,3 +593,104 @@ def train_device_vs_cpu(arch, remat, microbatch, device, steps=3):
         dev_entry = max(dev_entry, float((a - c).abs().max())
                         / (tcfg.peak_lr * steps))
     return dev_metrics, dev_norm, dev_entry
+
+
+# The mesh's per-shard sites on the card against the CPU, float32: the
+# train step and serving of a reduced config on a debug mesh of each
+# device (``train_device_vs_cpu`` / ``serve_device_vs_cpu`` with
+# ``mesh``), and each site alone (``mesh_site_device_vs_cpu``).
+MESH_TRAIN_CASES = [("yi-6b", (4, 2), {}),
+                    ("granite-moe-1b-a400m", (4, 2),
+                     {"moe_local_dispatch": True})]
+MESH_SERVE_CASES = [("yi-6b", (2, 4), {"decode_seq_shard": ("model",)}),
+                    ("yi-6b", (2, 2), {"batch_axes": (),
+                                       "decode_seq_shard": ("data", "model")}),
+                    ("yi-6b", (2, 1), {"decode_kv_head_shard": True}),
+                    ("granite-moe-1b-a400m", (2, 2),
+                     {"moe_local_dispatch": True})]
+MESH_SITES = ("embed", "softmax_xent", "greedy_sample", "flash_decode",
+              "moe_local", "apply_ef", "gpipe")
+
+
+def mesh_site_device_vs_cpu(site, device):
+    """One per-shard site on random float32 inputs (seed 0), on a debug
+    mesh of ``device`` and of the CPU, TF32 off.  Asserts the outputs
+    within SERVE_TOL (ids and int8-derived sums exactly where the inputs
+    leave no tie); returns the largest deviation."""
+    from repro_torch.distributed import gpipe
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import ParallelConfig
+    from repro_torch.models import attention, embedding, moe
+    from repro_torch.optim import compression
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    def run(dev):
+        def par(shape=(4, 2), axes=("data", "model"), **kw):
+            return ParallelConfig(mesh=make_debug_mesh(shape, axes,
+                                                       device=dev), **kw)
+
+        def on(*ts):
+            return [t.to(dev) for t in ts]
+
+        if site == "embed":
+            tab, ids = on(randn(64, 32), torch.randint(0, 64, (8, 6),
+                                                       generator=g))
+            return [embedding.embed(tab, ids, par())]
+        if site == "softmax_xent":
+            head, h = (t.requires_grad_() for t in on(randn(64, 32),
+                                                       randn(8, 12, 32)))
+            lab, = on(torch.randint(-1, 64, (8, 12), generator=g))
+            loss = embedding.softmax_xent(head, h, lab, par(), chunk=4)
+            return [loss.detach(), *torch.autograd.grad(loss, [head, h])]
+        if site == "greedy_sample":
+            head, hl = on(randn(64, 32), randn(8, 32))
+            return [embedding.greedy_sample(head, hl, par())]
+        if site == "flash_decode":
+            q, k, v, ln = on(randn(4, 8, 16), randn(4, 64, 2, 16),
+                             randn(4, 64, 2, 16),
+                             torch.tensor([64, 50, 33, 7]))
+            p = par((2, 4), decode_seq_shard=("model",))
+            return [attention.flash_decode(q, k, v, ln, p,
+                                           seq_axes=("model",))]
+        if site == "moe_local":
+            r, wi, wg, wo, x = on(randn(32, 8), randn(8, 32, 64, scale=0.2),
+                                  randn(8, 32, 64, scale=0.2),
+                                  randn(8, 64, 32, scale=0.2),
+                                  randn(8, 16, 32))
+            return list(moe.moe_apply(
+                {"router": r, "wi": wi, "wg": wg, "wo": wo}, x, top_k=2,
+                capacity_factor=1.25, par=par(moe_local_dispatch=True)))
+        if site == "apply_ef":
+            mesh = make_debug_mesh((8,), ("pod",), device=dev)
+            grads = [{"w": t} for t in on(*randn(8, 1000, scale=0.01))]
+            ef = [compression.init_ef(gr) for gr in grads]
+            red, ef = compression.apply_ef(grads, ef, mesh, "pod", 8)
+            return [red[0]["w"], torch.stack([e["w"] for e in ef])]
+        w, b, xs = on(randn(4, 16, 16, scale=0.3), randn(4, 16, scale=0.1),
+                      randn(8, 4, 16))
+        return [gpipe(lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                      {"w": w, "b": b}, xs,
+                      mesh=make_debug_mesh((4, 2), ("stage", "model"),
+                                           device=dev), axis="stage")]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        state = g.get_state()
+        want = run("cpu")
+        g.set_state(state)
+        got = run(device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    worst = 0.0
+    for a, c in zip(got, want):
+        if c.dtype in (torch.int32, torch.int64):
+            assert torch.equal(a.cpu(), c), site
+            continue
+        torch.testing.assert_close(a.cpu(), c, **SERVE_TOL)
+        worst = max(worst, float((a.cpu() - c).abs().max()))
+    return worst
+
