@@ -146,6 +146,19 @@ Phases (each raises on failure, so any failure exits non-zero):
      of float32), against the plain mean and over 50 steps; g.
      ``launch.train --reduced --devices 8`` in a subprocess; a ``[mesh]``
      JSON line;
+  8e. the launch tail, last (``drive_launch``): a. ``python -m
+     repro_torch.launch.dryrun`` for Yi-6B ``train_4k`` on 16 x 16 and
+     2 x 16 x 16, Yi-6B ``decode_32k``, Granite-MoE ``train_4k`` and
+     Falcon-Mamba ``long_500k`` on 16 x 16, and b. ``python -m
+     repro_torch.launch.dryrun_retrieval`` at its defaults, each a
+     subprocess on the meta device (all started at once, each record
+     ``ok``: seconds, per-chip FLOPs, bytes and wire bytes, the dominant
+     term, the roofline fraction, input bytes a device), beside c. one
+     1 x 2,048 Yi-6B train step at full width and ``drive_train``'s depth
+     counted by ``hlo_analysis.analyze_step`` on the card and on the meta
+     device (FLOPs equal, asserted; the bytes' ratio; the counted bound
+     against the step's ms; the counted peak live bytes against
+     ``max_memory_allocated``); a ``[launch]`` JSON line;
   9. a ``[sharded]`` JSON line (batch ms global / per_shard / single-host,
      routes, churn, merges, checkpoint, skew and padded rows, peak
      memory) and a ``[durability]`` JSON line with the checkpoint and restore times
@@ -4461,6 +4474,197 @@ def drive_mesh(s: Smoke, smi):
     return rec
 
 
+# phase 8e: the dry-run cells, each a ``launch.dryrun`` subprocess
+LAUNCH_CELLS = (("yi-6b", "train_4k", "single"),
+                ("yi-6b", "train_4k", "multi"),
+                ("yi-6b", "decode_32k", "single"),
+                ("granite-moe-1b-a400m", "train_4k", "single"),
+                ("falcon-mamba-7b", "long_500k", "single"))
+LAUNCH_TAG = "chip_smoke"
+LAUNCH_TIMEOUT = 600                  # seconds the dry-run subprocesses get
+
+
+def launch_subprocesses():
+    """Start ``python -m repro_torch.launch.dryrun`` for each of
+    LAUNCH_CELLS and ``python -m repro_torch.launch.dryrun_retrieval``,
+    all at once (meta-device work on the host's cores, beside the card's
+    part of the phase); returns [(what, Popen, record path)]."""
+    import os
+    from repro_torch.launch import dryrun
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mesh in LAUNCH_CELLS:
+        name = "2x16x16" if mesh == "multi" else "16x16"
+        path = dryrun.cell_path(arch, shape, name, LAUNCH_TAG)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--force", "--tag",
+               LAUNCH_TAG]
+        procs.append((f"{arch} {shape} {name}", subprocess.Popen(
+            cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), path))
+    path = str(Path(dryrun.RESULTS_DIR) / "paper-index__retrieval__16x16.json")
+    procs.append(("retrieval", subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun_retrieval"],
+        env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True), path))
+    return procs
+
+
+def launch_records(procs, deadline):
+    """Wait for ``launch_subprocesses``' processes (each killed at
+    ``deadline``, a ``time.perf_counter()``), assert each exited 0 with an
+    ``ok`` record, and return the records by cell."""
+    out = {}
+    try:
+        for what, p, path in procs:
+            text, _ = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            assert p.returncode == 0, f"{what}: exit {p.returncode}\n" \
+                + text[-3000:]
+            with open(path) as f:
+                out[what] = json.load(f)
+            assert out[what]["status"] == "ok", out[what]
+    finally:
+        for _, p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def launch_tie(s: Smoke, layers, smi):
+    """c. One TRAIN_BATCH x TRAIN_SEQ train step of Yi-6B at full width
+    and ``layers`` layers (mesh=None, ``drive_train``'s knobs) counted by
+    ``hlo_analysis.analyze_step`` on the card and on the meta device: the
+    FLOPs equal (the model path launches no hand-written kernel), the
+    bytes' ratio, the counted bound max(FLOPs / bf16 peak, bytes / HBM
+    rate) against the step's measured ms, and the counter's peak live
+    bytes against ``torch.cuda.max_memory_allocated()`` over the counted
+    step."""
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.models import ParallelConfig
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg = at_depth(get_config(TRAIN_ARCH), layers)
+    par = ParallelConfig(remat="block", attn_chunk_q=TRAIN_CHUNK,
+                         attn_chunk_k=TRAIN_CHUNK, logits_chunk=TRAIN_CHUNK)
+    tcfg = TrainConfig(peak_lr=1e-3, warmup_steps=1, total_steps=8)
+    step = make_train_step(cfg, par, tcfg)
+    t0 = time.perf_counter()
+    meta_state = init_state(cfg, 0, tcfg, device="meta")
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in lm_batch(0, 0, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                       vocab=cfg.vocab, device="cpu").items()}
+    meta = analyze_step(step, meta_state, meta_batch)
+    meta_s = time.perf_counter() - t0
+    del meta_state, meta_batch
+    free_card(s)
+    state = init_state(cfg, 0, tcfg, device=s.dev)
+    batches = [lm_batch(0, i, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        vocab=cfg.vocab, device=s.dev) for i in range(3)]
+    step(state, batches[0])                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = analyze_step(step, state, batches[1])
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    card_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    step(state, batches[2])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    del state, batches
+    free_card(s)
+    bound_ms = max(card.flops / s.bf16, card.bytes / s.bw) * 1e3
+    rec = {"arch": cfg.name, "layers": layers, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "flops_card": card.flops,
+           "flops_meta": meta.flops, "bytes_card": card.bytes,
+           "bytes_meta": meta.bytes, "bytes_ratio": card.bytes / meta.bytes,
+           "bound_ms": bound_ms,
+           "bound_by": ("operations" if card.flops / s.bf16
+                        >= card.bytes / s.bw else "bytes"),
+           "step_ms": step_ms, "share_of_bound": bound_ms / step_ms,
+           "peak_live_bytes": card.peak_live_bytes,
+           "max_memory_allocated": card_peak,
+           "live_ratio": card.peak_live_bytes / card_peak,
+           "peak_live_bytes_meta": meta.peak_live_bytes,
+           "meta_count_s": meta_s, "card_counted_step_s": counted_s}
+    log(f"[launch c] {cfg.name} {layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, one train step: FLOPs card {card.flops:.6g} meta "
+        f"{meta.flops:.6g}; bytes card {card.bytes:.6g} meta "
+        f"{meta.bytes:.6g} (ratio {rec['bytes_ratio']:.6f}); counted bound "
+        f"{bound_ms:.2f} ms ({rec['bound_by']}) against the step's "
+        f"{step_ms:.2f} ms: {rec['share_of_bound']:.4f} of its bound; peak "
+        f"live {card.peak_live_bytes / 1e9:.3f} GB against "
+        f"max_memory_allocated {card_peak / 1e9:.3f} GB (ratio "
+        f"{rec['live_ratio']:.4f}); the meta count took {meta_s:.1f} s, the "
+        f"counted card step {counted_s:.1f} s; {smi}")
+    assert card.flops == meta.flops, (card.flops, meta.flops)
+    assert card.flops > 0 and card.bytes > 0
+    return rec
+
+
+def drive_launch(s: Smoke, smi, layers):
+    """The launch tail (phase 8e), last: a. the LAUNCH_CELLS dry runs
+    (``python -m repro_torch.launch.dryrun``, the meta device, the
+    production meshes) and b. ``python -m
+    repro_torch.launch.dryrun_retrieval`` at its defaults, in
+    subprocesses beside c. ``launch_tie`` on the card.  Returns the
+    ``[launch]`` record."""
+    t_phase = time.perf_counter()
+    procs = launch_subprocesses()
+    try:
+        tie = launch_tie(s, layers, smi)
+    except BaseException:
+        for _, p, _ in procs:
+            p.kill()
+            p.wait()
+        raise
+    recs = launch_records(procs, t_phase + LAUNCH_TIMEOUT)
+    rec = {"card": smi, "cells": {}, "tie": tie}
+    for what, r in recs.items():
+        if what == "retrieval":
+            rec["retrieval"] = {k: r[k] for k in (
+                "shape", "mesh", "chips", "shards", "run_s", "cost",
+                "collectives", "terms", "estimate", "routes", "both_routes",
+                "memory")}
+            t = r["terms"]
+            log(f"[launch b] dryrun_retrieval {r['shape']} on {r['mesh']} "
+                f"({r['shards']} index shards): {r['run_s']} s; per chip "
+                f"FLOPs {r['cost']['flops']:.6g}, bytes "
+                f"{r['cost']['bytes accessed']:.6g}, wire "
+                f"{sum(r['collectives'].values()):.6g}; both routes' FLOPs "
+                f"{r['both_routes']['flops']:.6g} (lsh "
+                f"{r['routes']['lsh']['flops']:.6g}, linear "
+                f"{r['routes']['linear']['flops']:.6g}, estimate "
+                f"{r['estimate']['flops']:.6g}); dominant {t['dominant']}, "
+                f"roofline {t['roofline_fraction']:.6g}")
+            continue
+        t = r["terms"]
+        cell = {"run_s": r["run_s"], "chips": r["chips"],
+                "flops_per_chip": r["cost"]["flops"],
+                "bytes_per_chip": r["cost"]["bytes accessed"],
+                "wire_per_chip": sum(r["collectives"].values()),
+                "dominant": t["dominant"],
+                "roofline_fraction": t["roofline_fraction"],
+                "input_bytes_per_device": r["input_bytes_per_device"],
+                "peak_live_bytes_global":
+                    r["memory"]["peak_live_bytes_global"]}
+        rec["cells"][what] = cell
+        log(f"[launch a] {what}: {cell['run_s']} s on the meta device; per "
+            f"chip FLOPs {cell['flops_per_chip']:.6g}, bytes "
+            f"{cell['bytes_per_chip']:.6g}, wire {cell['wire_per_chip']:.6g}; "
+            f"dominant {cell['dominant']}, roofline "
+            f"{cell['roofline_fraction']:.6g}; input bytes per device "
+            f"{cell['input_bytes_per_device']}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[launch] the phase took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def log_kernel_times(tag, kt):
     for k, v in kt.items():
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.4f}"
@@ -4727,6 +4931,9 @@ def main() -> int:
     # -- 7f. model parallelism on the ShardMesh, on an empty card --------
     mesh = drive_mesh(s, smi)
     log("[mesh] " + json.dumps(mesh))
+    # -- 7g. the launch tail: dry runs on the meta device, the card's tie -
+    launch = drive_launch(s, smi, train["layers"])
+    log("[launch] " + json.dumps(launch))
     rkt = retrieval.pop("kernel_times")
     for name in ("linear_scan_dot", "lsh_scan"):
         timings[name]["retrieval d=4096"] = rkt[name]

@@ -51,6 +51,16 @@ __all__ = ["ShardMesh", "make_mesh", "ShardedIndexState", "build_sharded",
            "make_query_fn", "prefers_lsh", "stack_shards"]
 
 _HASH_CHUNK = 65536
+# Observers of the collectives below (``launch.hlo_analysis``'s counter
+# while it is active): each is told a collective's kind, in the
+# reference's HLO names, and one shard's result.
+COLLECTIVE_OBSERVERS: List = []
+
+
+def _observed(kind: str, out: List[torch.Tensor]) -> List[torch.Tensor]:
+    for obs in COLLECTIVE_OBSERVERS:
+        obs.collective(kind, out[0])
+    return out
 
 
 class ShardMesh:
@@ -158,7 +168,7 @@ class ShardMesh:
                 acc = op(acc, tensors[i].to(home))
             for i in g:
                 out[i] = acc.to(self.devices[i])
-        return out
+        return _observed("all-reduce", out)
 
     def psum(self, tensors: Sequence[torch.Tensor], names=None
              ) -> List[torch.Tensor]:
@@ -186,7 +196,7 @@ class ShardMesh:
             stacked = torch.stack([tensors[i].to(home) for i in g])
             for i in g:
                 out[i] = stacked.to(self.devices[i])
-        return out
+        return _observed("all-gather", out)
 
     def ppermute(self, tensors: Sequence[torch.Tensor], names,
                  perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
@@ -198,7 +208,7 @@ class ShardMesh:
         for g in self.groups(names):
             for src, dst in perm:
                 out[g[dst]] = tensors[g[src]].to(self.devices[g[dst]])
-        return out
+        return _observed("collective-permute", out)
 
     def __repr__(self) -> str:
         return (f"ShardMesh({[str(d) for d in self.devices]}, "
@@ -296,7 +306,10 @@ def make_query_fn(family, *, num_buckets: int, mesh: ShardMesh,
     ``ids`` are global row ids (shard s offsets its rows by s n/S); the
     report of query i is the union over the shard axis of ``mask``.
     ``max_out`` is clamped to the narrower route's width (n/S rows,
-    L * cap candidates), as both routes must fill one buffer."""
+    L * cap candidates), as both routes must fill one buffer.
+    ``fn.estimate(state, params, queries)`` is the part both routes
+    share and ``fn.hash_queries(params, queries, device)`` its hashing.
+    """
     if policy not in ("global", "per_shard"):
         raise ValueError(policy)
     shards = mesh.shape[data_axis]
@@ -305,15 +318,21 @@ def make_query_fn(family, *, num_buckets: int, mesh: ShardMesh,
     bucket_fn = bucket_fn_for(family, num_buckets)
     width = min(int(max_out), n_local, family.L * cap)
 
-    def query(state: ShardedIndexState, params, queries, r,
-              force: Optional[str] = None):
+    def hash_queries(params, queries, dev):
+        """The queries as rows on ``dev`` and their (L, Q) buckets."""
+        q = as_rows(queries, metric, dev)
+        return q, bucket_fn({k: v.to(dev) for k, v in params.items()}, q)
+
+    def estimate(state: ShardedIndexState, params, queries):
+        """The part of a query both routes share: the queries hashed once
+        a device, each shard's segment and terms, and the global route
+        from the psum of the collisions and the pmax of the registers.
+        Returns (hashed by device, segments, terms, global route)."""
         hashed = {}
         segs, local = [], []
         for s, dev in enumerate(mesh.devices):
             if dev not in hashed:
-                q = as_rows(queries, metric, dev)
-                hashed[dev] = (q, bucket_fn({k: v.to(dev) for k, v in
-                                             params.items()}, q))
+                hashed[dev] = hash_queries(params, queries, dev)
             seg = TableSegment(
                 tables=state.local_tables(s), x=state.x[s], metric=metric,
                 cap=cap, n_live=n_local, n_scan=n_local,
@@ -326,7 +345,11 @@ def make_query_fn(family, *, num_buckets: int, mesh: ShardMesh,
             merged_registers=mesh.pmax([t.merged_registers
                                         for t in local])[0],
             n_live=n_total, n_scan=n_total)
-        route_g = finalize_route([merged], cost_model)
+        return hashed, segs, local, finalize_route([merged], cost_model)
+
+    def query(state: ShardedIndexState, params, queries, r,
+              force: Optional[str] = None):
+        hashed, segs, local, route_g = estimate(state, params, queries)
         nq = int(queries.shape[0])
         if force in ("lsh", "linear"):
             used = [force == "lsh"] * shards
@@ -347,4 +370,6 @@ def make_query_fn(family, *, num_buckets: int, mesh: ShardMesh,
                 "cand_est": route_g.cand_est,
                 "used_lsh": np.asarray(used, bool)}
 
+    # the pieces, for counting each apart (launch.dryrun_retrieval)
+    query.hash_queries, query.estimate = hash_queries, estimate
     return query

@@ -5,19 +5,20 @@ in this package: ``chip_smoke.py`` reads ``PEAKS`` for its kernel bounds
 and the train phase's share of the bf16 peak, the same numbers as
 ``PEAK_FLOPS_BF16`` and ``HBM_BW`` here.
 
-For a compiled, partitioned module (per-device cost analysis), as in the
-reference's dry run:
+Per chip, as in the reference's dry run:
 
   compute term    = flops_per_chip / peak_flops
   memory term     = bytes_per_chip / hbm_bw
   collective term = wire_bytes_per_chip / link_bw
 
-wire bytes come from parsing the optimized HLO for collective ops and
-summing result-tensor bytes with a per-op wire factor (all-reduce moves
-~2x its payload ring-wise; gather/scatter/permute ~1x).
-``collective_bytes`` is carried over as text parsing: nothing in the
-port produces HLO yet (the launch tail, Slice F4).  ``model_flops``,
-``linear_scan_traffic`` and ``lsh_scan_traffic`` are analytic.
+The port's dry run (``launch.dryrun``) fills them from
+``launch.hlo_analysis``'s count of a step on the meta device: FLOPs and
+bytes split evenly over the chips, wire bytes per chip from the
+``ShardMesh`` collectives (all-reduce moves ~2x its payload ring-wise;
+gather/scatter/permute ~1x).  ``collective_bytes`` is the reference's
+parser of optimized HLO text, kept as it is: the port produces no HLO.
+``model_flops``, ``linear_scan_traffic`` and ``lsh_scan_traffic`` are
+analytic.
 """
 from __future__ import annotations
 

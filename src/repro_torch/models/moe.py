@@ -15,7 +15,9 @@ in no fixed order (atomics), so outputs agree with another order within
 float32 rounding, not bit for bit.  Where the capacity is large (a
 capacity factor of E / top_k holds every token), the experts run in
 passes of at most MAX_BUFFER buffer entries, each pass over its experts'
-run of the sorted pairs, adding their outputs.  Under a mesh,
+run of the sorted pairs, adding their outputs; on the meta device (a dry
+run, where the runs' bounds cannot be read) one pass takes every expert,
+the same products.  Under a mesh,
 ``moe_local_dispatch`` gives each batch shard its own sort and capacity
 (``_moe_apply_local``, the reference's ``shard_map``).
 """
@@ -64,6 +66,15 @@ def capacity(t: int, top_k: int, num_experts: int,
     return int(capacity_factor * t * top_k / num_experts) or 1
 
 
+def expert_counts(expert: torch.Tensor, e: int) -> torch.Tensor:
+    """(E,) int64 count of each expert id in ``expert``: a
+    ``scatter_add_`` (exact for integers on any device, and one that runs
+    on the meta device, where ``bincount`` has no kernel)."""
+    return torch.zeros(e, dtype=torch.int64, device=expert.device
+                       ).scatter_add_(0, expert.reshape(-1),
+                                      torch.ones_like(expert.reshape(-1)))
+
+
 def dispatch(probs: torch.Tensor, top_k: int, cap: int):
     """The routing of (T, E) router probabilities: top-k, then the
     (token, choice) pairs sorted stably by expert.  Returns (gate, token,
@@ -78,7 +89,7 @@ def dispatch(probs: torch.Tensor, top_k: int, cap: int):
     se = flat_expert[order]
     sg = gate.reshape(-1)[order]
     stok = torch.div(order, top_k, rounding_mode="floor")
-    counts = torch.bincount(se, minlength=e)
+    counts = expert_counts(se, e)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * top_k, device=probs.device) - starts[se]
     slot = torch.where(pos < cap, se * cap + pos, e * cap)
@@ -111,7 +122,7 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
 def _aux_loss(probs: torch.Tensor, expert: torch.Tensor) -> torch.Tensor:
     """Load-balancing aux loss (Switch-style): E * sum_e f_e * p_e."""
     t, e = probs.shape
-    density = torch.bincount(expert[:, 0], minlength=e).float() / t
+    density = expert_counts(expert[:, 0], e).float() / t
     return e * torch.sum(density * probs.mean(dim=0))
 
 
@@ -164,7 +175,9 @@ def _combine(params, xt, sg, stok, se, slot, cap: int, act: str):
     per = max(1, MAX_BUFFER // (cap * max(d, f)))
     xs = xt[stok]
     out = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
-    if per >= e:
+    # on the meta device (a dry run: shapes only) the bounds cannot be
+    # read, and one pass over every expert does the passes' products
+    if per >= e or xt.device.type == "meta":
         return out.index_add(0, stok, _experts(params, xs, sg, slot, 0, e,
                                                cap, act))
     # a pass takes the sorted pairs of its experts, a contiguous run

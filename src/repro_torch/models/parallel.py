@@ -45,7 +45,7 @@ import torch
 
 from repro_torch.core.distributed import ShardMesh
 
-__all__ = ["ParallelConfig"]
+__all__ = ["ParallelConfig", "shard_shape", "spec_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +99,10 @@ class ParallelConfig:
 
     def axis_size(self, names: Sequence[str]) -> int:
         return self.mesh.axis_size(tuple(names)) if self.active else 1
+
+    @property
+    def n_data(self) -> int:
+        return self.axis_size(self.data_axes)
 
     @property
     def n_model(self) -> int:
@@ -175,3 +179,31 @@ class ParallelConfig:
         axis."""
         base = (self.model_axis if self.active else None, self.fsdp_axis())
         return ((None,) if stacked else ()) + base
+
+    def w_replicated(self, stacked: bool = True):
+        return ((None,) if stacked else ())
+
+
+def spec_bytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def shard_shape(shape, spec, mesh: ShardMesh) -> Tuple[int, ...]:
+    """The shape of one shard of an array of ``shape`` laid out by
+    ``spec`` on ``mesh`` (``NamedSharding.shard_shape``): each dim
+    divided by the size of its entry's axes.  Raises ``ValueError``
+    where a dim does not split evenly."""
+    shape = tuple(int(d) for d in shape)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than the "
+                         f"{len(shape)} dims of {shape}")
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        names = (() if entry is None else (entry,)
+                 if isinstance(entry, str) else tuple(entry))
+        n = mesh.axis_size(names)
+        if shape[i] % n:
+            raise ValueError(f"spec {spec}: dim {shape[i]} of {shape} does "
+                             f"not split over {names} ({n} shards)")
+        out[i] = shape[i] // n
+    return tuple(out)

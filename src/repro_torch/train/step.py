@@ -216,7 +216,8 @@ def _ref_path(name: str, cfg: ArchConfig):
 
 def params_tree(flat: Dict[str, torch.Tensor], cfg: ArchConfig):
     """A dict keyed like ``named_parameters()`` (weights, moments or
-    grads) as the reference's params tree of host (CPU) copies."""
+    grads) as the reference's params tree of host (CPU) copies (meta
+    tensors stay meta: a dry run's shapes)."""
     tree = {"blocks": [{} for _ in cfg.pattern],
             "tail": [{} for _ in cfg.tail]}
     for name, t in flat.items():         # layers in execution order
@@ -224,7 +225,7 @@ def params_tree(flat: Dict[str, torch.Tensor], cfg: ArchConfig):
         node = tree
         for p in path[:-1]:
             node = node[p] if isinstance(p, int) else node.setdefault(p, {})
-        t = t.detach().to("cpu", copy=True)
+        t = t.detach() if t.is_meta else t.detach().to("cpu", copy=True)
         if rep is None:
             node[path[-1]] = t
         else:
@@ -265,11 +266,13 @@ def state_tree(state: Dict[str, Any], cfg: ArchConfig) -> Dict[str, Any]:
     """A host copy of the training state in the reference's layout:
     {"params": tree, "opt": {"m": tree, "v": tree, "step"}}."""
     opt = state["opt"]
+    step = opt["step"].detach()
     return {"params": params_tree(dict(state["params"].named_parameters()),
                                  cfg),
             "opt": {"m": params_tree(opt["m"], cfg),
                     "v": params_tree(opt["v"], cfg),
-                    "step": opt["step"].detach().to("cpu", copy=True)}}
+                    "step": step if step.is_meta
+                    else step.to("cpu", copy=True)}}
 
 
 def load_state_tree(state: Dict[str, Any], tree, cfg: ArchConfig

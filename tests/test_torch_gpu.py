@@ -664,3 +664,38 @@ def test_cuda_mesh_site_matches_cpu(cuda, site):
     """Each per-shard site alone on the card against the CPU."""
     mesh_site_device_vs_cpu(site, cuda)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-1b-a400m",
+                                  "falcon-mamba-7b", "zamba2-1.2b"])
+def test_cuda_cost_counter_matches_meta(cuda, arch):
+    """``launch.hlo_analysis.analyze_step`` of one reduced train step and
+    one prefill on the card against the same steps on the meta device:
+    equal FLOPs (the model paths launch no hand-written kernel), bytes
+    within 1 % (the same ATen ops; kept loose for an op that a device
+    dispatches differently)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.models import ParallelConfig
+    from repro_torch.serve.engine import make_serve_prefill
+    from repro_torch.train import init_state, make_train_step
+    cfg = reduced_config(get_config(arch))
+    par = ParallelConfig()
+    counts = []
+    for dev in (cuda, torch.device("meta")):
+        state = init_state(cfg, 0, device=dev)
+        batch = {k: (torch.empty(v.shape, dtype=v.dtype, device=dev)
+                     if dev.type == "meta" else v.to(dev))
+                 for k, v in lm_batch(0, 0, batch=2, seq=64, vocab=cfg.vocab,
+                                      cfg=cfg, device="cpu").items()}
+        train = analyze_step(make_train_step(cfg, par), state, batch)
+        batch.pop("labels")
+        with torch.inference_mode():
+            pre = analyze_step(make_serve_prefill(cfg, par, 64),
+                               state["params"], batch)
+        counts.append((train, pre))
+    for card, meta in zip(*counts):
+        assert card.flops == meta.flops > 0
+        assert abs(card.bytes - meta.bytes) <= 0.01 * meta.bytes
