@@ -1,0 +1,55 @@
+"""BENCHMARK.json and every file it names, loaded by name."""
+import json
+import re
+
+import pytest
+
+from bench.tests._tiny import ROOT
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+CELLS = [w["name"] for w in BENCH["workloads"]]
+
+
+def test_top_level_keys():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert 1 <= BENCH["run_seconds"] <= 51
+    assert all((ROOT / p).is_dir() for p in BENCH["paths"])
+
+
+def test_names_units_and_bounds():
+    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    assert "setup_s" in e2e
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+    for m in BENCH["end_to_end"]:
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
+    for m in BENCH["per_layer"]:
+        assert m["moves"] in e2e
+        assert set(m.get("workloads", CELLS)) <= set(CELLS)
+    pairs = {(w["config"], w["traffic"]) for w in BENCH["workloads"]}
+    assert len(pairs) == len(CELLS) == len(set(CELLS))
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_files_load_by_name(cell):
+    from bench.lib import harness
+    spec = harness.cell_spec(ROOT, cell)
+    assert spec["config"]["name"] == spec["cell"]["config"]
+    assert spec["config"]["reduced"] == []
+    assert spec["mix"]["batch_queries"] > 0
+    assert set(spec["limits"]) <= set(harness.CHECKS)
+    names = {m["name"] for m in spec["end_to_end"]}
+    assert {"setup_s", "queries_per_s", "batch_p95_ms"} <= names
+    assert spec["per_layer"]
+
+
+@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
+def test_metric_reader_loads_and_reads_nothing_from_nothing(metric):
+    from bench.lib import harness
+    mod = harness.load_module(ROOT / "bench" / "metrics" / f"{metric}.py")
+    assert mod.read({}) is None
