@@ -14,6 +14,12 @@ Every index of the port (the static ``HybridLSHIndex`` and the streaming
                       the query batch on the host, and run both
                       strategies over every segment.
 
+The engine opens the phase spans of a batch (``hlsh.estimate``,
+``hlsh.route``, ``hlsh.search.lsh``, ``hlsh.search.linear``; see
+``repro_torch.obs.spans``) and counts, in host ints, the batches it
+answers and the blocking copies between host and device it makes
+(``stats()``).
+
 A static segment is one whose dead counts are zero and whose scan size
 equals its live size, so ``finalize_route`` serves both indexes.  The
 segment list has any length: the streaming index hands over its whole
@@ -38,6 +44,7 @@ from repro_torch.core.cost_model import CostModel
 from repro_torch.core.lsh.tables import LSHTables
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import EXT_SENTINEL, concat_columns, scan_epilogue
+from repro_torch.obs.spans import span
 
 __all__ = ["RouteEstimate", "SegmentEstimate", "Segment", "TableSegment",
            "QueryEngine", "QueryResult", "finalize_route",
@@ -326,12 +333,23 @@ class QueryEngine:
                  tracer=None):
         """Args: ``cost_model`` — Algorithm 2 constants (alpha, beta);
         ``impl`` — kernel impl override (``"ref"`` or ``"cuda"``);
-        ``tracer`` — optional ``repro_torch.obs.QueryTracer`` (duck-typed,
-        the engine never imports obs).  ``query`` takes the traced path
-        only while ``tracer.enabled`` is true."""
+        ``tracer`` — optional ``repro_torch.obs.QueryTracer`` (duck-typed;
+        of obs the engine imports only ``obs.spans``).  ``query`` takes
+        the traced path only while ``tracer.enabled`` is true."""
         self.cost_model = cost_model
         self.impl = impl
         self.tracer = tracer
+        self.batches = 0   # query batches answered
+        self.syncs = 0     # blocking host<->device copies on the query path
+
+    def stats(self) -> dict:
+        """``batches`` answered and ``syncs``: the blocking copies between
+        host and device on the query path, one for the route decision
+        (hybrid routing only), one for each routed group's indices, and
+        those of the query hash that the index adds (a family's
+        ``host_syncs``: the p-stable divisor).  The sites count on any
+        device, so a CPU index counts what a CUDA index would wait for."""
+        return {"batches": self.batches, "syncs": self.syncs}
 
     def estimate(self, segments: Sequence[Segment],
                  qbuckets: torch.Tensor) -> RouteEstimate:
@@ -342,19 +360,20 @@ class QueryEngine:
         through one ``ops.route_estimate`` (one kernel launch on CUDA);
         the other segments (the delta) add their own terms after that
         sum."""
-        frozen = [s for s in segments if isinstance(s, TableSegment)]
-        terms = [s.estimate_terms(qbuckets) for s in segments
-                 if not isinstance(s, TableSegment)]
-        if frozen:
-            coll, cand = ops.route_estimate(
-                qbuckets, [s.table_terms() for s in frozen],
-                tidx=frozen[0].tidx, impl=self.impl)
-            sizes = [s.sizes() for s in frozen]
-            terms.insert(0, SegmentEstimate(
-                collisions=coll, cand_est=cand,
-                n_live=sum(n for n, _ in sizes),
-                n_scan=sum(n for _, n in sizes)))
-        return finalize_route(terms, self.cost_model)
+        with span("hlsh.estimate"):
+            frozen = [s for s in segments if isinstance(s, TableSegment)]
+            terms = [s.estimate_terms(qbuckets) for s in segments
+                     if not isinstance(s, TableSegment)]
+            if frozen:
+                coll, cand = ops.route_estimate(
+                    qbuckets, [s.table_terms() for s in frozen],
+                    tidx=frozen[0].tidx, impl=self.impl)
+                sizes = [s.sizes() for s in frozen]
+                terms.insert(0, SegmentEstimate(
+                    collisions=coll, cand_est=cand,
+                    n_live=sum(n for n, _ in sizes),
+                    n_scan=sum(n for _, n in sizes)))
+            return finalize_route(terms, self.cost_model)
 
     def segment_terms(self, segments: Sequence[Segment],
                       qbuckets: torch.Tensor) -> List[SegmentEstimate]:
@@ -404,13 +423,27 @@ class QueryEngine:
                                for s in segments])
 
     def _route(self, route: RouteEstimate, nq: int, force: Optional[str]):
-        if force == "lsh":
-            use = np.ones(nq, bool)
-        elif force == "linear":
-            use = np.zeros(nq, bool)
-        else:
-            use = route.use_lsh.cpu().numpy()
-        return use, partition_indices(use)
+        with span("hlsh.route"):
+            if force == "lsh":
+                use = np.ones(nq, bool)
+            elif force == "linear":
+                use = np.zeros(nq, bool)
+            else:
+                use = route.use_lsh.cpu().numpy()
+                self.syncs += 1
+            return use, partition_indices(use)
+
+    def _search(self, segments: Sequence[Segment], queries: torch.Tensor,
+                qbuckets: torch.Tensor, r: float, idx: np.ndarray,
+                lsh_route: bool):
+        """One routed group: its query indices to the device (a blocking
+        copy), then ``search_group`` on its rows."""
+        with span("hlsh.search.lsh" if lsh_route else "hlsh.search.linear"):
+            sel = torch.as_tensor(idx, dtype=torch.int64,
+                                  device=queries.device)
+            self.syncs += 1
+            return self.search_group(segments, qbuckets[sel], queries[sel],
+                                     float(r), lsh_route=lsh_route)
 
     def query(self, segments: Sequence[Segment], queries: torch.Tensor,
               qbuckets: torch.Tensor, r: float,
@@ -421,21 +454,20 @@ class QueryEngine:
         baselines of the paper's Figure 2.  The routing decision comes to
         the host once per batch (one copy of ``use_lsh``).
         """
+        self.batches += 1
         tracer = self.tracer
         if tracer is not None and tracer.enabled and tracer.sample():
             return self._query_traced(segments, queries, qbuckets, r, force)
         nq = queries.shape[0]
         route = self.estimate(segments, qbuckets)
         _, (lsh_idx, lin_idx) = self._route(route, nq, force)
-
-        def group(idx, lsh_route):
-            sel = torch.as_tensor(idx, dtype=torch.int64,
-                                  device=queries.device)
-            return self.search_group(segments, qbuckets[sel], queries[sel],
-                                     float(r), lsh_route=lsh_route)
-
-        lsh_out = group(lsh_idx, True) if len(lsh_idx) else None
-        lin_out = group(lin_idx, False) if len(lin_idx) else None
+        lsh_out = lin_out = None
+        if len(lsh_idx):
+            lsh_out = self._search(segments, queries, qbuckets, r, lsh_idx,
+                                   True)
+        if len(lin_idx):
+            lin_out = self._search(segments, queries, qbuckets, r, lin_idx,
+                                   False)
         return QueryResult(route=route, lsh_idx=lsh_idx, lin_idx=lin_idx,
                            lsh_out=lsh_out, lin_out=lin_out, n_queries=nq)
 
@@ -456,7 +488,9 @@ class QueryEngine:
         Phase boundaries synchronise the device (``torch.cuda.synchronize``
         on a CUDA index) so the timings attribute device work to the
         phase that enqueued it — the reason this is a separate method
-        instead of timers in the fast path.
+        instead of timers in the fast path.  It opens the same profiler
+        spans as ``query``; a profiler attributes device time without
+        these synchronisations.
         """
         tracer = self.tracer
         dev = queries.device
@@ -466,7 +500,6 @@ class QueryEngine:
                 torch.cuda.synchronize(dev)
 
         timings = {}
-        seg_seconds = None
         t0 = time.perf_counter()
         route = self.estimate(segments, qbuckets)
         sync()
@@ -474,32 +507,15 @@ class QueryEngine:
 
         nq = queries.shape[0]
         use, (lsh_idx, lin_idx) = self._route(route, nq, force)
-        per_segment = (getattr(tracer, "per_segment_timing", False)
-                       and len(segments) > 1)
 
         def timed_group(idx, lsh_route, label):
-            sel = torch.as_tensor(idx, dtype=torch.int64, device=dev)
-            qb, q = qbuckets[sel], queries[sel]
             t0 = time.perf_counter()
-            if per_segment:
-                parts, seg_t = [], []
-                for si, s in enumerate(segments):
-                    ts = time.perf_counter()
-                    parts.append(s.search(qb, q, float(r),
-                                          lsh_route=lsh_route))
-                    sync()
-                    seg_t.append((f"seg{si}", time.perf_counter() - ts))
-                out = concat_columns(parts)
-                seg_seconds[label] = seg_t
-            else:
-                out = self.search_group(segments, qb, q, float(r),
-                                        lsh_route=lsh_route)
+            out = self._search(segments, queries, qbuckets, r, idx,
+                               lsh_route)
             sync()
             timings[label] = time.perf_counter() - t0
             return out
 
-        if per_segment:
-            seg_seconds = {}
         lsh_out = lin_out = None
         if len(lsh_idx):
             lsh_out = timed_group(lsh_idx, True, "search_lsh")
@@ -524,7 +540,6 @@ class QueryEngine:
             probes=int(qbuckets.shape[1]),
             forced=force,
             phase_seconds=timings,
-            segment_seconds=seg_seconds,
             kernel_impl=ops.resolve_impl(self.impl, dev))
         return QueryResult(route=route, lsh_idx=lsh_idx, lin_idx=lin_idx,
                            lsh_out=lsh_out, lin_out=lin_out, n_queries=nq)

@@ -9,9 +9,17 @@ through the fused scan kernels.
 
 The index lives on ``device``, "cuda" unless the caller asks otherwise;
 there is no silent CPU fallback.
+
+Observability: ``obs=`` takes a ``repro_torch.obs.Observability`` bundle
+(default a fresh disabled one) whose tracer the query engine takes, as
+``DynamicHybridIndex``'s does; ``query`` and ``build`` open the profiler
+spans ``hlsh.query``, ``hlsh.hash`` and ``hlsh.build``
+(``repro_torch.obs.spans``), and ``index_stats()`` reports the engine's
+counters and the last build's seconds.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -24,6 +32,8 @@ from repro_torch.core.lsh.families import bucket_fn_for
 from repro_torch.core.lsh.tables import LSHTables, build_tables
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import unit_rows
+from repro_torch.obs import Observability
+from repro_torch.obs.spans import span
 from repro_torch.u32 import as_i32
 
 __all__ = ["HybridLSHIndex", "QueryResult", "resolve_device"]
@@ -58,6 +68,8 @@ class HybridLSHIndex:
     Random parameters come from ``params`` (a dict of tensors, e.g. a
     reference index's draws through ``repro_torch.interop``) or are drawn
     from ``seed`` (a ``torch.Generator``, or an int to seed one).
+    ``obs`` is an observability bundle (tracer + event log + registry);
+    the default is a fresh disabled one, which costs nothing.
     """
 
     def __init__(self, family, *, num_buckets: int, m: int = 64,
@@ -65,7 +77,8 @@ class HybridLSHIndex:
                  cost_model: CostModel = CostModel(alpha=1.0, beta=10.0),
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  seed: torch.Generator | int = 0,
-                 impl: Optional[str] = None, device=None):
+                 impl: Optional[str] = None,
+                 obs: Optional[Observability] = None, device=None):
         self.device = resolve_device(device)
         if params is None:
             gen = seed
@@ -81,7 +94,10 @@ class HybridLSHIndex:
         self.impl = impl
         self.x = None
         self.tables: Optional[LSHTables] = None
-        self._engine = QueryEngine(cost_model, impl=impl)
+        self.obs = obs if obs is not None else Observability.disabled()
+        self._engine = QueryEngine(cost_model, impl=impl,
+                                   tracer=self.obs.tracer)
+        self.build_seconds = 0.0   # the last build's wall seconds
         self._bucket_fn = bucket_fn_for(self.family, self.num_buckets)
 
     # ------------------------------------------------------------------
@@ -110,11 +126,17 @@ class HybridLSHIndex:
                           for lo in range(0, max(x.shape[0], 1), chunk)])
 
     def build(self, x, chunk: int = 65536) -> "HybridLSHIndex":
-        """Algorithm 1: hash + CSR sort + per-bucket HLL build."""
-        self.x = as_rows(x, self.family.metric, self.device)
-        ids = torch.arange(self.n, dtype=torch.int32, device=self.device)
-        self.tables = build_tables(ids, self.bucket_ids(self.x, chunk),
-                                   self.num_buckets, self.m)
+        """Algorithm 1: hash + CSR sort + per-bucket HLL build, timed on
+        the host clock to its end on the device (``build_seconds``)."""
+        with span("hlsh.build"):
+            t0 = time.perf_counter()
+            self.x = as_rows(x, self.family.metric, self.device)
+            ids = torch.arange(self.n, dtype=torch.int32, device=self.device)
+            self.tables = build_tables(ids, self.bucket_ids(self.x, chunk),
+                                       self.num_buckets, self.m)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.build_seconds = time.perf_counter() - t0
         return self
 
     # ------------------------------------------------------------------
@@ -137,11 +159,22 @@ class HybridLSHIndex:
         force: None (hybrid routing) | "lsh" | "linear" — the two
         baselines of the paper's Figure 2.
         """
-        q = as_rows(queries, self.family.metric, self.device)
-        return self._engine.query([self._segment()], q, self.bucket_ids(q),
-                                  float(r), force=force)
+        with span("hlsh.query"):
+            q = as_rows(queries, self.family.metric, self.device)
+            with span("hlsh.hash"):
+                qb = self.bucket_ids(q)
+            n_calls = -(-max(q.shape[0], 1) // 65536)   # bucket_ids' chunks
+            self._engine.syncs += self.family.host_syncs * n_calls
+            return self._engine.query([self._segment()], q, qb, float(r),
+                                      force=force)
 
     # ------------------------------------------------------------------
+    def index_stats(self) -> Dict[str, Any]:
+        """``query``: the engine's ``batches`` and ``syncs``
+        (``QueryEngine.stats``); ``build_seconds``: the last build's."""
+        return {"query": self._engine.stats(),
+                "build_seconds": self.build_seconds}
+
     def memory_stats(self) -> Dict[str, Any]:
         t = self.tables
         if t is None:   # not built yet: report an empty footprint

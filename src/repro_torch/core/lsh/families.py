@@ -93,6 +93,7 @@ class SimHash:
     L: int
     k: int
     metric: str = "cosine"
+    host_syncs = 0   # blocking host->device copies a bucket_ids call makes
 
     def init(self, gen: torch.Generator, device=None) -> Dict[str, torch.Tensor]:
         r = _draw((self.d, self.L * self.k), gen, device,
@@ -132,6 +133,7 @@ class _PStableBase:
     k: int
     w: float
     metric: str = "l2"
+    host_syncs = 1   # ``codes`` copies its float32 divisor w to the device
 
     def _draw_a(self, gen, device):  # overridden: gaussian vs cauchy
         raise NotImplementedError
@@ -208,6 +210,7 @@ class BitSampling:
     L: int
     k: int
     metric: str = "hamming"
+    host_syncs = 0
 
     def init(self, gen: torch.Generator, device=None) -> Dict[str, torch.Tensor]:
         pos = _draw((self.L * self.k,), gen, device,

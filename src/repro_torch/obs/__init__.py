@@ -15,6 +15,17 @@ Three surfaces, bundled by ``Observability``:
 Export helpers: ``to_prometheus`` text exposition (``export``) and the
 documented stats-key schemas (``schema``).
 
+Profiler spans (``spans``): ``span(name)`` opens a ``torch.profiler``
+range while a profiler runs and is a shared null context otherwise.  The
+indexes and the query engine open ``hlsh.query`` around a batch and, as
+its direct children, the phases ``hlsh.hash``, ``hlsh.estimate``,
+``hlsh.route``, ``hlsh.search.lsh`` and ``hlsh.search.linear``; the
+delta adds ``hlsh.delta.counts`` and ``hlsh.delta.search`` inside them,
+and each build is ``hlsh.build`` (the names are ``spans.SPANS``).  The
+counters beside them are host ints read through ``index_stats()``:
+``query`` (``QueryEngine.stats``: ``batches``, ``syncs``) and
+``build_seconds``.
+
 Ownership: ``RetrievalService`` creates one enabled bundle and hands
 it to its index + driver; indexes built directly default to a fresh
 *disabled* bundle, so nothing pays for observability unless asked.
@@ -50,7 +61,6 @@ class Observability:
     @classmethod
     def create(cls, enabled: bool = True, *, trace_capacity: int = 256,
                events_capacity: int = 512,
-               per_segment_timing: bool = False,
                trace_sample_every: int = 16) -> "Observability":
         """Build a bundle; ``enabled=False`` builds the no-op variant
         (null registry instruments, tracer/events short-circuit).
@@ -60,7 +70,6 @@ class Observability:
         return cls(
             registry=registry,
             tracer=QueryTracer(registry, capacity=trace_capacity,
-                               per_segment_timing=per_segment_timing,
                                enabled=enabled,
                                sample_every=trace_sample_every),
             events=EventLog(capacity=events_capacity, enabled=enabled),

@@ -11,7 +11,8 @@ here, in the producer, and in docs/observability.md together.
 from __future__ import annotations
 
 __all__ = ["RETRIEVAL_SERVICE_KEYS", "COMPACTION_STATS_KEYS",
-           "INDEX_STATS_KEYS", "SHARDED_INDEX_EXTRA_KEYS",
+           "INDEX_STATS_KEYS", "ENGINE_STATS_KEYS",
+           "SHARDED_INDEX_EXTRA_KEYS",
            "DRIVER_STATS_KEYS", "SCHEDULER_STATS_KEYS",
            "SCHEDULER_TENANT_KEYS", "CACHE_STATS_KEYS",
            "COLLECTION_STATS_KEYS", "COLLECTION_MANAGER_KEYS",
@@ -57,6 +58,12 @@ INDEX_STATS_KEYS = frozenset({
     "n_live", "n_main", "n_main_dead", "delta_count", "delta_live",
     "delta_capacity", "segments", "levels", "pending_merges",
     "inserts", "deletes", "work_seconds"}) | COMPACTION_STATS_KEYS
+
+# the port's index_stats() beyond the reference's keys: the query
+# engine's counters (QueryEngine.stats) and the last build's seconds;
+# HybridLSHIndex.index_stats() has only these, and RetrievalService.stats
+# leaves them out, so its keys stay the reference's
+ENGINE_STATS_KEYS = frozenset({"query", "build_seconds"})
 
 SHARDED_INDEX_EXTRA_KEYS = frozenset({
     "shards", "level_n_pads", "live_per_shard", "delta_per_shard",

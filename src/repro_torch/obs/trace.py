@@ -35,10 +35,10 @@ Span fields (``SPAN_FIELDS``; docs/observability.md has the schema):
 Granularity: spans are per query; wall-time *phase* timings
 (``estimate`` / ``search_lsh`` / ``search_linear`` / ``count_actual``)
 are per batch (the engine executes routed groups batched, so per-query
-wall time does not exist), as are the optional per-segment timings
-(``per_segment_timing=True`` — searches each segment separately with
-device syncs; measurably slower, debug only).  Per-level merge/freeze
-timings live in the event log, not here.
+wall time does not exist).  Time per segment or per kernel comes from a
+``torch.profiler`` trace of the engine's profiler spans
+(``repro_torch.obs.spans``), without device syncs.  Per-level
+merge/freeze timings live in the event log, not here.
 
 Cost: a *traced* batch is not free — the ``count_candidates`` pass
 that prices the actual candidate set is real device work (roughly the
@@ -84,10 +84,8 @@ class QueryTracer:
     """Ring buffer of per-query route spans + calibration aggregates."""
 
     def __init__(self, registry: MetricsRegistry, capacity: int = 256,
-                 per_segment_timing: bool = False, enabled: bool = True,
-                 sample_every: int = 16):
+                 enabled: bool = True, sample_every: int = 16):
         self.enabled = bool(enabled)
-        self.per_segment_timing = bool(per_segment_timing)
         self.capacity = max(int(capacity), 1)
         self.sample_every = max(int(sample_every), 1)
         self._lock = threading.Lock()

@@ -49,6 +49,7 @@ from repro_torch.core.lsh import make_family
 from repro_torch.models.parallel import ParallelConfig
 from repro_torch.models.transformer import forward_embed
 from repro_torch.obs import Observability, to_prometheus
+from repro_torch.obs.schema import ENGINE_STATS_KEYS
 from repro_torch.serve.cache import ResultCache
 from repro_torch.serve.collections import Collection, CollectionManager
 from repro_torch.serve.scheduler import ShapeBucketScheduler, TenantQuota
@@ -113,7 +114,6 @@ class RetrievalConfig:
     obs_trace_capacity: int = 256       # retained per-query spans
     obs_events_capacity: int = 512      # event-log ring size
     obs_trace_sample_every: int = 16    # trace every Nth batch (1 = all)
-    obs_per_segment_timing: bool = False
     obs_dump_path: Optional[str] = None  # shutdown() metrics dump target
 
 
@@ -195,7 +195,6 @@ class RetrievalService:
             enabled=rcfg.obs_enabled,
             trace_capacity=rcfg.obs_trace_capacity,
             events_capacity=rcfg.obs_events_capacity,
-            per_segment_timing=rcfg.obs_per_segment_timing,
             trace_sample_every=rcfg.obs_trace_sample_every)
         reg = self.obs.registry
         self._m_queries = reg.counter(
@@ -797,7 +796,8 @@ class RetrievalService:
                "cache": self.cache.stats(),
                "collections": self.collections.stats()}
         if self.index is not None:
-            out.update(self.index.index_stats())
+            out.update((k, v) for k, v in self.index.index_stats().items()
+                       if k not in ENGINE_STATS_KEYS)
         if self.driver is not None:
             out["driver"] = self.driver.stats()
         return out

@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.engine import SegmentEstimate
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import scan_epilogue
+from repro_torch.obs.spans import span
 
 __all__ = ["DeltaSegment", "DeltaView", "make_delta", "insert", "kill",
            "collision_stats", "search"]
@@ -95,7 +96,9 @@ class DeltaView:
 
     Counts are exact (no HLL, no dead-count correction), so its
     ``SegmentEstimate`` carries ``cand_exact`` only.  ``n_live``/
-    ``n_scan`` are host ints supplied by the owner.
+    ``n_scan`` are host ints supplied by the owner.  Its exact counts
+    run in the profiler span ``hlsh.delta.counts`` and its scan in
+    ``hlsh.delta.search`` (``repro_torch.obs.spans``).
     """
 
     delta: DeltaSegment
@@ -106,16 +109,19 @@ class DeltaView:
     tidx: Optional[torch.Tensor] = None   # (V,) multi-probe column->table
 
     def estimate_terms(self, qbuckets: torch.Tensor) -> SegmentEstimate:
-        coll, dist = collision_stats(self.delta, qbuckets, tidx=self.tidx)
+        with span("hlsh.delta.counts"):
+            coll, dist = collision_stats(self.delta, qbuckets, tidx=self.tidx)
         return SegmentEstimate(collisions=coll, cand_exact=dist,
                                n_live=self.n_live, n_scan=self.n_scan)
 
     def search(self, qbuckets: torch.Tensor, q: torch.Tensor, r, *,
                lsh_route: bool):
-        return scan_epilogue(*search(self.delta, qbuckets, q, r, self.metric,
-                                     require_collision=lsh_route,
-                                     impl=self.impl, tidx=self.tidx),
-                             None, self.delta.ids)
+        with span("hlsh.delta.search"):
+            return scan_epilogue(*search(self.delta, qbuckets, q, r,
+                                         self.metric,
+                                         require_collision=lsh_route,
+                                         impl=self.impl, tidx=self.tidx),
+                                 None, self.delta.ids)
 
     def scan_part(self) -> ops.ScanPart:
         """What ``ops.grouped_linear_scan`` scans of the delta: all C + 1
@@ -126,7 +132,8 @@ class DeltaView:
     def count_candidates(self, qbuckets: torch.Tensor) -> torch.Tensor:
         """(Q,) distinct colliding delta rows — exact, the delta keeps
         no sketches and its LSH route has no gather cap."""
-        return collision_stats(self.delta, qbuckets, tidx=self.tidx)[1]
+        with span("hlsh.delta.counts"):
+            return collision_stats(self.delta, qbuckets, tidx=self.tidx)[1]
 
 
 def _row_buckets(delta: DeltaSegment,

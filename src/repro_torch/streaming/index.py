@@ -54,6 +54,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import unit_rows
 from repro_torch.obs import Observability
 from repro_torch.obs.metrics import WorkPhases
+from repro_torch.obs.spans import span
 from repro_torch.streaming import delta as delta_lib
 from repro_torch.streaming import tombstones as tomb_lib
 from repro_torch.streaming.compaction import CompactionPolicy, CompactionStats
@@ -145,6 +146,7 @@ class DynamicHybridIndex:
         self._n_delta_live = 0
         self._inserts = 0
         self._deletes = 0
+        self.build_seconds = 0.0   # the last build's wall seconds
 
     def _new_stack(self) -> SegmentStack:
         return SegmentStack(phases=self.phases, unit_rows=self._unit_rows)
@@ -201,22 +203,29 @@ class DynamicHybridIndex:
 
         Args: ``x`` (n, d) corpus rows; ``ids`` optional (n,) unique
         external ids (default 0..n-1).  Replaces any existing state.
+        Timed on the host clock to its end on the device
+        (``build_seconds``).
         """
-        x = self._rows(x)
-        if ids is None:
-            ids = np.arange(x.shape[0], dtype=np.int64)
-        else:
-            ids = np.asarray(ids, np.int64)
-            if len(set(ids.tolist())) != len(ids):
-                raise ValueError("duplicate ids")
-        self._fold_version()
-        self.stack = self._new_stack()
-        self._loc = {}
-        if x.shape[0] > 0:
-            self._add_frozen(x, ids, level=self.policy.level_for(
-                x.shape[0], self.delta_capacity))
-        self._reset_delta(x.shape[1], x.dtype)
-        self._next_id = int(ids.max()) + 1 if len(ids) else 0
+        with span("hlsh.build"):
+            t0 = time.perf_counter()
+            x = self._rows(x)
+            if ids is None:
+                ids = np.arange(x.shape[0], dtype=np.int64)
+            else:
+                ids = np.asarray(ids, np.int64)
+                if len(set(ids.tolist())) != len(ids):
+                    raise ValueError("duplicate ids")
+            self._fold_version()
+            self.stack = self._new_stack()
+            self._loc = {}
+            if x.shape[0] > 0:
+                self._add_frozen(x, ids, level=self.policy.level_for(
+                    x.shape[0], self.delta_capacity))
+            self._reset_delta(x.shape[1], x.dtype)
+            self._next_id = int(ids.max()) + 1 if len(ids) else 0
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.build_seconds = time.perf_counter() - t0
         return self
 
     def _add_frozen(self, x: torch.Tensor, ext_ids: np.ndarray, level: int,
@@ -537,15 +546,17 @@ class DynamicHybridIndex:
 
     def _qbuckets(self, queries: torch.Tensor, num_probes: int
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        if num_probes <= 1:
-            return self._bucket_fn(self.params, queries), None
-        if not hasattr(self.family, "margins"):
+        if num_probes > 1 and not hasattr(self.family, "margins"):
             raise ValueError(
                 "multi-probe needs a family with probing sequences "
                 f"(SimHash); got {type(self.family).__name__}")
-        qbp = mp.probe_buckets(self.family, self.params, queries,
-                               num_probes, self.num_buckets)
-        return mp.flatten_probes(qbp)
+        with span("hlsh.hash"):
+            if num_probes <= 1:
+                self._engine.syncs += self.family.host_syncs
+                return self._bucket_fn(self.params, queries), None
+            qbp = mp.probe_buckets(self.family, self.params, queries,
+                                   num_probes, self.num_buckets)
+            return mp.flatten_probes(qbp)
 
     def _check_ready(self) -> None:
         if self.delta is None:
@@ -568,10 +579,11 @@ class DynamicHybridIndex:
             every frozen level AND the delta (SimHash families only).
         """
         self._check_ready()
-        q = self._rows(queries)
-        qb, tidx = self._qbuckets(q, num_probes)
-        return self._engine.query(self._segments(tidx), q, qb, float(r),
-                                  force=force)
+        with span("hlsh.query"):
+            q = self._rows(queries)
+            qb, tidx = self._qbuckets(q, num_probes)
+            return self._engine.query(self._segments(tidx), q, qb, float(r),
+                                      force=force)
 
     # ------------------------------------------------------ observability
     @property
@@ -580,7 +592,10 @@ class DynamicHybridIndex:
         return self.phases.as_dict()
 
     def index_stats(self) -> Dict[str, object]:
-        """Size/level/compaction counters snapshot (host ints/dicts)."""
+        """Size/level/compaction counters snapshot (host ints/dicts),
+        with the query engine's counters under ``query``
+        (``QueryEngine.stats``; an engine shared between indexes counts
+        for all of them) and the last build's ``build_seconds``."""
         out = {
             "n_live": self.n,
             "n_main": self.stack.n_rows,
@@ -594,6 +609,8 @@ class DynamicHybridIndex:
             "inserts": self._inserts,
             "deletes": self._deletes,
             "work_seconds": self.compaction_work_seconds,
+            "query": self._engine.stats(),
+            "build_seconds": self.build_seconds,
         }
         out.update(self.stats.as_dict())
         return out

@@ -140,7 +140,8 @@ def test_streaming_index_reports_the_reference_schema():
     idx.delete(range(0, 200, 5))
     drv = CompactionDriver(idx)
     drv.flush()
-    assert set(idx.index_stats()) == tschema.INDEX_STATS_KEYS
+    assert set(idx.index_stats()) == \
+        tschema.INDEX_STATS_KEYS | tschema.ENGINE_STATS_KEYS
     assert set(drv.stats()) == tschema.DRIVER_STATS_KEYS
     assert set(idx.compaction_work_seconds) == tschema.WORK_PHASE_KEYS
     kinds = obs.events.counts_by_kind()

@@ -512,7 +512,6 @@ def test_traced_query_records_spans_and_matches_untraced():
         idx.build(x[:900])
         idx.insert(x[900:])
     q = _queries("l2", x)
-    obs.tracer.per_segment_timing = True
     obs.tracer.sample_every = 1            # trace every batch
     for f in (None, "lsh", "linear"):
         a = traced.query(q, RADII["l2"], force=f)
