@@ -14,6 +14,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      ``tests/torch_cases.py`` ``DOT_CASES``, ``LSH_SHAPES`` x
      ``LSH_DIMS``, ``L1_CASES``, ``ROUTE_CASES``, ``GROUPED_CASES`` and
      ``SIMHASH_CASES``);
+  2b. the bucket hash kernel (``phase_bucket_hash``) beside the families'
+     plain chain at the cells' query shapes (1,024 queries, L = 20:
+     SimHash at d = 254, k = 8, 40, 70; p-stable L1 at d = 54, k = 8):
+     bit-equal ids, one launch a call, its ms, device ms and bound, and
+     ``bucket_ids``' ms, host ms and device ops on both paths;
   3. ``calibrate`` on the card for cosine (d = 254), l2 (d = 32) and l1
      (d = 54): beta/alpha beside the paper's presets, the distance
      kernel's launches inside each call (K6 or K7, a warm-up and 5);
@@ -241,8 +246,8 @@ class Smoke:
     def __init__(self):
         import numpy as np
         import torch
-        from repro_torch.kernels import (distances, fused_scan, hamming,
-                                         hll_merge, simhash)
+        from repro_torch.kernels import (bucket_hash, distances, fused_scan,
+                                         hamming, hll_merge, simhash)
         self.np, self.torch = np, torch
         self.dev = torch.device("cuda")
         self.counters = {"linear_scan_dot": fused_scan.linear_scan_dot,
@@ -255,7 +260,8 @@ class Smoke:
                          "pairwise_dot": distances.pairwise_dot,
                          "pairwise_l1": distances.pairwise_l1,
                          "hamming": hamming.hamming,
-                         "simhash": simhash.simhash}
+                         "simhash": simhash.simhash,
+                         "bucket_hash": bucket_hash.bucket_hash}
         name = torch.cuda.get_device_name(0)
         self.bw, self.fp32, self.tf32, self.bf16 = PEAKS[
             "pcie" if "PCIe" in name else "sxm"]
@@ -377,7 +383,7 @@ class Smoke:
 
 
 # ---------------------------------------------------------------------------
-SOURCES = ("hll_merge", "fused_scan", "simhash")
+SOURCES = ("hll_merge", "fused_scan", "simhash", "bucket_hash")
 
 
 def phase_build(s: Smoke):
@@ -580,6 +586,128 @@ def phase_edge_cases(s: Smoke):
         "ragged tiles, rows beside +Inf rows) match their plain versions on "
         f"the hand-made cases; K9 bits within {ref.SIMHASH_EPS:g} of 0 that "
         f"differ: {flips}")
+
+
+# The bucket hash at the cells' query shapes: 1,024 queries, L = 20;
+# Webspam's SimHash (d = 254) at k across one, two and three words, and
+# CoverType's p-stable L1 (d = 54, k = 8, w = 2.2).
+BUCKET_HASH_SHAPES = {"webspam d=254 k=8": ("cosine", 254, 8),
+                      "webspam d=254 k=40": ("cosine", 254, 40),
+                      "webspam d=254 k=70": ("cosine", 254, 70),
+                      "covertype d=54 k=8": ("l1", 54, 8)}
+
+
+def device_launches(s: Smoke, fn, reps=5, kernel=None):
+    """Device kernels and copies a call of ``fn`` runs, by the profiler,
+    and the device ms a call of the kernels whose name holds ``kernel``."""
+    torch = s.torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    own = sum(e.self_device_time_total for e in dev
+              if kernel is not None and kernel in e.key) / reps / 1e3
+    return sum(e.count for e in dev) / reps, own
+
+
+def host_ms(s: Smoke, fn, reps=200):
+    """Host ms a call of ``fn`` takes to return, the queue kept short by a
+    synchronise every 10 calls (the index hashes one batch at a time)."""
+    torch = s.torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        if i % 10 == 9:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return total / reps * 1e3
+
+
+def phase_bucket_hash(s: Smoke):
+    """The bucket hash kernel (``csrc/bucket_hash.cu``) beside its plain
+    version at the cells' query shapes (``BUCKET_HASH_SHAPES``): the ids
+    of ``bucket_ids`` on the kernel path equal to ``impl="ref"``'s bit for
+    bit, and to the plain chain on one projection; the kernel launches a
+    call of each path makes (``Smoke.path``: one on the kernel path, none
+    on the plain one); the kernel's ms (events), device ms (graph replay)
+    beside its bound (bytes: the projection read, the ids written);
+    ``bucket_ids``' ms and host ms on both paths, and the device kernels
+    and copies a call runs on each, and the kernel's own device ms by the
+    profiler.  Logs a ``[bucket_hash]`` JSON line; returns the rows by
+    shape (the kernel table's row is the CoverType one: the main path's
+    front end, ``main``)."""
+    np, torch, dev = s.np, s.torch, s.dev
+    from repro_torch.core.lsh import families as F
+    from repro_torch.kernels import bucket_hash as bh
+    rng = np.random.default_rng(28)
+    n, L, B = 1024, 20, 65536
+    rows = {}
+    for tag, (metric, d, k) in BUCKET_HASH_SHAPES.items():
+        if metric == "cosine":
+            fam = F.SimHash(d=d, L=L, k=k)
+            x = rng.normal(size=(n, d))
+        else:
+            fam = F.PStableL1(d=d, L=L, k=k, w=2.2)
+            x = rng.random((n, d)) * 4.0
+        x = torch.from_numpy(x.astype(np.float32)).to(dev)
+        params = fam.init(torch.Generator().manual_seed(28), device=dev)
+        got, launches = s.path(lambda: fam.bucket_ids(params, x, B))
+        assert launches == {c: int(c == "bucket_hash") for c in launches}, (
+            tag, launches)
+        want, plain_launches = s.path(
+            lambda: fam.bucket_ids(params, x, B, impl="ref"))
+        assert not any(plain_launches.values()), (tag, plain_launches)
+        assert torch.equal(got, want), f"{tag}: bucket ids differ"
+        proj = x @ params["R" if metric == "cosine" else "a"]
+        if metric == "cosine":
+            def kernel():
+                return bh.bucket_hash(proj, B, "sign", k=k)
+            words = F._pack_bits((proj > 0).reshape(n, L, k))
+        else:
+            def kernel():
+                return bh.bucket_hash(proj, B, "floor", k=k, b=params["b"],
+                                      w=fam.w)
+            words = fam._floors(proj, params)
+        assert torch.equal(kernel(), F._mix_words_to_bucket(words, B)), tag
+        nbytes = proj.numel() * 4 + n * L * 4 + (
+            0 if metric == "cosine" else L * k * 4)
+        bound, by = s.bound_ms(nbytes, 0.0)
+        path = lambda: fam.bucket_ids(params, x, B)            # noqa: E731
+        plain = lambda: fam.bucket_ids(params, x, B, impl="ref")  # noqa: E731
+        rows[tag] = {
+            "ms": s.cuda_ms(kernel), "device_ms": s.graph_ms(kernel),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "max_abs_err": int((got != want).sum()),
+            "max_abs_err_unit": "bucket ids that differ from the plain path",
+            "library_ms": None,
+            "bucket_ids_ms": s.cuda_ms(path), "plain_ms": s.cuda_ms(plain),
+            "bucket_ids_host_ms": host_ms(s, path),
+            "plain_host_ms": host_ms(s, plain),
+            "launches_a_call": launches["bucket_hash"],
+            "plain_device_ops_a_call": device_launches(s, plain)[0],
+            "shape": f"{n} x {d} -> ({n}, {L}), k = {k}"}
+        r = rows[tag]
+        r["device_ops_a_call"], r["profiled_ms"] = device_launches(
+            s, path, kernel="bucket_hash_kernel")
+        log(f"[bucket_hash] {tag}: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f}, profiled {r['profiled_ms']:.4f}), bound "
+            f"{bound:.2g} ({by}); bucket_ids "
+            f"{r['bucket_ids_ms']:.4f} ms, host {r['bucket_ids_host_ms']:.4f}"
+            f" ms, {r['device_ops_a_call']:g} device ops; plain "
+            f"{r['plain_ms']:.4f} ms, host {r['plain_host_ms']:.4f} ms, "
+            f"{r['plain_device_ops_a_call']:g} device ops")
+    log("[bucket_hash] " + json.dumps(rows))
+    return rows
 
 
 def simhash_edge_cases(s, rng):
@@ -834,15 +962,17 @@ LINEAR_KERNEL = {"l2": "linear_scan_dot", "cosine": "linear_scan_dot",
 def check_path_launches(launches, n_lsh, n_linear, metric, what,
                         delta=False):
     """Each kernel launches on a path exactly when that path has work for
-    it: K3 (``route_estimate``, over all segments) exactly once a batch;
-    K2 when queries go to LSH; the metric's linear scan when queries go
+    it: K3 (``route_estimate``, over all segments) and the bucket hash
+    (the query batch's ids) exactly once a batch; K2 when queries go to
+    LSH; the metric's linear scan when queries go
     to the linear scan or, on a streaming index (``delta``), on every
     path (the delta scan) -- for Hamming (K5, over all segments) exactly
     once a linear group and once for the delta of an LSH group; no other
     kernel ever."""
     lin = LINEAR_KERNEL[metric]
     want = {k: 0 for k in launches}       # None: at least one launch
-    want.update({"route_estimate": 1, "lsh_scan": None if n_lsh else 0})
+    want.update({"route_estimate": 1, "bucket_hash": 1,
+                 "lsh_scan": None if n_lsh else 0})
     if metric == "hamming":
         want[lin] = int(n_linear > 0) + int(delta and n_lsh > 0)
     else:
@@ -2056,12 +2186,16 @@ def check_sharded_launches(launches, used, metric, what, delta):
     K3's estimate mode never; K2 at least once for each shard routed LSH
     and never without one; the metric's linear scan (K1 or K4) at least
     once for each shard routed linear and, on a streaming index
-    (``delta``), once more a shard for its delta; no other kernel."""
+    (``delta``), once more a shard for its delta; the bucket hash once a
+    device that holds a shard (the queries are hashed once a device:
+    between 1 and S launches); no other kernel."""
     S, n_lsh = len(used), int(sum(used))
     lin = LINEAR_KERNEL[metric]
     for k, got in launches.items():
         if k == "route_terms":
             ok = got == S
+        elif k == "bucket_hash":
+            ok = 1 <= got <= S
         elif k == "lsh_scan":
             ok = got >= n_lsh and (got > 0) == (n_lsh > 0)
         elif k == lin:
@@ -4712,6 +4846,7 @@ def main() -> int:
     s = Smoke()
     phase_build(s)
     phase_edge_cases(s)
+    bucket_hash_rows = phase_bucket_hash(s)
     by_path = {}
     calibrated, at_probe = phase_calibrate(s, by_path)
 
@@ -4754,7 +4889,7 @@ def main() -> int:
     # the main path: the hybrid query at the radius where it mixes routes,
     # so that it runs all three kernels
     main_launches = by_path[f"webspam q{mixed}"]["hybrid"]
-    for k in ("linear_scan_dot", "lsh_scan", "route_estimate"):
+    for k in ("linear_scan_dot", "lsh_scan", "route_estimate", "bucket_hash"):
         assert main_launches[k] > 0, f"webspam q{mixed}: kernel {k} was not launched"
     timings["simhash"] = simhash_times(s, main_idx, by_path,
                                        f"webspam q{mixed} simhash_fingerprint")
@@ -4954,6 +5089,10 @@ def main() -> int:
         full_size={"webspam cosine": full_cosine, "corel l2": corel_l2})
     timings["pairwise_l1"] = dict(at_probe["l1"],
                                   full_size={"covertype l1": full_l1})
+    # the bucket hash at CoverType's query shape (p-stable, the floor
+    # front), the other shapes beside it
+    timings["bucket_hash"] = dict(bucket_hash_rows["covertype d=54 k=8"],
+                                  by_shape=bucket_hash_rows)
     csrc = "src/repro_torch/kernels/csrc/"
     main_paths = {
         "linear_scan_dot": (f"webspam q{mixed}", "hybrid"),
@@ -4966,6 +5105,7 @@ def main() -> int:
         "pairwise_l1": ("calibrate l1", "calibrate"),
         "hamming": ("mnist hamming_dist", "ops"),
         "simhash": (f"webspam q{mixed} simhash_fingerprint", "ops"),
+        "bucket_hash": (f"covertype q{i3} churned", "hybrid"),
     }
     src = {"linear_scan_dot": (csrc + "fused_scan.cu",
                                "src/repro/kernels/fused_scan.py:145"),
@@ -4985,7 +5125,10 @@ def main() -> int:
                            "src/repro/kernels/distances.py:93"),
            "hamming": (csrc + "fused_scan.cu",
                        "src/repro/kernels/hamming.py:33"),
-           "simhash": (csrc + "simhash.cu", "src/repro/kernels/simhash.py:34")}
+           "simhash": (csrc + "simhash.cu", "src/repro/kernels/simhash.py:34"),
+           "bucket_hash": (csrc + "bucket_hash.cu",
+                           "none: XLA fused the jnp chain of "
+                           "src/repro/core/lsh/families.py:65")}
     kernels = []
     for name, (source, replaces) in src.items():
         t = timings[name]

@@ -42,7 +42,7 @@ from repro_torch.core import hll as hll_lib
 from repro_torch.core import search as search_lib
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.lsh.tables import LSHTables
-from repro_torch.kernels import ops
+from repro_torch.kernels import bucket_hash, ops
 from repro_torch.kernels.ref import EXT_SENTINEL, concat_columns, scan_epilogue
 from repro_torch.obs.spans import span
 
@@ -341,15 +341,33 @@ class QueryEngine:
         self.tracer = tracer
         self.batches = 0   # query batches answered
         self.syncs = 0     # blocking host<->device copies on the query path
+        self.hash_kernel_batches = 0   # query batches the kernel hashed
 
     def stats(self) -> dict:
-        """``batches`` answered and ``syncs``: the blocking copies between
+        """``batches`` answered; ``syncs``: the blocking copies between
         host and device on the query path, one for the route decision
         (hybrid routing only), one for each routed group's indices, and
-        those of the query hash that the index adds (a family's
-        ``host_syncs``: the p-stable divisor).  The sites count on any
-        device, so a CPU index counts what a CUDA index would wait for."""
-        return {"batches": self.batches, "syncs": self.syncs}
+        the query hash's own (``hash_batch``); ``hash_kernel_batches``:
+        the query batches whose hash launched the bucket hash kernel.  The
+        engine's own sites count on any device, so a CPU index counts what
+        a CUDA index would wait for; the hash's counts follow the path it
+        took."""
+        return {"batches": self.batches, "syncs": self.syncs,
+                "hash_kernel_batches": self.hash_kernel_batches}
+
+    def hash_batch(self, family, fn, calls: int = 1):
+        """``fn()``, a query batch's hash, counted where it ran: one
+        ``hash_kernel_batches`` if the bucket hash kernel launched in it
+        (its wrapper's ``launches`` moved), else the family's plain-path
+        ``host_syncs`` (the p-stable divisor's copy) for each of its
+        ``calls`` ``bucket_ids`` calls."""
+        before = bucket_hash.bucket_hash.launches
+        out = fn()
+        if bucket_hash.bucket_hash.launches != before:
+            self.hash_kernel_batches += 1
+        else:
+            self.syncs += family.host_syncs * calls
+        return out
 
     def estimate(self, segments: Sequence[Segment],
                  qbuckets: torch.Tensor) -> RouteEstimate:

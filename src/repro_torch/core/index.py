@@ -98,7 +98,7 @@ class HybridLSHIndex:
         self._engine = QueryEngine(cost_model, impl=impl,
                                    tracer=self.obs.tracer)
         self.build_seconds = 0.0   # the last build's wall seconds
-        self._bucket_fn = bucket_fn_for(self.family, self.num_buckets)
+        self._bucket_fn = bucket_fn_for(self.family, self.num_buckets, impl)
 
     # ------------------------------------------------------------------
     @property
@@ -121,9 +121,11 @@ class HybridLSHIndex:
         return 0 if self.x is None else int(self.x.shape[0])
 
     def bucket_ids(self, x: torch.Tensor, chunk: int = 65536) -> torch.Tensor:
-        """(n, L) int32 bucket ids of rows already on the device."""
-        return torch.cat([self._bucket_fn(self.params, x[lo:lo + chunk])
-                          for lo in range(0, max(x.shape[0], 1), chunk)])
+        """(n, L) int32 bucket ids of rows already on the device, one hash
+        call a chunk of rows (a query batch is one chunk: no copy)."""
+        parts = [self._bucket_fn(self.params, x[lo:lo + chunk])
+                 for lo in range(0, max(x.shape[0], 1), chunk)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def build(self, x, chunk: int = 65536) -> "HybridLSHIndex":
         """Algorithm 1: hash + CSR sort + per-bucket HLL build, timed on
@@ -162,16 +164,17 @@ class HybridLSHIndex:
         with span("hlsh.query"):
             q = as_rows(queries, self.family.metric, self.device)
             with span("hlsh.hash"):
-                qb = self.bucket_ids(q)
-            n_calls = -(-max(q.shape[0], 1) // 65536)   # bucket_ids' chunks
-            self._engine.syncs += self.family.host_syncs * n_calls
+                qb = self._engine.hash_batch(
+                    self.family, lambda: self.bucket_ids(q),
+                    calls=-(-max(q.shape[0], 1) // 65536))  # bucket_ids' chunks
             return self._engine.query([self._segment()], q, qb, float(r),
                                       force=force)
 
     # ------------------------------------------------------------------
     def index_stats(self) -> Dict[str, Any]:
-        """``query``: the engine's ``batches`` and ``syncs``
-        (``QueryEngine.stats``); ``build_seconds``: the last build's."""
+        """``query``: the engine's ``batches``, ``syncs`` and
+        ``hash_kernel_batches`` (``QueryEngine.stats``); ``build_seconds``:
+        the last build's."""
         return {"query": self._engine.stats(),
                 "build_seconds": self.build_seconds}
 

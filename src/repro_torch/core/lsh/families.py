@@ -13,6 +13,14 @@ as int64 tensors holding uint32 values, then mixed into a bucket id in
 ``[0, num_buckets)``.  Parameters are plain dicts of tensors drawn from
 a ``torch.Generator`` (or handed in by ``repro_torch.interop``).
 
+``bucket_ids`` on a CUDA tensor runs everything after the projection's
+matmul as one launch of the bucket hash kernel
+(``repro_torch.kernels.bucket_hash``), whose front end the family picks
+(the sign bits, the p-stable floor, or words it packed itself); on a CPU
+or meta tensor, or with ``impl="ref"``, it runs the plain chain below.
+Both give the same ids, bit for bit.  A CUDA tensor takes the kernel or
+raises: nothing falls back.
+
 Parameterization follows the paper: L is fixed, and
 ``k = ceil(log(1 - delta**(1/L)) / log(p1))`` for SimHash / bit sampling
 (footnote 1, also used by E2LSH); for the p-stable families the paper
@@ -23,22 +31,44 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core.hll import hash32
+from repro_torch.kernels import bucket_hash as _bh
+from repro_torch.kernels import ops as _ops
 from repro_torch.u32 import MASK32, as_u32
 
 __all__ = [
     "SimHash", "PStableL2", "PStableL1", "BitSampling",
-    "k_from_delta", "make_family", "bucket_fn_for",
+    "k_from_delta", "make_family", "bucket_fn_for", "uses_kernel",
+    "mix_words",
 ]
 
 
-def bucket_fn_for(family, num_buckets: int):
-    """``(params, x) -> bucket ids`` for one (family, B)."""
-    return functools.partial(family.bucket_ids, num_buckets=num_buckets)
+def bucket_fn_for(family, num_buckets: int, impl: Optional[str] = None):
+    """``(params, x) -> bucket ids`` for one (family, B, impl)."""
+    return functools.partial(family.bucket_ids, num_buckets=num_buckets,
+                             impl=impl)
+
+
+def uses_kernel(device, impl: Optional[str] = None) -> bool:
+    """Whether ``bucket_ids`` of a tensor on ``device`` runs the bucket
+    hash kernel (``ops.resolve_impl``: a CUDA tensor unless ``impl="ref"``;
+    raises for ``impl="cuda"`` off the card)."""
+    return _ops.resolve_impl(impl, device) == "cuda"
+
+
+def mix_words(words: torch.Tensor, num_buckets: int,
+              impl: Optional[str] = None) -> torch.Tensor:
+    """(..., W) uint32 words (int64 values or int32 bit views) -> (...)
+    int32 bucket ids: the kernel's words front on the card, else
+    ``_mix_words_to_bucket``."""
+    if uses_kernel(words.device, impl):
+        return _bh.bucket_hash(words.to(torch.int64).contiguous(),
+                               num_buckets, "words", k=words.shape[-1])
+    return _mix_words_to_bucket(words, num_buckets)
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -93,7 +123,7 @@ class SimHash:
     L: int
     k: int
     metric: str = "cosine"
-    host_syncs = 0   # blocking host->device copies a bucket_ids call makes
+    host_syncs = 0   # blocking host->device copies of a plain bucket_ids
 
     def init(self, gen: torch.Generator, device=None) -> Dict[str, torch.Tensor]:
         r = _draw((self.d, self.L * self.k), gen, device,
@@ -111,9 +141,14 @@ class SimHash:
         proj = x.to(torch.float32) @ params["R"]
         return torch.abs(proj).reshape(x.shape[0], self.L, self.k)
 
-    def bucket_ids(self, params, x: torch.Tensor,
-                   num_buckets: int) -> torch.Tensor:
-        return _mix_words_to_bucket(self.codes(params, x), num_buckets)
+    def bucket_ids(self, params, x: torch.Tensor, num_buckets: int,
+                   impl: Optional[str] = None) -> torch.Tensor:
+        """x: (n, d) -> (n, L) int32 bucket ids."""
+        proj = x.to(torch.float32) @ params["R"]
+        if uses_kernel(proj.device, impl):
+            return _bh.bucket_hash(proj, num_buckets, "sign", k=self.k)
+        bits = (proj > 0).reshape(x.shape[0], self.L, self.k)
+        return _mix_words_to_bucket(_pack_bits(bits), num_buckets)
 
     def p1(self, r: float) -> float:
         """Collision prob of ONE bit for points at cosine distance r."""
@@ -133,7 +168,9 @@ class _PStableBase:
     k: int
     w: float
     metric: str = "l2"
-    host_syncs = 1   # ``codes`` copies its float32 divisor w to the device
+    # the plain ``codes`` copies its float32 divisor w to the device; the
+    # kernel takes w as an argument and copies nothing
+    host_syncs = 1
 
     def _draw_a(self, gen, device):  # overridden: gaussian vs cauchy
         raise NotImplementedError
@@ -148,17 +185,25 @@ class _PStableBase:
         """x: (n, d) -> (n, L, k) int32 lattice coordinates as uint32
         words (int64 tensor; negative floors wrap as an int32 -> uint32
         cast does)."""
-        proj = x.to(torch.float32) @ params["a"] + params["b"]
+        return self._floors(x.to(torch.float32) @ params["a"], params)
+
+    def _floors(self, proj: torch.Tensor, params) -> torch.Tensor:
+        proj = proj + params["b"]
         # a true float32 division: a Python scalar divisor would become a
         # reciprocal multiply on CUDA and move points across floors
         proj = proj / torch.tensor(self.w, dtype=torch.float32,
                                    device=proj.device)
         h = torch.floor(proj).to(torch.int64) & MASK32
-        return h.reshape(x.shape[0], self.L, self.k)
+        return h.reshape(proj.shape[0], self.L, self.k)
 
-    def bucket_ids(self, params, x: torch.Tensor,
-                   num_buckets: int) -> torch.Tensor:
-        return _mix_words_to_bucket(self.codes(params, x), num_buckets)
+    def bucket_ids(self, params, x: torch.Tensor, num_buckets: int,
+                   impl: Optional[str] = None) -> torch.Tensor:
+        """x: (n, d) -> (n, L) int32 bucket ids."""
+        proj = x.to(torch.float32) @ params["a"]
+        if uses_kernel(proj.device, impl):
+            return _bh.bucket_hash(proj, num_buckets, "floor", k=self.k,
+                                   b=params["b"], w=self.w)
+        return _mix_words_to_bucket(self._floors(proj, params), num_buckets)
 
     def p1_code(self, r: float) -> float:
         return self.p1(r) ** self.k
@@ -210,7 +255,7 @@ class BitSampling:
     L: int
     k: int
     metric: str = "hamming"
-    host_syncs = 0
+    host_syncs = 0   # blocking host->device copies of a plain bucket_ids
 
     def init(self, gen: torch.Generator, device=None) -> Dict[str, torch.Tensor]:
         pos = _draw((self.L * self.k,), gen, device,
@@ -226,9 +271,10 @@ class BitSampling:
         bits = bits.reshape(x.shape[0], self.L, self.k).to(torch.bool)
         return _pack_bits(bits)
 
-    def bucket_ids(self, params, x: torch.Tensor,
-                   num_buckets: int) -> torch.Tensor:
-        return _mix_words_to_bucket(self.codes(params, x), num_buckets)
+    def bucket_ids(self, params, x: torch.Tensor, num_buckets: int,
+                   impl: Optional[str] = None) -> torch.Tensor:
+        """x: (n, W_in) -> (n, L) int32 bucket ids."""
+        return mix_words(self.codes(params, x), num_buckets, impl)
 
     def p1(self, r: float) -> float:
         return 1.0 - float(r) / float(self.dim_bits)

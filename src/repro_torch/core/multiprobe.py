@@ -17,9 +17,11 @@ range.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.core.lsh.families import SimHash, _mix_words_to_bucket
+from repro_torch.core.lsh.families import SimHash, mix_words
 from repro_torch.core.lsh.tables import (LSHTables, bucket_counts,
                                          gather_candidates, gather_registers)
 from repro_torch.u32 import as_u32
@@ -56,10 +58,12 @@ def probe_codes(fam: SimHash, params, queries: torch.Tensor,
 
 
 def probe_buckets(fam: SimHash, params, queries: torch.Tensor,
-                  num_probes: int, num_buckets: int) -> torch.Tensor:
-    """(Q, d) -> probed bucket ids (Q, L, T) int32."""
+                  num_probes: int, num_buckets: int,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """(Q, d) -> probed bucket ids (Q, L, T) int32; the probe codes are
+    mixed by ``families.mix_words`` (the bucket hash kernel on the card)."""
     pcodes = probe_codes(fam, params, queries, num_probes)
-    return _mix_words_to_bucket(pcodes, num_buckets)
+    return mix_words(pcodes, num_buckets, impl)
 
 
 def flatten_probes(qbuckets_probe: torch.Tensor):

@@ -127,7 +127,7 @@ class DynamicHybridIndex:
         self.phases = WorkPhases("stage", "build", "apply", "full")
         self._engine = engine if engine is not None else QueryEngine(
             cost_model, impl=impl, tracer=self.obs.tracer)
-        self._bucket_fn = bucket_fn_for(self.family, self.num_buckets)
+        self._bucket_fn = bucket_fn_for(self.family, self.num_buckets, impl)
         # cosine on the kernel route: segments keep their unit rows
         self._unit_rows = (family.metric == "cosine" and ops.resolve_impl(
             impl, self.device) == "cuda")
@@ -552,10 +552,9 @@ class DynamicHybridIndex:
                 f"(SimHash); got {type(self.family).__name__}")
         with span("hlsh.hash"):
             if num_probes <= 1:
-                self._engine.syncs += self.family.host_syncs
                 return self._bucket_fn(self.params, queries), None
             qbp = mp.probe_buckets(self.family, self.params, queries,
-                                   num_probes, self.num_buckets)
+                                   num_probes, self.num_buckets, self.impl)
             return mp.flatten_probes(qbp)
 
     def _check_ready(self) -> None:
@@ -581,7 +580,8 @@ class DynamicHybridIndex:
         self._check_ready()
         with span("hlsh.query"):
             q = self._rows(queries)
-            qb, tidx = self._qbuckets(q, num_probes)
+            qb, tidx = self._engine.hash_batch(
+                self.family, lambda: self._qbuckets(q, num_probes))
             return self._engine.query(self._segments(tidx), q, qb, float(r),
                                       force=force)
 

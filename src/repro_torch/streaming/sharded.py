@@ -295,7 +295,7 @@ class ShardedDynamicHybridIndex:
         self.impl = impl
         self._engine = engine if engine is not None else QueryEngine(
             cost_model, impl=impl)
-        self._bucket_fn = bucket_fn_for(family, self.num_buckets)
+        self._bucket_fn = bucket_fn_for(family, self.num_buckets, impl)
         self.stats = CompactionStats()
         self.obs = obs if obs is not None else Observability.disabled()
         self.phases = WorkPhases("stage", "build", "apply", "full")

@@ -17,10 +17,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (distances, fused_scan,  # noqa: E402
-                                 hamming, hll_merge, ops, simhash)
+from repro_torch.core import multiprobe as mp  # noqa: E402
+from repro_torch.core.lsh import families  # noqa: E402
+from repro_torch.kernels import (bucket_hash, distances,  # noqa: E402
+                                 fused_scan, hamming, hll_merge, ops, simhash)
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
 from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
+from torch_cases import (BUCKET_HASH_B, BUCKET_HASH_CASES,  # noqa: E402
+                         MULTIPROBE_CASES, bucket_hash_case, np_bucket_ids,
+                         np_mix_words)
 from torch_cases import (DOT_CASES, GROUPED_CASES, L1_CASES,  # noqa: E402
                          LSH_CASES, MESH_SERVE_CASES, MESH_SITES,
                          MESH_TRAIN_CASES, RADII, ROUTE_CASES, SCAN_CASES,
@@ -417,6 +422,112 @@ def test_cuda_simhash_matches_plain(cuda, L, k, n, d):
     assert a.dtype == torch.int64 and a.shape == (n, L, (k + 31) // 32)
     assert not bool(a[0].any())
     simhash_flips(a, b, x, ops.pad_projection(r, L, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(BUCKET_HASH_CASES))
+def test_cuda_bucket_hash_matches_plain(cuda, name):
+    """One launch a ``bucket_ids`` call; ids bit-equal to the plain path
+    on the card and to the numpy uint32 version, and, on one projection,
+    the kernel's front end equal to the plain chain after the matmul."""
+    fam, params, x = bucket_hash_case(name, cuda)
+    before = bucket_hash.bucket_hash.launches
+    a = fam.bucket_ids(params, x, BUCKET_HASH_B)
+    assert bucket_hash.bucket_hash.launches == before + 1
+    b = fam.bucket_ids(params, x, BUCKET_HASH_B, impl="ref")
+    assert bucket_hash.bucket_hash.launches == before + 1
+    assert a.dtype == torch.int32 and torch.equal(a, b)
+    np.testing.assert_array_equal(a.cpu().numpy(),
+                                  np_bucket_ids(fam, params, x, BUCKET_HASH_B))
+    if isinstance(fam, families.BitSampling):
+        return
+    proj = x.to(torch.float32) @ params["R" if fam.metric == "cosine" else "a"]
+    if fam.metric == "cosine":
+        got = bucket_hash.bucket_hash(proj, BUCKET_HASH_B, "sign", k=fam.k)
+        words = families._pack_bits((proj > 0).reshape(-1, fam.L, fam.k))
+    else:
+        got = bucket_hash.bucket_hash(proj, BUCKET_HASH_B, "floor", k=fam.k,
+                                      b=params["b"], w=fam.w)
+        words = fam._floors(proj, params)
+    assert torch.equal(got, families._mix_words_to_bucket(words,
+                                                          BUCKET_HASH_B))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("front", ["sign", "floor"])
+def test_cuda_bucket_hash_non_finite_and_out_of_range(cuda, front):
+    """Projections of +-0, +-Inf, NaN, +-1e30 (past int64) and +-3e9 (past
+    int32): the kernel's words are the plain chain's on the card, the
+    float -> int64 conversion included."""
+    L, k = 4, 9
+    vals = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan"),
+                         1e30, -1e30, 3e9, -3e9, 2.5, -2.5, 1e-30],
+                        dtype=torch.float32)
+    proj = vals[torch.from_numpy(RNG.integers(0, len(vals), (64, L * k)))]
+    proj = proj.contiguous().to(cuda)
+    fam = families.PStableL1(d=1, L=L, k=k, w=0.7)
+    params = {"b": torch.from_numpy(RNG.random(L * k).astype(np.float32)
+                                    ).to(cuda)}
+    if front == "sign":
+        got = bucket_hash.bucket_hash(proj, BUCKET_HASH_B, "sign", k=k)
+        words = families._pack_bits((proj > 0).reshape(-1, L, k))
+    else:
+        got = bucket_hash.bucket_hash(proj, BUCKET_HASH_B, "floor", k=k,
+                                      b=params["b"], w=fam.w)
+        words = fam._floors(proj, params)
+    assert torch.equal(got, families._mix_words_to_bucket(words,
+                                                          BUCKET_HASH_B))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,L,k,probes", MULTIPROBE_CASES)
+def test_cuda_multiprobe_buckets_match_plain(cuda, d, L, k, probes):
+    fam = families.SimHash(d=d, L=L, k=k)
+    params = fam.init(torch.Generator().manual_seed(1), device=cuda)
+    q = torch.from_numpy(RNG.normal(size=(1024, d)).astype(np.float32)).to(
+        cuda)
+    before = bucket_hash.bucket_hash.launches
+    a = mp.probe_buckets(fam, params, q, probes, BUCKET_HASH_B)
+    assert bucket_hash.bucket_hash.launches == before + 1
+    b = mp.probe_buckets(fam, params, q, probes, BUCKET_HASH_B, impl="ref")
+    assert a.shape == (1024, L, probes) and torch.equal(a, b)
+    codes = mp.probe_codes(fam, params, q, probes).cpu().numpy()
+    np.testing.assert_array_equal(
+        a.cpu().numpy(), np_mix_words(codes.astype(np.uint32), BUCKET_HASH_B))
+
+
+@pytest.mark.gpu
+def test_cuda_streaming_pstable_hash_makes_no_sync(cuda):
+    """A p-stable streaming index on the card: one bucket hash launch and
+    one counted kernel hash a batch, 2 syncs a batch with one routed group
+    (the route and the LSH group's indices; no divisor copy), one fewer
+    than the same index on the plain path; the same collisions."""
+    from repro_torch.core import CostModel
+    from repro_torch.data import clustered_dataset, query_split
+    from repro_torch.streaming import CompactionPolicy, DynamicHybridIndex
+    x = clustered_dataset(16384, 54, n_clusters=16, dense_core_frac=0.05,
+                          core_scale=0.05, seed=0, metric="l1")
+    x, q = query_split(x, n_queries=256, seed=0)
+    i, j = RNG.integers(0, len(x), (2, 2000))
+    r = float(np.quantile(np.abs(x[i] - x[j]).sum(1), 0.12))
+    fam = families.make_family("l1", d=54, L=20, r=r)
+
+    def index(impl):
+        return DynamicHybridIndex(
+            fam, num_buckets=65536, m=64, cap=256, delta_capacity=8192,
+            cost_model=CostModel(1.0, 10.0), seed=0, impl=impl,
+            policy=CompactionPolicy(step_rows=8192), device=cuda).build(x)
+
+    fast, plain = index(None), index("ref")
+    before = bucket_hash.bucket_hash.launches
+    for _ in range(3):
+        a, b = fast.query(q, r), plain.query(q, r)
+        assert len(a.lsh_idx) == len(q) and len(a.lin_idx) == 0
+        assert torch.equal(a.route.collisions, b.route.collisions)
+    assert bucket_hash.bucket_hash.launches == before + 3
+    got, want = (i.index_stats()["query"] for i in (fast, plain))
+    assert got == {"batches": 3, "syncs": 6, "hash_kernel_batches": 3}
+    assert want == {"batches": 3, "syncs": 9, "hash_kernel_batches": 0}
 
 
 @pytest.mark.gpu

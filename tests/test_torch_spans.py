@@ -147,7 +147,8 @@ def test_no_range_is_opened_without_a_profiler(data, monkeypatch):
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_engine_counts_batches_and_blocking_copies(data, kind, metric):
     """2 syncs a hybrid batch with one routed group and 3 with two, 1 with
-    a forced route, plus the hash's own (the p-stable divisor's copy)."""
+    a forced route, plus the hash's own (the p-stable divisor's copy on
+    the plain path, which a CPU index takes: no hash on the kernel)."""
     x, q = data
     r = R
     if metric == "cosine":
@@ -161,7 +162,7 @@ def test_engine_counts_batches_and_blocking_copies(data, kind, metric):
     first = idx.query(q, r)
     assert len(first.lsh_idx) and len(first.lin_idx)   # both groups
     one = q[first.lsh_idx]                             # one group
-    expect = {"batches": 1, "syncs": h + 3}
+    expect = {"batches": 1, "syncs": h + 3, "hash_kernel_batches": 0}
     assert idx.index_stats()["query"] == expect
     for qs, force, syncs in ((q, None, 3), (one, None, 2), (q, "lsh", 1),
                              (q, "linear", 1)):
@@ -170,7 +171,8 @@ def test_engine_counts_batches_and_blocking_copies(data, kind, metric):
             assert syncs == 1 + bool(len(res.lsh_idx)) + bool(
                 len(res.lin_idx))
         expect = {"batches": expect["batches"] + 1,
-                  "syncs": expect["syncs"] + h + syncs}
+                  "syncs": expect["syncs"] + h + syncs,
+                  "hash_kernel_batches": 0}
         assert idx.index_stats()["query"] == expect, (force, syncs)
 
 

@@ -694,3 +694,140 @@ def mesh_site_device_vs_cpu(site, device):
         worst = max(worst, float((a.cpu() - c).abs().max()))
     return worst
 
+
+
+# -- the bucket hash (``families.bucket_ids``, ``csrc/bucket_hash.cu``) -----
+# An independent numpy uint32 version of the ids: numpy's uint32 multiply
+# wraps, so fmix32 is written as murmur3 states it.  The projection (a
+# matmul) is the caller's: the spec starts after it.
+_FMIX = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35)   # golden ratio, C1, C2
+
+
+def np_fmix32(x, seed):
+    golden, c1, c2 = _FMIX
+    with np.errstate(over="ignore"):
+        h = x + np.uint32((seed * golden) & 0xFFFFFFFF)
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(c1)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(c2)
+        return h ^ (h >> np.uint32(16))
+
+
+def np_mix_words(words, num_buckets, seed=17):
+    """(..., W) uint32 words -> (...) int32 bucket ids."""
+    acc = np.full(words.shape[:-1], seed, np.uint32)
+    for j in range(words.shape[-1]):
+        acc = np_fmix32(acc ^ words[..., j], seed + j)
+    return (acc & np.uint32(num_buckets - 1)).astype(np.int32)
+
+
+def np_pack(bits):
+    """(..., k) bool -> (..., ceil(k / 32)) uint32, LSB first, zero-padded."""
+    k = bits.shape[-1]
+    w = -(-k // 32)
+    padded = np.zeros(bits.shape[:-1] + (w * 32,), np.uint32)
+    padded[..., :k] = bits
+    padded = padded.reshape(bits.shape[:-1] + (w, 32))
+    return (padded << np.arange(32, dtype=np.uint32)).sum(
+        -1, dtype=np.uint64).astype(np.uint32)
+
+
+def np_floor_words(proj, b, w):
+    """float32 floor((proj + b) / w), true division, wrapped to uint32."""
+    v = (proj + b).astype(np.float32) / np.float32(w)
+    return np.floor(v).astype(np.int64).astype(np.uint32)
+
+
+def np_bucket_ids(fam, params, x, num_buckets):
+    """What ``fam.bucket_ids(params, x, num_buckets)`` must return,
+    (n, L) int32, from torch's projection of x on x's device."""
+    name = type(fam).__name__
+    n = x.shape[0]
+    if name == "BitSampling":
+        xa = x.cpu().numpy().astype(np.int64).astype(np.uint32)
+        pos = params["pos"].cpu().numpy().astype(np.int64)
+        bits = (xa[:, pos // 32] >> (pos % 32).astype(np.uint32)) & 1
+        words = np_pack(bits.reshape(n, fam.L, fam.k).astype(bool))
+    elif name == "SimHash":
+        proj = (x.to(torch.float32) @ params["R"]).cpu().numpy()
+        words = np_pack((proj > 0).reshape(n, fam.L, fam.k))
+    else:
+        proj = (x.to(torch.float32) @ params["a"]).cpu().numpy()
+        words = np_floor_words(proj, params["b"].cpu().numpy(),
+                               fam.w).reshape(n, fam.L, fam.k)
+    return np_mix_words(words, num_buckets)
+
+
+def reciprocal_misses(w, lo=-4096, hi=4096):
+    """Multiples v = j * w (float32) where floor(v / w) and floor(v *
+    (1 / w)) differ: a reciprocal multiply would move these across floors."""
+    v = (np.arange(lo, hi, dtype=np.float32) * np.float32(w)).astype(
+        np.float32)
+    recip = np.float32(1.0) / np.float32(w)
+    return v[np.floor(v / np.float32(w)) != np.floor(v * recip)]
+
+
+# name -> (rows, d, L, k): SimHash at k across word edges and at the
+# Webspam cell's shape (d = 254, L = 20, 1,024 queries); p-stable L1 at the
+# CoverType cell's (d = 54, L = 20, k = 8), L1 with Cauchy draws at a tiny w
+# (floors of both signs past 2^31), L2, and on exact multiples of w
+# ("multiples": b = 0 and w with reciprocal misses; "offsets": b and x
+# multiples of a dyadic w); bit sampling across one and two words.
+BUCKET_HASH_CASES = {
+    "simhash-k1": (257, 16, 3, 1), "simhash-k31": (257, 16, 3, 31),
+    "simhash-k32": (257, 16, 3, 32), "simhash-k33": (257, 16, 3, 33),
+    "simhash-k70": (257, 16, 3, 70), "simhash-webspam": (1024, 254, 20, 12),
+    "l1-covertype": (1024, 54, 20, 8), "l1-wide-floors": (1024, 54, 20, 8),
+    "l2-random": (300, 32, 5, 7), "pstable-multiples": (0, 1, 2, 3),
+    "pstable-offsets": (512, 1, 4, 5), "bitsampling-k12": (300, 64, 20, 12),
+    "bitsampling-k40": (300, 64, 6, 40)}
+# (d, L, k, probes): multi-probe's perturbed codes, one and three words
+MULTIPROBE_CASES = [(254, 20, 12, 4), (16, 3, 70, 6)]
+BUCKET_HASH_B = 65536
+
+
+def bucket_hash_case(name, device, seed=0):
+    """(family, params, rows) of a ``BUCKET_HASH_CASES`` entry on
+    ``device``."""
+    from repro_torch.core.lsh import families as F
+    rng = np.random.default_rng(seed)
+    n, d, L, k = BUCKET_HASH_CASES[name]
+    gen = torch.Generator().manual_seed(seed)
+    if name.startswith("simhash"):
+        fam = F.SimHash(d=d, L=L, k=k)
+        xa = rng.normal(size=(n, d)).astype(np.float32)
+        xa[0] = 0.0                 # every projection 0: every bit 0
+    elif name.startswith("bitsampling"):
+        fam = F.BitSampling(dim_bits=d, L=L, k=k)
+        x = torch.from_numpy(rng.integers(0, 2**32, (n, d // 32),
+                                          dtype=np.int64))
+        return fam, fam.init(gen, device=device), x.to(device)
+    elif name == "l2-random":
+        fam = F.PStableL2(d=d, L=L, k=k, w=0.7)
+        xa = (2.0 * rng.normal(size=(n, d))).astype(np.float32)
+    elif name in ("l1-covertype", "l1-wide-floors"):
+        wide = name == "l1-wide-floors"
+        fam = F.PStableL1(d=d, L=L, k=k, w=1e-3 if wide else 2.2)
+        xa = (rng.random((n, d)) * (4000.0 if wide else 1.0)).astype(
+            np.float32)
+        xa[1] *= -1.0
+    elif name == "pstable-multiples":
+        w = 0.7
+        v = reciprocal_misses(w)
+        fam = F.PStableL2(d=d, L=L, k=k, w=w)
+        xa = np.concatenate([v, -v, [0.0, np.float32(w)]]).astype(
+            np.float32)[:, None]
+        params = {"a": torch.ones((1, L * k)), "b": torch.zeros(L * k)}
+        return fam, {p: t.to(device) for p, t in params.items()}, \
+            torch.from_numpy(xa).to(device)
+    else:                           # pstable-offsets: w = 0.75, b = j / 4
+        fam = F.PStableL1(d=d, L=L, k=k, w=0.75)
+        b = (np.arange(L * k) % 3 * 0.25).astype(np.float32)
+        j = rng.integers(-2000, 2000, (n,))
+        xa = (j * 0.75 - 0.25 * rng.integers(0, 3, (n,))).astype(
+            np.float32)[:, None]
+        params = {"a": torch.ones((1, L * k)), "b": torch.from_numpy(b)}
+        return fam, {p: t.to(device) for p, t in params.items()}, \
+            torch.from_numpy(xa).to(device)
+    return fam, fam.init(gen, device=device), torch.from_numpy(xa).to(device)

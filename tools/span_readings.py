@@ -8,7 +8,8 @@ The first form runs the cell as ``bench/run.py`` does (set-up, warm-up, a
 short window) and then its traced stretch (``harness.TRACE_ROUNDS``
 rounds under ``torch.profiler``), keeps the stretch's events and prints
 one JSON line: the readings of ``bench/lib/spans.py`` (idle by phase,
-host and device time by ``hlsh.*`` span, the index's ``index_stats()``)
+host and device time by ``hlsh.*`` span, the index's ``index_stats()``,
+the batches the bucket hash kernel hashed beside them)
 beside the benchmark's own trace metrics (``device_idle_pct``,
 ``launches_per_batch``, ``syncs_per_batch``), the traced rounds' mean
 batch time, and each host wait of the index call with the span and the
@@ -124,6 +125,11 @@ def cell(workload: str, seed: int, seconds: float) -> dict:
         "launches_per_batch": ts["launches"] / ts["batches"],
         "syncs_per_batch": ts["syncs"] / ts["batches"],
         "readings": spans_lib.readings(red, stats),
+        # beside the hash's readings: the index's batches whose bucket ids
+        # the bucket hash kernel made, of all it answered (None on a tree
+        # without the kernel)
+        "hash_kernel_batches": (stats.get("query") or {}).get(
+            "hash_kernel_batches"),
         "spans": red,
         "stats_query": stats.get("query"),
         "syncs_by_site": syncs_by_site(events, calls),
