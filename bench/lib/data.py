@@ -7,17 +7,19 @@ around centre 0 (the regime where queries with near-n outputs make
 linear search win).  Cosine rows are scaled to unit length.
 
 The deployment is fixed by the configuration: its ``deployment_seed``
-draws the centres, the corpus and the radius (and, in the harness, the
-LSH parameters), as a deployment serves one dataset with one built
-index.  ``--seed`` draws the traffic: the query pool from the same
-mixture, and its order.  Every draw is a few large calls
-on the device's ``torch.Generator``; nothing is generated on the host.
+draws the centres, the corpus, the radius and then the LSH parameters,
+as a deployment serves one dataset with one built index.  ``--seed``
+draws the traffic: the query pool from the same mixture, and its order.
+Every draw is a few large calls on the device's ``torch.Generator``;
+nothing is generated on the host.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from bench.reference import lsh
 
 RADIUS_PAIRS = 131072
 
@@ -27,6 +29,7 @@ class Data:
     corpus: torch.Tensor            # (n, d) float32; external id = row
     queries: torch.Tensor           # (pool, d) float32
     r: float                        # the cell's radius
+    params: dict                    # the LSH family's draws (lsh.draw_params)
 
 
 def mixture(gen: torch.Generator, centers: torch.Tensor, n: int, mix: dict,
@@ -66,8 +69,8 @@ def pair_distances(x: torch.Tensor, gen: torch.Generator, metric: str,
 
 def make_data(cfg: dict, mix: dict, dep: torch.Generator,
               gen: torch.Generator) -> Data:
-    """Corpus and radius from the deployment's generator ``dep``; the
-    query pool from the run's generator ``gen``."""
+    """Corpus, radius and LSH parameters from the deployment's generator
+    ``dep``; the query pool from the run's generator ``gen``."""
     dev = dep.device
     d, metric = int(cfg["d"]), cfg["metric"]
     m = cfg["mixture"]
@@ -78,4 +81,4 @@ def make_data(cfg: dict, mix: dict, dep: torch.Generator,
     dist = pair_distances(corpus, dep, metric)
     r = float(torch.quantile(dist, float(mix["radius_quantile"])))
     queries = mixture(gen, centers, int(cfg["query_pool"]), m, metric)
-    return Data(corpus, queries, r)
+    return Data(corpus, queries, r, lsh.draw_params(cfg, r, dep))

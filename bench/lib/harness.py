@@ -1,19 +1,60 @@
 """One run of one cell: set-up, warm-up, the measured window, the traced
-stretch, the reference's check, and the result line.
+stretch, the check, and the result line.
 
 Everything that belongs to a cell is found by name: ``BENCHMARK.json``
 names the cell's configuration (``bench/configs/<name>.json``, whose
 ``system`` names ``bench/systems/<system>.py``), its traffic mix
 (``bench/traffic/<mix>.json``), its check limits
 (``bench/limits/<cell>.json``) and its per-layer metrics
-(``bench/metrics/<metric>.py``, each with ``read(ctx)``).
+(``bench/metrics/<metric>.py``, each with ``read(ctx)``).  The harness
+keeps what every cell shares: the loop, warm-up, window and clock, the
+traced stretch and the per-layer readers, the comparison against the
+limits, and the result line.  What is particular to a cell (its data,
+its requests, the program under test and how its answers are judged)
+is the system module's.
+
+Adding a configuration with new files only: write its configuration
+file and its ``BENCHMARK.json`` entries, a traffic file, a limits file
+and, where no existing module fits, ``bench/systems/<system>.py``, which
+the harness loads by path from the root and asks for:
+
+- ``make_data(cfg, mix, dep, gen)``: the cell's data (weights, corpus,
+  query pool, parameters), from the deployment's generator ``dep``
+  (seeded by the configuration's ``deployment_seed``) and the run's
+  ``gen`` (seeded by ``--seed``), both on the device.
+- ``Traffic(mix, data, seed, device)``: ``.batch``, the requests a
+  round; ``.next()``, the next round as (what ``System.query`` is
+  handed, a key by which the check finds the round's requests);
+  ``.live()``, the live set as it stands, handed to the check.
+- ``System(cfg, data, device)``, the program under test:
+  ``.query(request)``, the timed call, whose result is judged;
+  ``.snapshot()``, what the check needs of the program's state when a
+  round is kept; ``.counters()``, numbers by name, read after every
+  window round (the per-layer readers see each as the list of its
+  per-round values, ``ctx[name]``); ``.close()``, which frees the
+  program's buffers and returns what the check may still use (such as
+  the weights), or None.
+- ``keep_traced(result, key)``: what the check keeps of a traced
+  round's result (the result itself is dropped).
+- ``check(cfg, data, judged, traced, control, left)``: ``judged`` holds
+  (result, key, live, snapshot) of each judged round, ``traced`` (key,
+  ``keep_traced``, live, snapshot) of each priced traced round, or None
+  without ``--trace``; ``left`` is what ``close`` returned.  It returns
+  a dict: ``compared``, the numbers that limits may hold, by name;
+  ``judged``, the requests judged (a run with none is not correct);
+  ``readings``, further numbers the per-layer readers see beside
+  ``compared`` in ``ctx["checks"]``; ``info``, numbers for the ``info``
+  line; ``control``, the control's numbers (None unless ``control``);
+  ``work``, work counts for the per-layer readers (``ctx["work"]``).
+
+Every key of the cell's limits file is compared, value <= limit, and a
+run is correct when each holds and ``judged`` > 0; a key that the check
+does not return makes the run raise, with no result line.
 """
 from __future__ import annotations
 
 import collections
-import dataclasses
 import gc
-import importlib
 import importlib.util
 import json
 import os
@@ -24,24 +65,16 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from bench.lib import trace as trace_lib
-from bench.lib.data import make_data
-from bench.lib.traffic import Traffic
-from bench.reference import judge as judge_lib
-from bench.reference import lsh
 
-JUDGED_BATCHES = 4       # query batches the reference checks, drawn from the seed
+JUDGED_BATCHES = 4       # rounds the check judges, drawn from the seed
 TRACE_ROUNDS = 16        # rounds in the traced stretch
-WORK_EVERY = 8           # the reference prices every 8th traced round
+WORK_EVERY = 8           # the check prices every 8th traced round
 WARM_ROUNDS = 8
 WARM_SECONDS = 1.0       # and at least this long, so clocks and caches settle
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-CHECKS = ("report_gap", "distance_gap", "route_gap", "collision_excess",
-          "estimate_gap", "state_mismatch")
-ANSWER_CHECKS = CHECKS[:5]     # the numbers ``judge`` gives
 
 
 def process_age() -> float:
@@ -65,9 +98,11 @@ def load_json(path: Path) -> dict:
 
 
 def load_module(path: Path):
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + path.stem.replace(".", "_"), path)
+    """A metric reader or system module, from its file."""
+    name = f"bench_{path.parent.name}_" + path.stem.replace(".", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod         # as an import would: dataclasses look it up
     spec.loader.exec_module(mod)
     return mod
 
@@ -104,33 +139,9 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _routes(res, nq: int) -> np.ndarray:
-    use = np.zeros(nq, bool)
-    use[np.asarray(res.lsh_idx, np.int64)] = True
-    return use
-
-
-def _answer(res) -> judge_lib.Answer:
-    """The port's ``QueryResult`` as the judge reads it."""
-    pq, pe, pd = [], [], []
-    for idx, grp in ((res.lsh_idx, res.lsh_out), (res.lin_idx, res.lin_out)):
-        if grp is None:
-            continue
-        ids, dists, mask = grp
-        qi, col = torch.nonzero(mask, as_tuple=True)
-        sel = torch.as_tensor(np.asarray(idx, np.int64), device=ids.device)
-        pq.append(sel[qi])
-        pe.append(ids[qi, col].to(torch.int64))
-        pd.append(dists[qi, col])
-    rt = res.route
-    return judge_lib.Answer(rt.use_lsh.to(torch.bool), rt.collisions,
-                            rt.cand_est, torch.cat(pq), torch.cat(pe),
-                            torch.cat(pd))
-
-
 class Run:
     """One run's state: ``run_cell`` calls setup, warm_up, window, the
-    traced stretch and reference in that order."""
+    traced stretch and check in that order."""
 
     def __init__(self, root: Path, name: str, seed: int, seconds: float,
                  trace: bool, device, overrides: Optional[Dict] = None,
@@ -138,6 +149,7 @@ class Run:
         self.seed = int(seed)
         self.seconds, self.trace = float(seconds), bool(trace)
         self.device = torch.device(device)
+        self.root = Path(root)
         self.spec = cell_spec(root, name)
         for key, over in (overrides or {}).items():
             self.spec[key] = {**self.spec[key], **over}
@@ -149,34 +161,32 @@ class Run:
         dep = torch.Generator(device=self.device).manual_seed(
             int(self.cfg["deployment_seed"]))
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.data = make_data(self.cfg, self.mix, dep, gen)
-        self.params = lsh.draw_params(self.cfg, self.data.r, dep)
-        mod = importlib.import_module(f"bench.systems.{self.cfg['system']}")
-        self.system = mod.System(self.cfg, self.data, self.params,
-                                 self.device)
-        self.traffic = Traffic(self.mix, self.data, self.seed, self.device)
+        self.sysmod = load_module(self.root / "bench" / "systems"
+                                  / f"{self.cfg['system']}.py")
+        self.data = self.sysmod.make_data(self.cfg, self.mix, dep, gen)
+        self.system = self.sysmod.System(self.cfg, self.data, self.device)
+        self.traffic = self.sysmod.Traffic(self.mix, self.data, self.seed,
+                                           self.device)
 
     def round(self, record=None, spans: bool = False):
-        """One query batch.  Returns (batch seconds, result, query ids,
-        live test)."""
+        """One round.  Returns (round seconds, result, key, live set)."""
         from torch.profiler import record_function
-        idx = self.traffic.next_queries()
-        q = self.data.queries[idx]
+        req, key = self.traffic.next()
         live = self.traffic.live()
         _sync(self.device)
         t0 = time.perf_counter()
         if spans:
             with record_function(trace_lib.QUERY):
                 with record_function(trace_lib.CALL):
-                    res = self.system.query(q)
+                    res = self.system.query(req)
                 _sync(self.device)
         else:
-            res = self.system.query(q)
+            res = self.system.query(req)
             _sync(self.device)
         t1 = time.perf_counter()
         if record is not None:
-            record(res, idx, live)
-        return t1 - t0, res, idx, live
+            record(res, key, live)
+        return t1 - t0, res, key, live
 
     def warm_up(self) -> None:
         """Every shape of the cell once, and as many results held at once
@@ -199,24 +209,24 @@ class Run:
         kept = []
         seen = [0]
 
-        def keep(res, idx, live):
+        def keep(res, key, live):
             seen[0] += 1
             i = seen[0]
             slot = len(kept) if len(kept) < JUDGED_BATCHES else rng.randrange(i)
             if slot < JUDGED_BATCHES:
-                item = (res, idx, live, self.system.snapshot())
+                item = (res, key, live, self.system.snapshot())
                 if slot == len(kept):
                     kept.append(item)
                 else:
                     kept[slot] = item
 
-        self.batch_s, self.segments = [], []
+        self.batch_s, self.round_counters = [], []
         self.t_open = time.perf_counter()
         while True:
             tb, res, _, _ = self.round(record=keep)
             del res
             self.batch_s.append(tb)
-            self.segments.append(self.system.counters()["segments"])
+            self.round_counters.append(self.system.counters())
             t = time.perf_counter()
             if t - self.t_open >= self.seconds:
                 break
@@ -230,8 +240,8 @@ class Run:
             acts.append(ProfilerActivity.CUDA)
         rounds = []
 
-        def note(res, idx, live):
-            rounds.append((idx, _routes(res, idx.shape[0]), live,
+        def note(res, key, live):
+            rounds.append((key, self.sysmod.keep_traced(res, key), live,
                            self.system.snapshot()))
 
         with profile(activities=acts) as prof:
@@ -242,79 +252,14 @@ class Run:
         self.trace_summary = trace_lib.reduce(trace_lib.collect(prof))
 
     # ------------------------------------------------------------- check
-    def reference(self) -> Dict:
-        """The judged batches held to the reference (and, for the control,
-        the reference in the program's place at the lower precision);
-        the per-layer work counts of the traced rounds."""
-        cfg, data = self.cfg, self.data
-        bank = data.corpus
-        bh = lsh.bucket_ids(cfg, self.params, bank, data.r)
-        ctl_bh = (lsh.bucket_ids(cfg, self.params, bank, data.r, "tf32")
-                  if self.control else None)
-
-        def state(snap, hashes):
-            segs, n_scan, _ = snap.layout()
-            return judge_lib.RefState(segs, bank, hashes, cfg, n_scan)
-
-        out = {k: 0.0 for k in CHECKS}
-        out.update(judged_queries=0, pairs_due=0, pairs_reported=0,
-                   misrouted=0, doubtful_queries=0)
-        ctl = {k: 0.0 for k in ANSWER_CHECKS}
-        for res, idx, live, snap in self.kept:
-            qv = data.queries[idx]
-            qh = lsh.bucket_ids(cfg, self.params, qv, data.r)
-            st = state(snap, bh)
-            got = judge_lib.judge(st, qv, qh, live, data.r,
-                                  _answer(res))
-            for k in ANSWER_CHECKS:
-                out[k] = max(out[k], got[k])
-            out["judged_queries"] += got["queries"]
-            for k in ("pairs_due", "pairs_reported", "misrouted",
-                      "doubtful_queries"):
-                out[k] += got[k]
-            held = snap.live_ext()
-            uniq = torch.unique(held)
-            out["state_mismatch"] = max(out["state_mismatch"], float(
-                live.mismatch(uniq) + held.numel() - uniq.numel()
-                + snap.layout()[2]))
-            if self.control:
-                qc = lsh.bucket_ids(cfg, self.params, qv, data.r, "tf32")
-                cans = judge_lib.control_answer(state(snap, ctl_bh), qv, qc,
-                                                live, data.r)
-                cgot = judge_lib.judge(st, qv, qh, live, data.r, cans)
-                for k in ANSWER_CHECKS:
-                    ctl[k] = max(ctl[k], cgot[k])
-                # only the distances below the configuration's precision
-                dans = judge_lib.control_answer(st, qv, qh, live, data.r)
-                dgot = judge_lib.judge(st, qv, qh, live, data.r, dans)
-                for k in ANSWER_CHECKS:
-                    key = k + "_distances_only"
-                    ctl[key] = max(ctl.get(key, 0.0), dgot[k])
-                # the route's own fault: the control with every route flipped
-                flip = judge_lib.judge(st, qv, qh, live, data.r,
-                                       dataclasses.replace(
-                                           cans, use_lsh=~cans.use_lsh))
-                ctl["route_gap_flipped"] = max(
-                    ctl.get("route_gap_flipped", 0.0), flip["route_gap"])
-            del st, res
-        self.kept = None
-        out["misroute_pct"] = 100.0 * out["misrouted"] / max(
-            out["judged_queries"], 1)
-        work = None
-        if self.trace:
-            work = {}
-            for idx, use, live, snap in self.trace_rounds[WORK_EVERY - 1::
-                                                          WORK_EVERY]:
-                qv = data.queries[idx]
-                qh = lsh.bucket_ids(cfg, self.params, qv, data.r)
-                w = judge_lib.batch_work(
-                    state(snap, bh), qv, qh, live, data.r,
-                    torch.as_tensor(use, device=qv.device))
-                for k, v in w.items():
-                    work[k] = v if k in ("d", "L", "m") else work.get(k, 0) + v
-            work = work or None
-        return {"checks": out, "control": ctl if self.control else None,
-                "work": work}
+    def check(self, left) -> Dict:
+        """The system's check of the judged rounds (and, traced, of every
+        ``WORK_EVERY``-th traced round); ``left`` is what ``close`` left."""
+        traced = (self.trace_rounds[WORK_EVERY - 1::WORK_EVERY]
+                  if self.trace else None)
+        kept, self.kept = self.kept, None
+        return self.sysmod.check(self.cfg, self.data, kept, traced,
+                                 self.control, left)
 
 
 def forbidden_modules():
@@ -345,7 +290,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     counters = run.system.counters()
     peak = (torch.cuda.max_memory_allocated(run.device)
             if run.device.type == "cuda" else 0)
-    run.system.close()
+    left = run.system.close()
     run.system = None
     gc.collect()
     if run.device.type == "cuda":
@@ -354,13 +299,16 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     window_s = run.t_close - run.t_open
     nq = n_batches * run.traffic.batch
     t = time.perf_counter()
-    ref = run.reference()
+    chk = run.check(left)
+    del left
     phases["reference_s"] = time.perf_counter() - t
-    checks = ref["checks"]
-    limits = run.spec["limits"]
-    compared = {k: {"value": checks[k], "limit": float(limits[k])}
-                for k in CHECKS if k in limits}
-    correct = (checks["judged_queries"] > 0
+    missing = sorted(set(run.spec["limits"]) - set(chk["compared"]))
+    if missing:
+        raise KeyError(f"limits {missing} of {name!r} name no number that "
+                       f"the {run.cfg['system']!r} check returns")
+    compared = {k: {"value": chk["compared"][k], "limit": float(v)}
+                for k, v in run.spec["limits"].items()}
+    correct = (chk["judged"] > 0
                and all(v["value"] <= v["limit"] for v in compared.values()))
     values = {"queries_per_s": nq / window_s,
               "batch_p95_ms": 1e3 * p95(run.batch_s),
@@ -377,9 +325,10 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
         for d in ts.get("round_device_s", [])[WORK_EVERY - 1::WORK_EVERY]:
             for k, v in d.items():
                 priced[k] += v
-        ctx = {"trace": ts, "work": ref["work"], "checks": checks,
+        ctx = {"trace": ts, "work": chk["work"],
+               "checks": {**chk["compared"], **chk["readings"]},
                "work_device_s": dict(priced),
-               "segments": run.segments,
+               **{k: [c[k] for c in run.round_counters] for k in counters},
                "config": run.cfg, "mix": run.mix}
         metrics = {}
         for m in run.spec["per_layer"]:
@@ -398,15 +347,12 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
                              for m in run.spec["end_to_end"]}
         result["device"] = device_info
     info = {"batches": n_batches, "window_s": window_s,
-            "warm_rounds": run.warm_rounds, "radius": run.data.r, **phases,
-            **{k: checks[k] for k in ("judged_queries", "pairs_due",
-                                      "pairs_reported", "doubtful_queries",
-                                      "misroute_pct")},
+            "warm_rounds": run.warm_rounds, **phases, **chk["info"],
             **counters}
     print("info " + json.dumps(info), file=err)
-    if ref["control"] is not None:
-        print("control " + json.dumps(ref["control"]), file=err)
-        result["control"] = ref["control"]
+    if chk["control"] is not None:
+        print("control " + json.dumps(chk["control"]), file=err)
+        result["control"] = chk["control"]
     for k, v in compared.items():
         print(f"check {k} {v['value']!r} limit {v['limit']!r}", file=err)
     result["checks"] = compared

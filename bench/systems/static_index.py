@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 
 from bench.reference.judge import Segment
+from bench.systems._index import (  # noqa: F401  (the cell's data, traffic, check)
+    Traffic, check, keep_traced, make_data)
 
 
 class Snapshot:
@@ -28,7 +30,7 @@ class Snapshot:
 
 
 class System:
-    def __init__(self, cfg: dict, data, params: dict, device):
+    def __init__(self, cfg: dict, data, device):
         from repro_torch.core.cost_model import CostModel
         from repro_torch.core.index import HybridLSHIndex
         from repro_torch.core.lsh.families import make_family
@@ -41,7 +43,7 @@ class System:
         self.index = HybridLSHIndex(
             self.family, num_buckets=cfg["num_buckets"], m=cfg["m"],
             cap=cfg["cap"], cost_model=CostModel(cfg["alpha"], cfg["beta"]),
-            params=params, device=device)
+            params=data.params, device=device)
         self.index.build(data.corpus)
         self.n = data.corpus.shape[0]
 

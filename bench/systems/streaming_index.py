@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 
 from bench.reference.judge import Segment
+from bench.systems._index import (  # noqa: F401  (the cell's data, traffic, check)
+    Traffic, check, keep_traced, make_data)
 
 
 def pad_rows(k: int) -> int:
@@ -64,7 +66,7 @@ class Snapshot:
 
 
 class System:
-    def __init__(self, cfg: dict, data, params: dict, device):
+    def __init__(self, cfg: dict, data, device):
         from repro_torch.core.cost_model import CostModel
         from repro_torch.core.lsh.families import make_family
         from repro_torch.streaming import CompactionPolicy, DynamicHybridIndex
@@ -82,7 +84,7 @@ class System:
                 delta_fill=pol["delta_fill"],
                 tombstone_ratio=pol["tombstone_ratio"],
                 fanout=pol["fanout"], step_rows=pol["step_rows"]),
-            params=params, device=device)
+            params=data.params, device=device)
         self.index.build(data.corpus)
 
     def query(self, q: torch.Tensor):

@@ -42,10 +42,28 @@ def test_cell_files_load_by_name(cell):
     assert spec["config"]["name"] == spec["cell"]["config"]
     assert spec["config"]["reduced"] == []
     assert spec["mix"]["batch_queries"] > 0
-    assert set(spec["limits"]) <= set(harness.CHECKS)
     names = {m["name"] for m in spec["end_to_end"]}
     assert {"setup_s", "queries_per_s", "batch_p95_ms"} <= names
     assert spec["per_layer"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_limits_name_what_the_check_returns(cell):
+    """Every limit is compared, and every number the check returns for
+    comparison has a limit: the names are the same set."""
+    from bench.lib import harness
+    from bench.tests import _tiny
+    returned = []
+
+    def spy(check):
+        def checking(*a, **k):
+            out = check(*a, **k)
+            returned.append(set(out["compared"]))
+            return out
+        return checking
+    with _tiny.wrapped("systems", "check", spy):
+        _tiny.run(cell, seconds=0)
+    assert returned == [set(harness.cell_spec(ROOT, cell)["limits"])]
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])

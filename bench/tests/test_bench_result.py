@@ -2,6 +2,7 @@
 boundary (no ``jax`` / ``repro`` in a run; no ``repro_torch`` in the
 reference)."""
 import ast
+import io
 import json
 import subprocess
 import sys
@@ -11,6 +12,8 @@ import pytest
 from bench.tests import _tiny
 
 ROOT = _tiny.ROOT
+PINNED = json.loads((ROOT / "bench" / "tests" / "pinned_tiny.json").read_text())
+MODES = {"plain": {}, "trace": {"trace": True}, "control": {"control": True}}
 
 
 @pytest.mark.parametrize("cell", ["webspam.wide", "covertype.read"])
@@ -73,3 +76,44 @@ def test_import_boundary_by_top_level_name():
         assert not tops & {"jax", "jaxlib", "flax", "repro"}, path
         if "reference" in path.parts:
             assert "repro_torch" not in tops, path
+
+
+def non_clock_values(cell: str, mode: str) -> dict:
+    """Every value of a tiny run that no clock sets: with no window
+    (``seconds=0``: one judged round, after the 8 warm-up rounds) the
+    rounds, so the judged and traced batches, follow from the seed alone.
+    The per-layer readers' context is taken as the harness hands it."""
+    seen = {}
+
+    def spy(read):
+        def reading(ctx):
+            seen.update(keys=sorted(ctx), checks=ctx["checks"],
+                        work=ctx["work"], segments=ctx["segments"])
+            return read(ctx)
+        return reading
+
+    err = io.StringIO()
+    with _tiny.wrapped("metrics", "read", spy):
+        res = _tiny.run(cell, seconds=0, err=err, **MODES[mode])
+    info = json.loads(next(ln[5:] for ln in err.getvalue().splitlines()
+                           if ln.startswith("info ")))
+    return {"correct": res["correct"], "attempted": res["attempted"],
+            "info": {k: info[k] for k in (
+                "batches", "warm_rounds", "radius", "judged_queries",
+                "pairs_due", "pairs_reported", "doubtful_queries",
+                "misroute_pct", "segments")},
+            "checks": {k: [v["value"], v["limit"]]
+                       for k, v in res["checks"].items()},
+            "control": res.get("control"),
+            "metrics": {k: v["value"] for k, v in res["metrics"].items()
+                        if k in ("misroute_pct", "segments_per_batch")},
+            "ctx": seen or None}
+
+
+@pytest.mark.parametrize("case", sorted(PINNED))
+def test_non_clock_values_are_pinned(case):
+    """The values recorded from the harness before it took its
+    index-specific parts out into ``bench/systems/_index.py``."""
+    cell, mode = case.split("/")
+    got = json.loads(json.dumps(non_clock_values(cell, mode)))
+    assert got == PINNED[case]
