@@ -14,9 +14,19 @@ its requests, the program under test and how its answers are judged)
 is the system module's.
 
 Adding a configuration with new files only: write its configuration
-file and its ``BENCHMARK.json`` entries, a traffic file, a limits file
-and, where no existing module fits, ``bench/systems/<system>.py``, which
-the harness loads by path from the root and asks for:
+file and its ``BENCHMARK.json`` entries, a traffic file (which names its
+requests a round ``batch_queries``), a limits file, its size for the
+CPU tests (``bench/tests/tiny/<config>.json``, shaped ``{"config":
+{...}, "mix": {...}}``, whose keys replace the files' own; a
+configuration without one fails its tests before any set-up) and, where
+no existing module fits, ``bench/systems/<system>.py``.  A configuration
+cut to fit lists each changed key in ``reduced``, as its
+``BENCHMARK.json`` entry does, gives the source's value of each in
+``published`` and says in ``deployment`` what share of the deployment
+it is, for a depth cut such as ``"num_hidden_layers": 10,
+"reduced": ["num_hidden_layers"], "published": {"num_hidden_layers":
+40}, "deployment": "pipeline stage 1 of 4"``.  The harness loads the
+system module by path from the root and asks it for:
 
 - ``make_data(cfg, mix, dep, gen)``: the cell's data (weights, corpus,
   query pool, parameters), from the deployment's generator ``dep``

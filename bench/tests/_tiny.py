@@ -1,5 +1,7 @@
 """Tiny sizes of the cells, for runs on the CPU against the port's plain
-path (the same configuration and mix files, scaled down)."""
+path (the same configuration and mix files, scaled down).  Each
+configuration brings its own: ``bench/tests/tiny/<config>.json``, shaped
+``{"config": {...}, "mix": {...}}``, whose keys replace the file's."""
 import contextlib
 import sys
 from pathlib import Path
@@ -9,19 +11,19 @@ for p in (str(ROOT / "src"), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-SMALL = {
-    "webspam": {"n": 3000, "query_pool": 256, "num_buckets": 1024},
-    "covertype": {"n": 4000, "query_pool": 256,
-                  "num_buckets": 1024, "delta_capacity": 128,
-                  "policy": {"delta_fill": 1.0, "tombstone_ratio": 0.25,
-                             "fanout": 4, "step_rows": 128}},
-}
 SEED = 12345678901
 
 
-def overrides(cell: str) -> dict:
-    return {"config": SMALL.get(cell.split(".")[0], {}),
-            "mix": {"batch_queries": 32}}
+def overrides(cell: str, root=ROOT) -> dict:
+    """The tiny size of ``cell``'s configuration, from ``root``.  A
+    configuration with no tiny file raises, so that a forgotten file fails
+    at once and not by a build at the full size."""
+    from bench.lib import harness
+    config = harness.cell_spec(root, cell)["cell"]["config"]
+    path = Path(root) / "bench" / "tests" / "tiny" / f"{config}.json"
+    if not path.is_file():
+        raise KeyError(f"no tiny size for {cell!r}: {path} is missing")
+    return harness.load_json(path)
 
 
 def run(cell: str, *, seconds: float = 0.3, trace: bool = False,
@@ -33,13 +35,14 @@ def run(cell: str, *, seconds: float = 0.3, trace: bool = False,
     import torch
 
     from bench.lib import harness
+    over = overrides(cell, root)
     saved = (torch.get_num_threads(), harness.TRACE_ROUNDS,
              harness.WORK_EVERY, harness.WARM_SECONDS)
     torch.set_num_threads(1)        # tests run beside others, many at once
     harness.TRACE_ROUNDS, harness.WORK_EVERY, harness.WARM_SECONDS = 4, 2, 0.0
     try:
         return harness.run_cell(root, cell, seed, seconds, trace, "cpu",
-                                overrides=overrides(cell), control=control,
+                                overrides=over, control=control,
                                 err=io.StringIO() if err is None else err)
     finally:
         torch.set_num_threads(saved[0])

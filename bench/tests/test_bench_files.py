@@ -35,20 +35,34 @@ def test_names_units_and_bounds():
     assert len(pairs) == len(CELLS) == len(set(CELLS))
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_cell_files_load_by_name(cell):
+def check_cell_files(root, cell):
+    """The cell's files load by name from ``root``, and its configuration's
+    cut is written down: ``reduced`` as in ``BENCHMARK.json``, each name a
+    key of the file with the source's own value in ``published``, and a
+    ``deployment`` that says what share of the deployment the cut is."""
     from bench.lib import harness
-    spec = harness.cell_spec(ROOT, cell)
-    assert spec["config"]["name"] == spec["cell"]["config"]
-    assert spec["config"]["reduced"] == []
+    bench = harness.load_json(root / "BENCHMARK.json")
+    spec = harness.cell_spec(root, cell)
+    cfg = spec["config"]
+    entry = next(c for c in bench["configs"]
+                 if c["name"] == spec["cell"]["config"])
+    assert cfg["name"] == entry["name"]
+    assert cfg["reduced"] == entry["reduced"]
+    published = cfg.get("published", {})
+    for key in cfg["reduced"]:
+        assert key in cfg, key
+        assert key in published, key
+        assert published[key] != cfg[key], key
+    if cfg["reduced"]:
+        dep = cfg.get("deployment")
+        assert isinstance(dep, str) and re.search(r"chip|stage", dep), dep
     assert spec["mix"]["batch_queries"] > 0
     names = {m["name"] for m in spec["end_to_end"]}
     assert {"setup_s", "queries_per_s", "batch_p95_ms"} <= names
     assert spec["per_layer"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_limits_name_what_the_check_returns(cell):
+def check_limits_returned(root, cell):
     """Every limit is compared, and every number the check returns for
     comparison has a limit: the names are the same set."""
     from bench.lib import harness
@@ -62,8 +76,18 @@ def test_limits_name_what_the_check_returns(cell):
             return out
         return checking
     with _tiny.wrapped("systems", "check", spy):
-        _tiny.run(cell, seconds=0)
-    assert returned == [set(harness.cell_spec(ROOT, cell)["limits"])]
+        _tiny.run(cell, seconds=0, root=root)
+    assert returned == [set(harness.cell_spec(root, cell)["limits"])]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_files_load_by_name(cell):
+    check_cell_files(ROOT, cell)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_limits_name_what_the_check_returns(cell):
+    check_limits_returned(ROOT, cell)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])

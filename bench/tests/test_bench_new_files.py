@@ -1,12 +1,14 @@
 """A configuration added with new files only: a temporary root holds the
 repo's ``bench/`` as it is, plus a configuration and its
-``BENCHMARK.json`` entries, a system module, a traffic file and a limits
-file that this test writes.  Its system is a toy retrieval encoder:
-token rows of varying lengths, mean-pooled over each row's own tokens by
-a seeded embedding table, normalised, and served from the port's static
-index; its check holds the program's embeddings to a plain encoder
-(``embed_gap``) and judges r-NN on the program's own corpus with
-``bench/reference/judge.py``."""
+``BENCHMARK.json`` entries, a system module, a traffic file, a limits
+file and a tiny size for the CPU that this test writes.  The
+configuration is a cut one (its corpus held below the ``published``
+count), and the repo's own per-cell checks pass on it.  Its system is a
+toy retrieval encoder: token rows of varying lengths, mean-pooled over
+each row's own tokens by a seeded embedding table, normalised, and
+served from the port's static index; its check holds the program's
+embeddings to a plain encoder (``embed_gap``) and judges r-NN on the
+program's own corpus with ``bench/reference/judge.py``."""
 import filecmp
 import io
 import json
@@ -16,17 +18,22 @@ import pytest
 import torch
 
 from bench.tests import _tiny
+from bench.tests.test_bench_files import (check_cell_files,
+                                          check_limits_returned)
 
 CELL = "toy_encoder.tokens"
 
 CONFIG = {
     "name": "toy_encoder", "system": "toy_encoder",
-    "deployment_seed": 20160619, "vocab": 512, "d": 48, "n": 1500,
+    "deployment_seed": 20160619, "vocab": 512, "d": 48, "n": 20000,
     "doc_tokens": [6, 40], "query_pool": 96, "metric": "cosine",
     "family": "simhash", "L": 12, "delta": 0.1, "num_buckets": 1024,
     "m": 64, "cap": 128, "alpha": 1.0, "beta": 10.0,
     "precision": "float32 embeddings, projections and distances",
-    "reduced": []}
+    "reduced": ["n"], "published": {"n": 1000000},
+    "deployment": "one chip holds the whole index, its corpus cut from the "
+                  "published count"}
+TINY = {"config": {"n": 1500}, "mix": {"batch_queries": 32}}
 MIX = {"batch_queries": 16, "query_tokens": [3, 24], "radius_quantile": 0.02}
 LIMITS = {"embed_gap": 1e-5, "report_gap": 1e-3, "distance_gap": 3e-5,
           "route_gap": 1e-3, "collision_excess": 0, "estimate_gap": 1e-3}
@@ -161,25 +168,31 @@ def check(cfg, data, judged, traced, control, left):
 '''
 
 
-def _root(tmp_path, limits=LIMITS):
-    """The repo's ``bench/`` and ``BENCHMARK.json`` plus the new files."""
+def _root(tmp_path, limits=LIMITS, config=CONFIG, tiny=TINY):
+    """The repo's ``bench/`` and ``BENCHMARK.json`` plus the new files
+    (without a tiny size where ``tiny`` is None)."""
     root = tmp_path / "root"
     shutil.copytree(_tiny.ROOT / "bench", root / "bench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((_tiny.ROOT / "BENCHMARK.json").read_text())
     bench["configs"].append({
         "name": "toy_encoder", "source": "https://arxiv.org/abs/1607.06179",
-        "file": "bench/configs/toy_encoder.json", "reduced": [],
+        "file": "bench/configs/toy_encoder.json", "reduced": ["n"],
         "why": "a test-only encoder: token rows mean-pooled into cosine rows"})
     bench["workloads"].append({
         "name": CELL, "config": "toy_encoder", "traffic": "toy_tokens",
         "chips": 1, "why": "16 token rows of 3-24 tokens a round, encoded "
                            "and served from the static index"})
+    for m in bench["per_layer"]:
+        if m["name"] == "device_idle_pct":
+            m["workloads"].append(CELL)
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    new = {"bench/configs/toy_encoder.json": json.dumps(CONFIG),
+    new = {"bench/configs/toy_encoder.json": json.dumps(config),
            "bench/traffic/toy_tokens.json": json.dumps(MIX),
            f"bench/limits/{CELL}.json": json.dumps(limits),
            "bench/systems/toy_encoder.py": SYSTEM}
+    if tiny is not None:
+        new["bench/tests/tiny/toy_encoder.json"] = json.dumps(tiny)
     for rel, text in new.items():
         assert not (root / rel).exists()
         (root / rel).write_text(text)
@@ -236,3 +249,32 @@ def test_a_limit_the_check_does_not_return_raises(tmp_path):
     root, _ = _root(tmp_path, {**LIMITS, "tokens_gap": 0})
     with pytest.raises(KeyError, match="tokens_gap"):
         _tiny.run(CELL, root=root)
+
+
+def test_the_repos_per_cell_checks_pass_on_the_cut_toy(tmp_path):
+    root, new = _root(tmp_path)
+    _only_new_files(root, new)
+    assert "bench/tests/tiny/toy_encoder.json" in new
+    check_cell_files(root, CELL)
+    check_limits_returned(root, CELL)
+
+
+def test_a_configuration_without_a_tiny_size_raises_before_set_up(tmp_path):
+    root, _ = _root(tmp_path, tiny=None)
+    made = []
+
+    def spy(make_data):
+        def making(*a, **k):
+            made.append(1)
+            return make_data(*a, **k)
+        return making
+    with _tiny.wrapped("systems", "make_data", spy):
+        with pytest.raises(KeyError, match="tiny/toy_encoder.json"):
+            _tiny.run(CELL, root=root)
+    assert made == []
+
+
+def test_a_cut_without_the_published_value_fails_the_file_check(tmp_path):
+    root, _ = _root(tmp_path, config={**CONFIG, "published": {}})
+    with pytest.raises(AssertionError, match="'n'"):
+        check_cell_files(root, CELL)
