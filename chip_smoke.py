@@ -19,6 +19,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      SimHash at d = 254, k = 8, 40, 70; p-stable L1 at d = 54, k = 8):
      bit-equal ids, one launch a call, its ms, device ms and bound, and
      ``bucket_ids``' ms, host ms and device ops on both paths;
+  2c. the delta's collision test kernel (``phase_delta_collide``) beside
+     its plain chain and the full-capacity chain at the CoverType batch
+     against a delta of 8,192 slots holding 0, 1,024 and 8,192 rows, one
+     and four probes a table: counts and masks bit-equal, launches, ms,
+     device ms and bound;
   3. ``calibrate`` on the card for cosine (d = 254), l2 (d = 32) and l1
      (d = 54): beta/alpha beside the paper's presets, the distance
      kernel's launches inside each call (K6 or K7, a warm-up and 5);
@@ -246,8 +251,9 @@ class Smoke:
     def __init__(self):
         import numpy as np
         import torch
-        from repro_torch.kernels import (bucket_hash, distances, fused_scan,
-                                         hamming, hll_merge, simhash)
+        from repro_torch.kernels import (bucket_hash, delta_collide,
+                                         distances, fused_scan, hamming,
+                                         hll_merge, simhash)
         self.np, self.torch = np, torch
         self.dev = torch.device("cuda")
         self.counters = {"linear_scan_dot": fused_scan.linear_scan_dot,
@@ -261,7 +267,8 @@ class Smoke:
                          "pairwise_l1": distances.pairwise_l1,
                          "hamming": hamming.hamming,
                          "simhash": simhash.simhash,
-                         "bucket_hash": bucket_hash.bucket_hash}
+                         "bucket_hash": bucket_hash.bucket_hash,
+                         "delta_collide": delta_collide.delta_collide}
         name = torch.cuda.get_device_name(0)
         self.bw, self.fp32, self.tf32, self.bf16 = PEAKS[
             "pcie" if "PCIe" in name else "sxm"]
@@ -383,7 +390,8 @@ class Smoke:
 
 
 # ---------------------------------------------------------------------------
-SOURCES = ("hll_merge", "fused_scan", "simhash", "bucket_hash")
+SOURCES = ("hll_merge", "fused_scan", "simhash", "bucket_hash",
+           "delta_collide")
 
 
 def phase_build(s: Smoke):
@@ -710,6 +718,90 @@ def phase_bucket_hash(s: Smoke):
     return rows
 
 
+# the delta's collision test at the CoverType batch against a delta of
+# 8,192 slots: probes a table (1: p-stable, V = 20; 4: SimHash's
+# multi-probe, V = 80) by the rows the delta holds
+DELTA_COLLIDE_PROBES = {"single probe": 1, "multi-probe T=4": 4}
+DELTA_COLLIDE_COUNTS = (0, 1024, 8192)
+
+
+def phase_delta_collide(s: Smoke):
+    """The delta's collision test kernel (``csrc/delta_collide.cu``)
+    beside its plain chain at the CoverType cell's batch (1,024 queries,
+    L = 20, ``torch_cases.DELTA_FULL``'s delta of 8,192 slots, bucket ids
+    from 64 values so that queries collide) holding 0, 1,024 and 8,192
+    rows, single-probe and with 4 probes a table: both modes bit-equal to
+    the plain chain over the rows held and to the full-capacity chain
+    (every slot: what the port ran before the kernel); one launch a call
+    with rows, none without (``Smoke.path``); the kernel's ms (events)
+    and device ms (graph replay), L2 flushed, beside its bound (the
+    compares, one integer instruction each at the CUDA cores' 33.5 T a
+    second, or the bytes: buckets, live flags and outputs once); the
+    plain chain's and the full-capacity chain's ms.  Logs a
+    ``[delta_collide]`` JSON line; returns the rows by shape (the kernel
+    table's row: single probe, 8,192 rows, counts)."""
+    torch, dev = s.torch, s.dev
+    from repro_torch.kernels import ops
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_cases import DELTA_FULL, delta_case, delta_full_chain
+    C, L, nq = DELTA_FULL["C"], DELTA_FULL["L"], DELTA_FULL["nq"]
+    rows = {}
+    for ptag, probes in DELTA_COLLIDE_PROBES.items():
+        for n in DELTA_COLLIDE_COUNTS:
+            delta, _, qb, tidx = delta_case(n, probes, dev, seed=n,
+                                            **DELTA_FULL)
+            rb, live = delta.bucket_ids[:n], delta.live[:n]
+            v = qb.shape[1]
+            for mode in ("counts", "mask"):
+                def kernel(mode=mode):
+                    return ops.delta_collide(qb, rb, live, tidx, mode)
+
+                def plain(mode=mode):
+                    return ops.delta_collide(qb, rb, live, tidx, mode,
+                                             impl="ref")
+
+                def full(mode=mode):
+                    return delta_full_chain(delta, qb, tidx, mode)
+                tag = f"{ptag} n={n} {mode}"
+                got, launches = s.path(kernel)
+                assert launches == {c: int(c == "delta_collide" and n > 0)
+                                    for c in launches}, (tag, launches)
+                want, was = plain(), full()
+                if mode == "mask":
+                    assert torch.equal(got, want), tag
+                    assert torch.equal(got, was[:, :n]), tag
+                else:
+                    for a, b, c in zip(got, want, was):
+                        assert torch.equal(a, b) and torch.equal(a, c), tag
+                nbytes = (4 * nq * v + 4 * n * L + n
+                          + (0 if tidx is None else 4 * v)
+                          + (nq * n if mode == "mask" else 8 * nq))
+                bound, by = s.bound_ms(nbytes, nq * n * v, rate=s.fp32 / 2)
+                rows[tag] = {
+                    "ms": s.cuda_ms(kernel),
+                    "device_ms": s.graph_ms(kernel) if n else None,
+                    "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                    "compares": nq * n * v, "max_abs_err": 0,
+                    "max_abs_err_unit": "counts or mask entries that "
+                                        "differ from the plain chain",
+                    "plain_ms": s.cuda_ms(plain),
+                    "full_capacity_ms": s.cuda_ms(full), "library_ms": None,
+                    "launches_a_call": launches["delta_collide"],
+                    "hits": int(got.sum() if mode == "mask"
+                                else got[0].sum()),
+                    "shape": f"Q={nq} n={n} of C={C} V={v} L={L} {mode}"}
+                r = rows[tag]
+                log(f"[delta_collide] {tag}: kernel {r['ms']:.4f} ms "
+                    f"(device {r['device_ms']}), bound {bound:.2g} ({by}); "
+                    f"plain {r['plain_ms']:.4f} ms over the rows held, "
+                    f"{r['full_capacity_ms']:.4f} ms over all {C + 1} slots")
+                del got, want, was
+            del delta, qb, rb, live
+            torch.cuda.empty_cache()
+    log("[delta_collide] " + json.dumps(rows))
+    return rows
+
+
 def simhash_edge_cases(s, rng):
     """K9 on the GPU tests' ``SIMHASH_CASES`` (``tests/torch_cases.py``):
     the loader the plan picks, one launch, bits within the band of the
@@ -960,48 +1052,70 @@ LINEAR_KERNEL = {"l2": "linear_scan_dot", "cosine": "linear_scan_dot",
 
 
 def check_path_launches(launches, n_lsh, n_linear, metric, what,
-                        delta=False):
+                        delta_rows=0, traced=0):
     """Each kernel launches on a path exactly when that path has work for
     it: K3 (``route_estimate``, over all segments) and the bucket hash
     (the query batch's ids) exactly once a batch; K2 when queries go to
-    LSH; the metric's linear scan when queries go
-    to the linear scan or, on a streaming index (``delta``), on every
-    path (the delta scan) -- for Hamming (K5, over all segments) exactly
-    once a linear group and once for the delta of an LSH group; no other
-    kernel ever."""
+    LSH; the metric's linear scan when queries go to the linear scan or,
+    on a streaming index whose delta holds rows (``delta_rows``), on
+    every path (the delta scan) -- for Hamming (K5, over all segments)
+    exactly once a linear group and once for the delta of an LSH group;
+    with delta rows, the delta's collision test once for its counts, once
+    for an LSH group's mask and once more in a ``traced`` batch (its
+    candidate count); no other kernel ever (an empty delta launches
+    nothing)."""
     lin = LINEAR_KERNEL[metric]
+    held = delta_rows > 0
     want = {k: 0 for k in launches}       # None: at least one launch
     want.update({"route_estimate": 1, "bucket_hash": 1,
-                 "lsh_scan": None if n_lsh else 0})
+                 "lsh_scan": None if n_lsh else 0,
+                 "delta_collide": int(held) * (1 + int(n_lsh > 0) + traced)})
     if metric == "hamming":
-        want[lin] = int(n_linear > 0) + int(delta and n_lsh > 0)
+        want[lin] = int(n_linear > 0) + int(held and n_lsh > 0)
     else:
-        want[lin] = None if n_linear > 0 or delta else 0
+        want[lin] = None if n_linear > 0 or held else 0
     for k, w in want.items():
         got = launches[k]
         assert (got > 0) if w is None else got == w, (
             f"{what}: kernel {k} launched {got} times with {n_lsh} queries "
-            f"routed to LSH and {n_linear} to the linear scan")
+            f"routed to LSH, {n_linear} to the linear scan and {delta_rows} "
+            f"rows in the delta")
+
+
+def traced_batches(idx):
+    """Query batches the index's tracer has traced (a traced batch counts
+    its candidates, the delta's collision test once more)."""
+    tracer = idx._engine.tracer
+    return 0 if tracer is None else tracer.summary()["batches_traced"]
 
 
 def query_paths(s: Smoke, idx, q_np, r, metric, tag, delta=False):
     """Query force None / "lsh" / "linear" through the kernels, the
     launch counts set to 0 just before each path and read just after
-    it.  Returns the results and the per-path launch counts."""
+    it (``delta``: a streaming index, whose delta's rows count).
+    Returns the results and the per-path launch counts, those of the
+    delta's collision test as an untraced batch makes them (a batch the
+    index's tracer samples runs it once more, for its candidate count)."""
     torch = s.torch
     nq = len(q_np)
-    res, launches = {}, {}
+    rows = idx.delta.count if delta else 0
+    res, launches, traced = {}, {}, {}
     for f, path in PATHS.items():
+        t0 = traced_batches(idx)
         s.reset()
         res[f] = idx.query(q_np, r, force=f)
         torch.cuda.synchronize()
         launches[path] = s.read()
+        traced[path] = traced_batches(idx) - t0
     n_lsh = len(res[None].lsh_idx)
     check_path_launches(launches["hybrid"], n_lsh, nq - n_lsh, metric,
-                        f"{tag} hybrid", delta)
-    check_path_launches(launches["lsh"], nq, 0, metric, f"{tag} lsh", delta)
+                        f"{tag} hybrid", rows, traced["hybrid"])
+    check_path_launches(launches["lsh"], nq, 0, metric, f"{tag} lsh", rows,
+                        traced["lsh"])
     check_path_launches(launches["linear"], 0, nq, metric, f"{tag} linear",
-                        delta)
+                        rows, traced["linear"])
+    for path, n in traced.items():       # as an untraced batch launches
+        launches[path]["delta_collide"] -= n * int(rows > 0)
     return res, launches
 
 
@@ -2180,42 +2294,50 @@ def drive_tenants(s: Smoke, x_np, q_np, fam, r, kw, tag, seed=3):
 SHARDS = 4
 
 
-def check_sharded_launches(launches, used, metric, what, delta):
+def check_sharded_launches(launches, used, metric, what, delta_rows):
     """A sharded path's launches, summed over the shards: K3's terms mode
     (``route_terms``) once a shard (one launch covers a shard's levels),
     K3's estimate mode never; K2 at least once for each shard routed LSH
     and never without one; the metric's linear scan (K1 or K4) at least
-    once for each shard routed linear and, on a streaming index
-    (``delta``), once more a shard for its delta; the bucket hash once a
-    device that holds a shard (the queries are hashed once a device:
-    between 1 and S launches); no other kernel."""
+    once for each shard routed linear and, on a streaming index, once
+    more for each shard whose delta holds rows (``delta_rows``, a shard's
+    rows, or None); the delta's collision test once for each such delta's
+    counts and once more where its shard is routed LSH; the bucket hash
+    once a device that holds a shard (the queries are hashed once a
+    device: between 1 and S launches); no other kernel."""
     S, n_lsh = len(used), int(sum(used))
+    held = [n > 0 for n in delta_rows or [0] * S]
     lin = LINEAR_KERNEL[metric]
     for k, got in launches.items():
-        if k == "route_terms":
+        if k == "delta_collide":
+            ok = got == sum(held) + sum(h and u for h, u in zip(held, used))
+        elif k == "route_terms":
             ok = got == S
         elif k == "bucket_hash":
             ok = 1 <= got <= S
         elif k == "lsh_scan":
             ok = got >= n_lsh and (got > 0) == (n_lsh > 0)
         elif k == lin:
-            need = (S - n_lsh) + (S if delta else 0)
+            need = (S - n_lsh) + sum(held)
             ok = got >= need and (got > 0) == (need > 0)
         else:
             ok = got == 0
         assert ok, (f"{what}: kernel {k} launched {got} times with the shards "
-                    f"routed {['lsh' if u else 'linear' for u in used]}")
+                    f"routed {['lsh' if u else 'linear' for u in used]} and "
+                    f"delta rows {delta_rows}")
 
 
 def sharded_paths(s: Smoke, idx, q, r, metric, tag, delta):
     """Query force None / "lsh" / "linear" through the kernels, the counts
     set to 0 just before each path and read just after it
-    (``check_sharded_launches``).  Returns results and launches."""
+    (``check_sharded_launches``; ``delta``: a streaming index, whose
+    deltas' rows count).  Returns results and launches."""
+    rows = idx.index_stats()["delta_per_shard"] if delta else None
     res, launches = {}, {}
     for f, path in PATHS.items():
         res[f], launches[path] = s.path(lambda: idx.query(q, r, force=f))
         check_sharded_launches(launches[path], res[f].used_lsh, metric,
-                               f"{tag} {path}", delta)
+                               f"{tag} {path}", rows)
     return res, launches
 
 
@@ -3105,7 +3227,10 @@ def drive_retrieval(s: Smoke, by_path):
         assert sorted(out) == sorted(uids)
         return out, uids
 
+    t0 = traced_batches(svc.index)
     (out, uids), launches = s.path(drain_pass)
+    held = int(svc.index.delta.count > 0)     # untraced, as below
+    launches["delta_collide"] -= held * (traced_batches(svc.index) - t0)
     groups = len(recorded)
     by_path["retrieval drain"] = {"drain": launches}
     where = {}
@@ -3117,10 +3242,14 @@ def drive_retrieval(s: Smoke, by_path):
     # against its route split, and the drain's equal to their sum
     k_sets, p_sets, summed = [], [], dict.fromkeys(launches, 0)
     for g, (toks, e) in enumerate(recorded):
+        t0 = traced_batches(svc.index)
         res, lg = s.path(lambda: svc.index.query(e, radii[1]))
         n_lsh = len(res.lsh_idx)
+        traced = traced_batches(svc.index) - t0
         check_path_launches(lg, n_lsh, len(e) - n_lsh, "cosine",
-                            f"retrieval drain batch {g}", delta=True)
+                            f"retrieval drain batch {g}",
+                            svc.index.delta.count, traced)
+        lg["delta_collide"] -= held * traced
         summed = {k: v + lg[k] for k, v in summed.items()}
         k_sets.append(res.neighbor_sets())
         p_sets.append(plain.query(e, radii[1]).neighbor_sets())
@@ -4847,6 +4976,7 @@ def main() -> int:
     phase_build(s)
     phase_edge_cases(s)
     bucket_hash_rows = phase_bucket_hash(s)
+    delta_collide_rows = phase_delta_collide(s)
     by_path = {}
     calibrated, at_probe = phase_calibrate(s, by_path)
 
@@ -5093,6 +5223,10 @@ def main() -> int:
     # front), the other shapes beside it
     timings["bucket_hash"] = dict(bucket_hash_rows["covertype d=54 k=8"],
                                   by_shape=bucket_hash_rows)
+    # the delta's collision test: counts over a full delta, single probe
+    timings["delta_collide"] = dict(
+        delta_collide_rows["single probe n=8192 counts"],
+        by_shape=delta_collide_rows)
     csrc = "src/repro_torch/kernels/csrc/"
     main_paths = {
         "linear_scan_dot": (f"webspam q{mixed}", "hybrid"),
@@ -5106,6 +5240,7 @@ def main() -> int:
         "hamming": ("mnist hamming_dist", "ops"),
         "simhash": (f"webspam q{mixed} simhash_fingerprint", "ops"),
         "bucket_hash": (f"covertype q{i3} churned", "hybrid"),
+        "delta_collide": (f"covertype q{i3} churned", "hybrid"),
     }
     src = {"linear_scan_dot": (csrc + "fused_scan.cu",
                                "src/repro/kernels/fused_scan.py:145"),
@@ -5128,7 +5263,10 @@ def main() -> int:
            "simhash": (csrc + "simhash.cu", "src/repro/kernels/simhash.py:34"),
            "bucket_hash": (csrc + "bucket_hash.cu",
                            "none: XLA fused the jnp chain of "
-                           "src/repro/core/lsh/families.py:65")}
+                           "src/repro/core/lsh/families.py:65"),
+           "delta_collide": (csrc + "delta_collide.cu",
+                             "none: XLA fused the jnp chain of "
+                             "src/repro/streaming/delta.py:141,158")}
     kernels = []
     for name, (source, replaces) in src.items():
         t = timings[name]

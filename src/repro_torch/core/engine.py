@@ -314,8 +314,16 @@ def compact_results(ids: torch.Tensor, dists: torch.Tensor,
     whenever the true output size <= max_out).  Among equal distances
     the lower column comes first, as ``lax.top_k`` orders them: a stable
     ascending sort, not ``torch.topk``, whose order of ties is not
-    specified.
+    specified.  Fewer than ``max_out`` columns (a delta searched over the
+    few rows it holds) are padded with masked slots, as a segment's
+    masked columns read: ``EXT_SENTINEL``, inf, False.
     """
+    pad = max_out - dists.shape[-1]
+    if pad > 0:
+        ids, dists, mask = (
+            torch.cat([t, t.new_full(t.shape[:-1] + (pad,), v)], dim=-1)
+            for t, v in ((ids, EXT_SENTINEL), (dists, float("inf")),
+                         (mask, False)))
     key = torch.where(mask, dists, torch.full_like(dists, float("inf")))
     srt, pos = torch.sort(key, dim=-1, stable=True)
     srt, pos = srt[..., :max_out], pos[..., :max_out]

@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels import delta_collide as _dc
 from repro_torch.kernels import distances as _dist
 from repro_torch.kernels import fused_scan as _fs
 from repro_torch.kernels import hamming as _ham
@@ -28,7 +29,8 @@ from repro_torch.u32 import as_i32, as_u32
 __all__ = ["pairwise_dist", "hamming_dist", "simhash_fingerprint",
            "hll_merge_estimate", "pad_to", "metric_radius_transform",
            "fused_linear_scan", "fused_lsh_scan", "fused_lsh_scan_unsorted",
-           "grouped_linear_scan", "route_estimate", "route_terms", "ScanPart",
+           "grouped_linear_scan", "route_estimate", "route_terms",
+           "delta_collide", "ScanPart",
            "TableTerms",
            "resolve_impl"]
 
@@ -307,3 +309,20 @@ def route_terms(qbuckets: torch.Tensor, tables: Sequence[TableTerms],
     return _hllm.route_terms(
         qbuckets.to(torch.int32).contiguous(), tables,
         None if tidx is None else tidx.to(torch.int32).contiguous())
+
+
+def delta_collide(qbuckets: torch.Tensor, rows: torch.Tensor,
+                  live: torch.Tensor, tidx: Optional[torch.Tensor] = None,
+                  mode: str = "counts", impl: Optional[str] = None):
+    """The streaming delta's collision test over the n rows it holds:
+    (Q, V) query buckets, the rows' (n, L) bucket ids and (n,) live flags,
+    ``tidx`` the (V,) column -> table map under multi-probe.  ``"counts"``
+    -> (collisions, distinct), each (Q,) int32 and exact; ``"mask"`` ->
+    (Q, n) bool, the live rows equal to the query in a probed column.  On
+    CUDA one launch (``delta_collide.delta_collide``), none for n = 0;
+    the plain version is ``ref.delta_collide``."""
+    if resolve_impl(impl, qbuckets.device) == "ref":
+        return _ref.delta_collide(qbuckets, rows, live, tidx, mode)
+    return _dc.delta_collide(
+        qbuckets.to(torch.int32).contiguous(), rows, live,
+        None if tidx is None else tidx.to(torch.int32).contiguous(), mode)

@@ -251,6 +251,25 @@ def route_estimate(qbuckets: torch.Tensor, tables: Sequence[TableTerms],
     return coll, cand
 
 
+def delta_collide(qbuckets: torch.Tensor, rows: torch.Tensor,
+                  live: torch.Tensor, tidx: Optional[torch.Tensor] = None,
+                  mode: str = "counts"):
+    """The delta's collision test over its n held rows: (Q, V) query
+    buckets against the rows' (n, L) buckets (column v probes table
+    ``tidx[v]``, or v) and their (n,) ``live`` flags -> ``"counts"``:
+    (collisions, distinct), each (Q,) int32, the live (row, column)
+    equalities and the live rows equal in a column; ``"mask"``: (Q, n)
+    bool, live and equal in a column.  The chain of the reference's
+    ``streaming/delta.py`` (a (Q, n, V) bool tensor) on the rows given."""
+    rb = rows if tidx is None else rows[:, tidx.to(torch.int64)]
+    hit = qbuckets[:, None, :].to(torch.int32) == rb[None, :, :]
+    if mode == "mask":
+        return torch.any(hit, dim=-1) & live[None, :]
+    hit = hit & live[None, :, None]
+    return (torch.sum(hit, dim=(1, 2), dtype=torch.int32),
+            torch.sum(torch.any(hit, dim=-1), dim=1, dtype=torch.int32))
+
+
 def scan_epilogue(ids: torch.Tensor, dists: torch.Tensor, mask: torch.Tensor,
                   live: Optional[torch.Tensor], ext: Optional[torch.Tensor]):
     """A segment's linear-scan buffers (Q, n), row n in column n -> what
@@ -276,7 +295,10 @@ def grouped_linear_scan(q: torch.Tensor, parts: Sequence[ScanPart], thresh,
 
 
 def concat_columns(parts):
-    """Concatenate per-segment ``(ids, dists, mask)`` along columns."""
+    """Concatenate per-segment ``(ids, dists, mask)`` along columns.  A
+    part with no columns (an empty delta's) is left out, so a single
+    part with columns comes back as it is, not copied."""
+    parts = [p for p in parts if p[0].shape[-1]] or parts[:1]
     if len(parts) == 1:
         return parts[0]
     return tuple(torch.cat([p[i] for p in parts], dim=-1) for i in range(3))

@@ -60,10 +60,13 @@ INDEX_STATS_KEYS = frozenset({
     "inserts", "deletes", "work_seconds"}) | COMPACTION_STATS_KEYS
 
 # the port's index_stats() beyond the reference's keys: the query
-# engine's counters (QueryEngine.stats) and the last build's seconds;
-# HybridLSHIndex.index_stats() has only these, and RetrievalService.stats
-# leaves them out, so its keys stay the reference's
-ENGINE_STATS_KEYS = frozenset({"query", "build_seconds"})
+# engine's counters (QueryEngine.stats), the last build's seconds and, of
+# the streaming indexes, how query batches met the delta
+# (streaming.delta.DeltaCounters); HybridLSHIndex.index_stats() has only
+# the first two, and RetrievalService.stats leaves them all out, so its
+# keys stay the reference's
+ENGINE_STATS_KEYS = frozenset({"query", "build_seconds",
+                               "delta_kernel_batches", "delta_empty_batches"})
 
 SHARDED_INDEX_EXTRA_KEYS = frozenset({
     "shards", "level_n_pads", "live_per_shard", "delta_per_shard",

@@ -17,7 +17,10 @@ building the query's segment list reads no device scalar.  Queries treat
 the delta as a small exact segment: per-table equality against
 ``bucket_ids`` replaces the CSR walk, and the counts are exact — they
 drop for free when ``live`` flips off, which is why the delta needs no
-sketch.
+sketch.  Queries read only the ``count`` rows written (``insert``
+appends, so no later slot is ever live): on CUDA the equality test is
+one launch of ``kernels/csrc/delta_collide.cu``, and an empty delta
+launches nothing and adds no columns.
 """
 from __future__ import annotations
 
@@ -27,12 +30,13 @@ from typing import Optional
 import torch
 
 from repro_torch.core.engine import SegmentEstimate
+from repro_torch.kernels import delta_collide as _dc
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import scan_epilogue
 from repro_torch.obs.spans import span
 
-__all__ = ["DeltaSegment", "DeltaView", "make_delta", "insert", "kill",
-           "collision_stats", "search"]
+__all__ = ["DeltaSegment", "DeltaView", "DeltaCounters", "make_delta",
+           "insert", "kill", "collision_stats", "search"]
 
 
 @dataclasses.dataclass
@@ -110,7 +114,8 @@ class DeltaView:
 
     def estimate_terms(self, qbuckets: torch.Tensor) -> SegmentEstimate:
         with span("hlsh.delta.counts"):
-            coll, dist = collision_stats(self.delta, qbuckets, tidx=self.tidx)
+            coll, dist = collision_stats(self.delta, qbuckets,
+                                         tidx=self.tidx, impl=self.impl)
         return SegmentEstimate(collisions=coll, cand_exact=dist,
                                n_live=self.n_live, n_scan=self.n_scan)
 
@@ -124,67 +129,88 @@ class DeltaView:
                                  None, self.delta.ids)
 
     def scan_part(self) -> ops.ScanPart:
-        """What ``ops.grouped_linear_scan`` scans of the delta: all C + 1
-        rows, masked by ``live``, reported by external id."""
+        """What ``ops.grouped_linear_scan`` scans of the delta: the
+        ``count`` rows written, masked by ``live``, reported by external
+        id."""
         d = self.delta
-        return ops.ScanPart(d.x, d.live, d.ids)
+        return ops.ScanPart(d.x[:d.count], d.live[:d.count],
+                            d.ids[:d.count])
 
     def count_candidates(self, qbuckets: torch.Tensor) -> torch.Tensor:
         """(Q,) distinct colliding delta rows — exact, the delta keeps
         no sketches and its LSH route has no gather cap."""
         with span("hlsh.delta.counts"):
-            return collision_stats(self.delta, qbuckets, tidx=self.tidx)[1]
+            return collision_stats(self.delta, qbuckets, tidx=self.tidx,
+                                   impl=self.impl)[1]
 
 
-def _row_buckets(delta: DeltaSegment,
-                 tidx: Optional[torch.Tensor]) -> torch.Tensor:
-    """(C + 1, V) per-row buckets aligned with the qbuckets columns.
+@dataclasses.dataclass
+class DeltaCounters:
+    """How a streaming index's query batches met their deltas, in host
+    ints (``index_stats()``): ``delta_kernel_batches``, the batches whose
+    delta counts launched the collision test kernel (its wrapper's
+    ``launches`` moved); ``delta_empty_batches``, the batches that met a
+    delta holding no row (a sharded index: on some shard)."""
 
-    Identity for single-probe; under multi-probe each physical table's
-    column repeats T times (``tidx``), so a probed query bucket compares
-    against the row's bucket in the *same* physical table.
-    """
-    if tidx is None:
-        return delta.bucket_ids
-    return delta.bucket_ids[:, tidx.to(torch.int64)]
+    kernel_batches: int = 0
+    empty_batches: int = 0
 
+    def batch(self, empty: bool, fn):
+        """``fn()``, one query batch, counted."""
+        before = _dc.delta_collide.launches
+        out = fn()
+        self.kernel_batches += _dc.delta_collide.launches != before
+        self.empty_batches += bool(empty)
+        return out
 
-def _hits(delta: DeltaSegment, qbuckets: torch.Tensor,
-          tidx: Optional[torch.Tensor]) -> torch.Tensor:
-    """(Q, C + 1, V) bool: row bucket == query bucket, per column."""
-    return (qbuckets[:, None, :].to(torch.int32)
-            == _row_buckets(delta, tidx)[None, :, :])
+    def as_dict(self) -> dict:
+        return {"delta_kernel_batches": self.kernel_batches,
+                "delta_empty_batches": self.empty_batches}
 
 
 def collision_stats(delta: DeltaSegment, qbuckets: torch.Tensor,
-                    tidx: Optional[torch.Tensor] = None):
+                    tidx: Optional[torch.Tensor] = None,
+                    impl: Optional[str] = None):
     """Exact per-query delta counts: (collisions, distinct), both (Q,)
     int32 — the streaming analogue of ``bucket_counts`` + the HLL
     candSize term, except both are exact (and tombstone-aware through
-    ``live``)."""
-    hit = _hits(delta, qbuckets, tidx) & delta.live[None, :, None]
-    collisions = torch.sum(hit, dim=(1, 2), dtype=torch.int32)
-    distinct = torch.sum(torch.any(hit, dim=-1), dim=1, dtype=torch.int32)
-    return collisions, distinct
+    ``live``).  Over the ``count`` rows written, the only slots that can
+    be live: ``ops.delta_collide`` (one launch on CUDA, none for an empty
+    delta)."""
+    n = delta.count
+    return ops.delta_collide(qbuckets, delta.bucket_ids[:n], delta.live[:n],
+                             tidx, "counts", impl=impl)
 
 
 def search(delta: DeltaSegment, qbuckets: torch.Tensor, q: torch.Tensor,
            r: float, metric: str, require_collision: bool = True,
            impl: Optional[str] = None,
            tidx: Optional[torch.Tensor] = None):
-    """Exact scan of the delta segment -> (ext_ids, dists, mask), (Q, C+1).
+    """Exact scan of the delta segment -> (ext_ids, dists, mask), (Q,
+    count): the rows written, the only slots that can be live.
 
     ``require_collision=True`` mirrors LSH-route semantics (a delta row
     is a candidate only if it collides in >= 1 probed bucket); ``False``
     mirrors the linear route (every live row is checked).  The distance
     + threshold pass is the fused linear-route kernel
-    (``ops.fused_linear_scan``: K1, K4 or K5 by metric) over all C + 1
-    rows, whatever the route; the live/collision masks compose on top.
+    (``ops.fused_linear_scan``: K1, K4 or K5 by metric) over those rows,
+    whatever the route; the live mask, or the collision test's mask of
+    live colliding rows (``ops.delta_collide``), composes on top.  An
+    empty delta gives zero-width tensors and launches nothing.
     """
-    _, dists, in_radius = ops.fused_linear_scan(q, delta.x, r, metric,
-                                                impl=impl)
-    mask = in_radius & delta.live[None, :]
+    n = delta.count
+    if n == 0:
+        nq, dev = q.shape[0], q.device
+        return (torch.empty((nq, 0), dtype=torch.int32, device=dev),
+                torch.empty((nq, 0), dtype=torch.float32, device=dev),
+                torch.empty((nq, 0), dtype=torch.bool, device=dev))
+    _, dists, mask = ops.fused_linear_scan(q, delta.x[:n], r, metric,
+                                           impl=impl)
+    live = delta.live[:n]
     if require_collision:
-        mask = mask & torch.any(_hits(delta, qbuckets, tidx), dim=-1)
-    ids = delta.ids[None, :].expand(dists.shape)
+        mask = mask & ops.delta_collide(qbuckets, delta.bucket_ids[:n], live,
+                                        tidx, "mask", impl=impl)
+    else:
+        mask = mask & live[None, :]
+    ids = delta.ids[None, :n].expand(dists.shape)
     return ids, dists, mask

@@ -147,6 +147,7 @@ class DynamicHybridIndex:
         self._inserts = 0
         self._deletes = 0
         self.build_seconds = 0.0   # the last build's wall seconds
+        self._delta_counters = delta_lib.DeltaCounters()
 
     def _new_stack(self) -> SegmentStack:
         return SegmentStack(phases=self.phases, unit_rows=self._unit_rows)
@@ -582,8 +583,10 @@ class DynamicHybridIndex:
             q = self._rows(queries)
             qb, tidx = self._engine.hash_batch(
                 self.family, lambda: self._qbuckets(q, num_probes))
-            return self._engine.query(self._segments(tidx), q, qb, float(r),
-                                      force=force)
+            return self._delta_counters.batch(
+                self.delta.count == 0,
+                lambda: self._engine.query(self._segments(tidx), q, qb,
+                                           float(r), force=force))
 
     # ------------------------------------------------------ observability
     @property
@@ -595,7 +598,8 @@ class DynamicHybridIndex:
         """Size/level/compaction counters snapshot (host ints/dicts),
         with the query engine's counters under ``query``
         (``QueryEngine.stats``; an engine shared between indexes counts
-        for all of them) and the last build's ``build_seconds``."""
+        for all of them), the last build's ``build_seconds`` and how query
+        batches met the delta (``delta.DeltaCounters``)."""
         out = {
             "n_live": self.n,
             "n_main": self.stack.n_rows,
@@ -612,6 +616,7 @@ class DynamicHybridIndex:
             "query": self._engine.stats(),
             "build_seconds": self.build_seconds,
         }
+        out.update(self._delta_counters.as_dict())
         out.update(self.stats.as_dict())
         return out
 

@@ -316,6 +316,7 @@ class ShardedDynamicHybridIndex:
         self._delta_live_s = np.zeros(self.shards, np.int64)
         self._inserts = 0
         self._deletes = 0
+        self._delta_counters = delta_lib.DeltaCounters()
 
     def _set_params(self, params: Dict[str, torch.Tensor]) -> None:
         """The family parameters, one copy per distinct shard device."""
@@ -888,6 +889,12 @@ class ShardedDynamicHybridIndex:
         routing diagnostics."""
         if self._delta is None:
             raise RuntimeError("index is empty: build/insert first")
+        return self._delta_counters.batch(
+            bool((self._delta_count_s == 0).any()),
+            lambda: self._query(queries, r, force))
+
+    def _query(self, queries, r: float,
+               force: Optional[str]) -> ShardedQueryResult:
         S, mesh, cm = self.shards, self.mesh, self.cost_model
         n_pads = [l.n_pad for l in self._levels]
         C = self.delta_capacity
@@ -991,8 +998,9 @@ class ShardedDynamicHybridIndex:
         """Size / level / compaction counters (host ints and lists), with
         the sharded extras: per-shard live and delta loads,
         ``placement``, ``rows_moved`` (cumulative rows rebalanced at
-        merges) and ``shard_skew`` = max / mean live load (1.0 is
-        balanced; keep_local under a skewed stream grows it toward S)."""
+        merges), ``shard_skew`` = max / mean live load (1.0 is
+        balanced; keep_local under a skewed stream grows it toward S) and
+        how query batches met the deltas (``delta.DeltaCounters``)."""
         live_per_shard = np.zeros(self.shards, np.int64)
         for l in self._levels:
             live_per_shard += l.live_s
@@ -1022,6 +1030,7 @@ class ShardedDynamicHybridIndex:
             "deletes": self._deletes,
             "work_seconds": self.compaction_work_seconds,
         }
+        out.update(self._delta_counters.as_dict())
         out.update(self.stats.as_dict())
         return out
 

@@ -19,13 +19,16 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import multiprobe as mp  # noqa: E402
 from repro_torch.core.lsh import families  # noqa: E402
-from repro_torch.kernels import (bucket_hash, distances,  # noqa: E402
-                                 fused_scan, hamming, hll_merge, ops, simhash)
+from repro_torch.kernels import (bucket_hash, delta_collide,  # noqa: E402
+                                 distances, fused_scan, hamming, hll_merge,
+                                 ops, simhash)
 from repro_torch.kernels.ref import unit_rows  # noqa: E402
 from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
 from torch_cases import (BUCKET_HASH_B, BUCKET_HASH_CASES,  # noqa: E402
                          MULTIPROBE_CASES, bucket_hash_case, np_bucket_ids,
                          np_mix_words)
+from torch_cases import (DELTA_COUNTS, DELTA_FULL,  # noqa: E402
+                         DELTA_PROBES, delta_case, delta_full_chain)
 from torch_cases import (DOT_CASES, GROUPED_CASES, L1_CASES,  # noqa: E402
                          LSH_CASES, MESH_SERVE_CASES, MESH_SITES,
                          MESH_TRAIN_CASES, RADII, ROUTE_CASES, SCAN_CASES,
@@ -339,6 +342,96 @@ def test_cuda_churned_dynamic_index_matches_plain(cuda, metric):
             assert kernel.launches > before   # the delta scan, at least
         b = plain.query(q, r, force=force)
         assert a.neighbor_sets() == b.neighbor_sets(), force
+
+
+def _delta_collide_matches_plain(delta, qb, tidx):
+    """Both modes of the collision test kernel over the delta's held rows
+    against the plain chain and the full-capacity chain, bit for bit: one
+    launch a mode, none without rows."""
+    n = delta.count
+    rows, live = delta.bucket_ids[:n], delta.live[:n]
+    before = delta_collide.delta_collide.launches
+    coll, dist = ops.delta_collide(qb, rows, live, tidx, "counts")
+    mask = ops.delta_collide(qb, rows, live, tidx, "mask")
+    assert delta_collide.delta_collide.launches == before + 2 * (n > 0)
+    want_coll, want_dist = ops.delta_collide(qb, rows, live, tidx, "counts",
+                                             impl="ref")
+    want_mask = ops.delta_collide(qb, rows, live, tidx, "mask", impl="ref")
+    assert coll.dtype == dist.dtype == torch.int32 and mask.dtype == torch.bool
+    assert mask.shape == (qb.shape[0], n)
+    assert torch.equal(coll, want_coll) and torch.equal(dist, want_dist)
+    assert torch.equal(mask, want_mask)
+    full_coll, full_dist = delta_full_chain(delta, qb, tidx, "counts")
+    assert torch.equal(coll, full_coll) and torch.equal(dist, full_dist)
+    assert torch.equal(mask, delta_full_chain(delta, qb, tidx,
+                                              "mask")[:, :n])
+    return coll
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probes", DELTA_PROBES)
+@pytest.mark.parametrize("count", DELTA_COUNTS)
+def test_cuda_delta_collide_matches_plain(cuda, count, probes):
+    delta, _, qb, tidx = delta_case(count, probes, cuda, seed=count)
+    coll = _delta_collide_matches_plain(delta, qb, tidx)
+    if count > 1:        # some live row collides (a lone row may be dead)
+        assert bool((coll > 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probes", DELTA_PROBES)
+def test_cuda_delta_collide_full_delta(cuda, probes):
+    """The CoverType batch (1,024 queries, L = 20) against a full delta of
+    8,192 rows: eight row chunks a query tile, the counts added."""
+    delta, _, qb, tidx = delta_case(DELTA_FULL["C"], probes, cuda,
+                                    **DELTA_FULL)
+    coll = _delta_collide_matches_plain(delta, qb, tidx)
+    assert int(coll.min()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l1", "hamming"])
+def test_cuda_empty_delta_launches_nothing_in_the_search(cuda, metric):
+    """A freshly built DynamicHybridIndex (its delta empty): a query batch
+    launches no collision test (its counts are zeros) and, on the LSH
+    route, no linear scan (the delta's scan has no rows); every batch
+    counts in ``delta_empty_batches``; the sets equal the plain path's.
+    Once the delta holds rows, a batch launches the counts once and the
+    mask once an LSH group, and counts in ``delta_kernel_batches``."""
+    from repro_torch.core.lsh import make_family
+    from repro_torch.streaming import DynamicHybridIndex
+    if metric == "hamming":
+        x = RNG.integers(0, 2**32, (900, 2), dtype=np.uint32)
+        fam, r = make_family("hamming", d=64, L=6, r=16.0), 24.0
+    else:
+        x = RNG.normal(size=(900, 16)).astype(np.float32)
+        fam, r = make_family("l1", d=16, L=6, r=4.0), 9.0
+    kw = dict(num_buckets=128, m=32, cap=512, delta_capacity=128)
+    idx = DynamicHybridIndex(fam, seed=0, device=cuda, **kw).build(x[:800])
+    plain = DynamicHybridIndex(fam, params=idx.params, impl="ref",
+                               device=cuda, **kw).build(x[:800])
+    kernel = getattr(fused_scan, LINEAR_KERNEL[metric])
+    q = x[::45]
+    for force in (None, "lsh", "linear"):
+        lin, dc = kernel.launches, delta_collide.delta_collide.launches
+        a = idx.query(q, r, force=force)
+        assert delta_collide.delta_collide.launches == dc, force
+        assert (kernel.launches > lin) == (len(a.lin_idx) > 0), force
+        assert a.neighbor_sets() == plain.query(q, r,
+                                                force=force).neighbor_sets()
+    st = idx.index_stats()
+    assert (st["delta_empty_batches"], st["delta_kernel_batches"]) == (3, 0)
+    idx.insert(x[800:])
+    plain.insert(x[800:])
+    for force in (None, "lsh", "linear"):
+        dc = delta_collide.delta_collide.launches
+        a = idx.query(q, r, force=force)
+        assert delta_collide.delta_collide.launches == dc + 1 + (
+            len(a.lsh_idx) > 0), force
+        assert a.neighbor_sets() == plain.query(q, r,
+                                                force=force).neighbor_sets()
+    st = idx.index_stats()
+    assert (st["delta_empty_batches"], st["delta_kernel_batches"]) == (3, 3)
 
 
 # Every metric on six shapes; the dot form (K6) on DOT_CASES too.

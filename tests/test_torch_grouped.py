@@ -20,6 +20,11 @@ the same segments bit for bit.  Then:
       both packages: buffers equal (Hamming exactly; L1 ids and masks
       exactly and distances at 1e-5) and neighbour sets equal.
 
+The port's delta reports its first ``count`` slots, the rows written; the
+reference reports all C + 1, whose last columns (never live) it masks.  So
+the port's buffers are the reference's first columns, and the rest of the
+reference's are masked, with sentinel ids.
+
 The p-stable L1 family uses radius 1 (w = 4, a power of two), so the
 reference's jitted ``/ w`` and the port's division agree exactly.
 """
@@ -45,6 +50,7 @@ from repro_torch.data import clustered_dataset, paper_dataset  # noqa: E402
 from repro_torch.interop import (dynamic_index_from_state,  # noqa: E402
                                  params_from_numpy)
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
 from repro_torch.streaming import CompactionPolicy  # noqa: E402
 
 L, B, M, CAP, DCAP = 6, 128, 32, 2048, 128
@@ -232,8 +238,20 @@ def test_grouped_linear_scan_matches_reference_search_group(kind):
         assert out[0].shape == (len(q), sum(p.x.shape[0] for p in
                                             (s.scan_part() for s in segs)))
         for u, v in zip(out, want):
-            np.testing.assert_array_equal(u.numpy(), np.asarray(v))
+            np.testing.assert_array_equal(u.numpy(),
+                                          np.asarray(v)[:, :u.shape[1]])
+    _assert_masked_past(want, plain[0].shape[1],
+                        DCAP + 1 - port.delta.count if kind == "streaming"
+                        else 0)
     assert bool(plain[2].any()) and not bool(plain[2].all())
+
+
+def _assert_masked_past(buffers, width, extra):
+    """The reference's (ids, dists, mask) has ``extra`` columns past the
+    port's ``width`` (its delta's slots past the count), all masked."""
+    ids, _, mask = (np.asarray(v) for v in buffers)
+    assert ids.shape[1] == width + extra
+    assert not mask[:, width:].any() and (ids[:, width:] == EXT_SENTINEL).all()
 
 
 @pytest.mark.parametrize("force", [None, "lsh", "linear"])
@@ -267,7 +285,10 @@ def test_churned_query_slice_matches_reference(metric, force):
         if not rows:
             continue
         ks, js = (np.array(v) for v in zip(*rows))
-        ids, dists, mask = (np.asarray(v)[js] for v in jb)
+        _assert_masked_past(jb, ta[0].shape[1],
+                            DCAP + 1 - port.delta.count)
+        ids, dists, mask = (np.asarray(v)[js][:, :ta[0].shape[1]]
+                            for v in jb)
         got_ids, got_d, got_mask = (t.numpy()[ks] for t in ta)
         if metric == "hamming":
             near = np.zeros_like(mask)

@@ -831,3 +831,66 @@ def bucket_hash_case(name, device, seed=0):
         return fam, {p: t.to(device) for p, t in params.items()}, \
             torch.from_numpy(xa).to(device)
     return fam, fam.init(gen, device=device), torch.from_numpy(xa).to(device)
+
+
+# The delta's collision test (``ops.delta_collide``) and scan: a delta of
+# capacity DELTA_C filled to each count (across a warp's 32 rows, half and
+# all of it), about a fifth of its rows tombstoned; DELTA_PROBES probes a
+# table (1: no column -> table map).  DELTA_FULL is the CoverType cell's
+# batch against a full delta, L = 20.
+DELTA_C = 128
+DELTA_COUNTS = (0, 1, 31, 32, 33, DELTA_C // 2, DELTA_C)
+DELTA_PROBES = (1, 3)
+DELTA_FULL = dict(C=8192, L=20, nq=1024, buckets=64)
+
+
+def delta_case(count, probes, device, seed=0, *, C=DELTA_C, L=6, nq=37,
+               buckets=6, metric="l1", d=5):
+    """(delta, query rows, (Q, L * probes) query buckets, tidx or None):
+    a ``make_delta`` of capacity ``C`` on ``device`` with ``count`` rows
+    inserted (``metric``'s rows, bucket ids from [0, ``buckets``), so that
+    queries collide often) and about a fifth of them killed."""
+    from repro_torch.core.index import as_rows
+    from repro_torch.streaming import delta as delta_lib
+    rng = np.random.default_rng(seed)
+
+    def rows(n):
+        if metric == "hamming":
+            return as_rows(rng.integers(0, 2**32, (n, 2), dtype=np.uint32),
+                           metric, device)
+        return as_rows(rng.normal(size=(n, d)).astype(np.float32), metric,
+                       device)
+    x = rows(count)
+    delta = delta_lib.make_delta(C, x.shape[1], L, dtype=x.dtype,
+                                 device=device)
+    if count:
+        bids = torch.from_numpy(rng.integers(0, buckets, (count, L),
+                                             dtype=np.int32)).to(device)
+        ext = torch.from_numpy(rng.permutation(10 * C)[:count].astype(
+            np.int32)).to(device)
+        delta_lib.insert(delta, x, bids, ext,
+                         torch.ones(count, dtype=torch.bool, device=device))
+        dead = np.nonzero(rng.random(count) < 0.2)[0]
+        if len(dead):
+            delta_lib.kill(delta, torch.from_numpy(dead).to(device),
+                           torch.ones(len(dead), dtype=torch.bool,
+                                      device=device))
+    qb = torch.from_numpy(rng.integers(0, buckets, (nq, L * probes),
+                                       dtype=np.int32)).to(device)
+    tidx = None if probes == 1 else torch.repeat_interleave(
+        torch.arange(L, dtype=torch.int32, device=device), probes)
+    return delta, rows(nq), qb, tidx
+
+
+def delta_full_chain(delta, qb, tidx, mode):
+    """The delta's collision test as the port ran it before it knew its
+    count: the (Q, C + 1, V) hit tensor over every slot, trash row
+    included -> (collisions, distinct) or the (Q, C + 1) mask."""
+    rb = delta.bucket_ids if tidx is None else \
+        delta.bucket_ids[:, tidx.to(torch.int64)]
+    hit = qb[:, None, :].to(torch.int32) == rb[None, :, :]
+    if mode == "mask":
+        return torch.any(hit, dim=-1) & delta.live[None, :]
+    hit = hit & delta.live[None, :, None]
+    return (torch.sum(hit, dim=(1, 2), dtype=torch.int32),
+            torch.sum(torch.any(hit, dim=-1), dim=1, dtype=torch.int32))

@@ -9,7 +9,8 @@ short window) and then its traced stretch (``harness.TRACE_ROUNDS``
 rounds under ``torch.profiler``), keeps the stretch's events and prints
 one JSON line: the readings of ``bench/lib/spans.py`` (idle by phase,
 host and device time by ``hlsh.*`` span, the index's ``index_stats()``,
-the batches the bucket hash kernel hashed beside them)
+the batches the bucket hash kernel hashed, and those whose delta counts
+launched the collision test kernel or met an empty delta, beside them)
 beside the benchmark's own trace metrics (``device_idle_pct``,
 ``launches_per_batch``, ``syncs_per_batch``), the traced rounds' mean
 batch time, and each host wait of the index call with the span and the
@@ -127,9 +128,13 @@ def cell(workload: str, seed: int, seconds: float) -> dict:
         "readings": spans_lib.readings(red, stats),
         # beside the hash's readings: the index's batches whose bucket ids
         # the bucket hash kernel made, of all it answered (None on a tree
-        # without the kernel)
+        # without the kernel); beside ``delta_device_ms``: its batches
+        # whose delta counts launched the collision test kernel, and
+        # those that met an empty delta (None on a tree without them)
         "hash_kernel_batches": (stats.get("query") or {}).get(
             "hash_kernel_batches"),
+        "delta_kernel_batches": stats.get("delta_kernel_batches"),
+        "delta_empty_batches": stats.get("delta_empty_batches"),
         "spans": red,
         "stats_query": stats.get("query"),
         "syncs_by_site": syncs_by_site(events, calls),
