@@ -78,8 +78,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      both churned streaming indexes (CoverType, MNIST) K3 over all frozen
      segments, and on MNIST K5 over all segments, against their plain
      versions and bit for bit against the engine's per-segment
-     composition (each segment's terms or search, then a sum or a
-     concatenation), timed beside it.  Then three MNIST tenants
+     composition (each segment's terms or one-part scan, then a sum or
+     a concatenation), timed beside it.  Then three MNIST tenants
      (``serve.CollectionManager``: one family, engine and compaction
      driver, a ``ShapeBucketScheduler`` with quota weights 1 / 2 / 4 and
      a ``ResultCache``): churned, served in forced batches (sets held
@@ -1427,12 +1427,12 @@ def route_scan_times(s: Smoke, idx, q_np, r, metric, tag):
     each against its plain version, and the engine's estimate and linear
     group against the parent's composition one segment at a time
     (``torch_cases.route_estimate_per_segment``, one K3 a segment on
-    its gathered registers, then ``finalize_route``; each segment's
-    ``search`` and a concatenation), which they must equal bit
-    for bit.  Times: events around the call (``ms``) and a CUDA graph
-    replay (``device_ms``), L2 flushed, for the kernel, the engine's
-    whole phase and the per-segment composition; bounds from the segment
-    sizes of this run."""
+    its gathered registers, then ``finalize_route``; a one-part
+    ``ops.grouped_linear_scan`` a segment and a concatenation), which
+    they must equal bit for bit.  Times: events around the call (``ms``)
+    and a CUDA graph replay (``device_ms``), L2 flushed, for the kernel,
+    the engine's whole phase and the per-segment composition; bounds from
+    the segment sizes of this run."""
     np, torch = s.np, s.torch
     from repro_torch.core.engine import (SegmentEstimate, TableSegment,
                                          concat_columns, finalize_route)
@@ -1496,7 +1496,7 @@ def route_scan_times(s: Smoke, idx, q_np, r, metric, tag):
         whole = lambda: eng.search_group(segs, qb, q, float(r),  # noqa: E731
                                          lsh_route=False)
         per_seg = lambda: concat_columns([  # noqa: E731
-            g.search(qb, q, float(r), lsh_route=False) for g in segs])
+            ops.grouped_linear_scan(q, [p], float(r), metric) for p in parts])
         (kd, km, ki), b, c = kern(), plain(), per_seg()
         for u, v_, w in zip((ki, kd, km), b, c):
             assert torch.equal(u, v_) and torch.equal(u, w), \

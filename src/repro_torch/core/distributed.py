@@ -27,7 +27,8 @@ shard takes its route on the host (the reference's ``lax.cond``).
 
 The estimate's terms come from ``QueryEngine.segment_terms`` (K3 in its
 terms mode, one launch a shard), the searches from
-``TableSegment.search``; the streaming variant is ``streaming.sharded``.
+``QueryEngine.search_group``; the streaming variant is
+``streaming.sharded``.
 """
 from __future__ import annotations
 
@@ -361,8 +362,8 @@ def make_query_fn(family, *, num_buckets: int, mesh: ShardMesh,
         out = []
         for s, (dev, seg) in enumerate(zip(mesh.devices, segs)):
             q, qb = hashed[dev]
-            ids, dists, mask = compact_results(
-                *seg.search(qb, q, float(r), lsh_route=used[s]), width)
+            ids, dists, mask = compact_results(*engine.search_group(
+                [seg], qb, q, float(r), lsh_route=used[s]), width)
             out.append((ids + s * n_local, dists, mask))
         ids, dists, mask = stack_shards(mesh, out)
         return {"ids": ids, "dists": dists, "mask": mask,

@@ -41,9 +41,10 @@ import torch
 from repro_torch.core import hll as hll_lib
 from repro_torch.core import search as search_lib
 from repro_torch.core.cost_model import CostModel
+from repro_torch.core.lsh.families import uses_kernel
 from repro_torch.core.lsh.tables import LSHTables
-from repro_torch.kernels import bucket_hash, ops
-from repro_torch.kernels.ref import EXT_SENTINEL, concat_columns, scan_epilogue
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import EXT_SENTINEL, concat_columns
 from repro_torch.obs.spans import span
 
 __all__ = ["RouteEstimate", "SegmentEstimate", "Segment", "TableSegment",
@@ -97,17 +98,20 @@ class Segment(Protocol):
         estimates them together)."""
         ...
 
-    def search(self, qbuckets: torch.Tensor, q: torch.Tensor, r, *,
-               lsh_route: bool) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
-        """Fixed-shape search -> sentinel-padded ``(ids, dists, mask)``."""
+    def search(self, qbuckets: torch.Tensor, q: torch.Tensor,
+               r) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The LSH route over this segment -> sentinel-padded ``(ids,
+        dists, mask)``."""
+        ...
+
+    def scan_part(self) -> ops.ScanPart:
+        """Its rows for the linear route, which ``ops.grouped_linear_scan``
+        scans for every segment of a group at once (required)."""
         ...
 
     # Traced queries (``QueryEngine`` with a tracer) additionally call
     # ``count_candidates(qbuckets) -> (Q,)``: the distinct candidates
-    # this segment's LSH route gathers (cap-truncated).  Segments with a
-    # ``scan_part() -> ops.ScanPart`` (both indexes' segments) share one
-    # linear-route scan (``QueryEngine.search_group``).
+    # this segment's LSH route gathers (cap-truncated).
 
 
 def finalize_route(terms: Sequence[SegmentEstimate], cost_model: CostModel,
@@ -185,7 +189,6 @@ class TableSegment:
     n_live: Optional[int] = None                # defaults to tables.n
     n_scan: Optional[int] = None                # defaults to #rows scanned
     impl: Optional[str] = None
-    q_chunk: Optional[int] = None               # None -> min(32, Q)
     tidx: Optional[torch.Tensor] = None         # (V,) multi-probe column->table
     x_unit: Optional[torch.Tensor] = None       # cosine: x's unit rows, for K1, K2
 
@@ -203,21 +206,15 @@ class TableSegment:
 
     def scan_part(self) -> ops.ScanPart:
         """What ``ops.grouped_linear_scan`` scans of this segment."""
-        return ops.ScanPart(self.x, self.live, self.ext_ids)
+        return ops.ScanPart(self.x, self.live, self.ext_ids, self.x_unit)
 
-    def search(self, qbuckets: torch.Tensor, q: torch.Tensor, r, *,
-               lsh_route: bool):
+    def search(self, qbuckets: torch.Tensor, q: torch.Tensor, r):
         if self.x is None:
             raise ValueError("estimate-only segment has no rows")
         n = self.x.shape[0]
-        if not lsh_route:      # row n in column n: live / ext broadcast
-            return scan_epilogue(*search_lib.linear_search(
-                self.x, q, r, self.metric, impl=self.impl,
-                x_unit=self.x_unit), self.live, self.ext_ids)
-        qc = self.q_chunk or min(32, q.shape[0])
         ids, dists, mask = search_lib.lsh_search(
             self.x, self.tables, qbuckets, q, r, self.metric, self.cap,
-            q_chunk=qc, tidx=self.tidx, impl=self.impl, x_unit=self.x_unit)
+            tidx=self.tidx, impl=self.impl, x_unit=self.x_unit)
         if self.live is not None or self.ext_ids is not None:
             safe = ids.to(torch.int64).clamp(0, n - 1)
             if self.live is not None:
@@ -355,7 +352,7 @@ class QueryEngine:
         """``batches`` answered; ``syncs``: the blocking copies between
         host and device on the query path, one for the route decision
         (hybrid routing only), one for each routed group's indices, and
-        the query hash's own (``hash_batch``); ``hash_kernel_batches``:
+        the query hash's own (``count_hash``); ``hash_kernel_batches``:
         the query batches whose hash launched the bucket hash kernel.  The
         engine's own sites count on any device, so a CPU index counts what
         a CUDA index would wait for; the hash's counts follow the path it
@@ -363,19 +360,17 @@ class QueryEngine:
         return {"batches": self.batches, "syncs": self.syncs,
                 "hash_kernel_batches": self.hash_kernel_batches}
 
-    def hash_batch(self, family, fn, calls: int = 1):
-        """``fn()``, a query batch's hash, counted where it ran: one
-        ``hash_kernel_batches`` if the bucket hash kernel launched in it
-        (its wrapper's ``launches`` moved), else the family's plain-path
-        ``host_syncs`` (the p-stable divisor's copy) for each of its
-        ``calls`` ``bucket_ids`` calls."""
-        before = bucket_hash.bucket_hash.launches
-        out = fn()
-        if bucket_hash.bucket_hash.launches != before:
+    def count_hash(self, family, q: torch.Tensor, impl: Optional[str],
+                   calls: int = 1) -> None:
+        """Count a query batch's hash, ``calls`` ``family.bucket_ids``
+        calls on the rows ``q`` under ``impl``, on the path they take: one
+        ``hash_kernel_batches`` where the family runs the bucket hash
+        kernel (``families.uses_kernel``) on rows, else the family's
+        plain-path ``host_syncs`` (the p-stable divisor's copy) a call."""
+        if q.shape[0] and uses_kernel(q.device, impl):
             self.hash_kernel_batches += 1
         else:
             self.syncs += family.host_syncs * calls
-        return out
 
     def estimate(self, segments: Sequence[Segment],
                  qbuckets: torch.Tensor) -> RouteEstimate:
@@ -431,22 +426,16 @@ class QueryEngine:
     def search_group(self, segments: Sequence[Segment],
                      qbuckets: torch.Tensor, q: torch.Tensor, r, *,
                      lsh_route: bool):
-        """Search every segment for one routed group; concatenate the
-        sentinel-padded ``(ids, dists, mask)`` buffers along columns.
-        Where it is one kernel launch (Hamming on CUDA) or the plain
-        version, the linear route of segments that have a ``scan_part()``
-        (the ``TableSegment``s and the delta) is one
-        ``ops.grouped_linear_scan`` over all of them."""
-        metric = segments[0].metric
-        if (not lsh_route
-                and all(hasattr(s, "scan_part") for s in segments)
-                and (metric == "hamming"
-                     or ops.resolve_impl(self.impl, q.device) == "ref")):
+        """Search every segment for one routed group -> sentinel-padded
+        ``(ids, dists, mask)``, the segments' columns in order.  The
+        linear route is one ``ops.grouped_linear_scan`` over every
+        segment's ``scan_part()`` (which kernel runs is its choice); the
+        LSH route concatenates each segment's ``search``."""
+        if not lsh_route:
             return ops.grouped_linear_scan(
-                q, [s.scan_part() for s in segments], r, metric,
+                q, [s.scan_part() for s in segments], r, segments[0].metric,
                 impl=self.impl)
-        return concat_columns([s.search(qbuckets, q, r, lsh_route=lsh_route)
-                               for s in segments])
+        return concat_columns([s.search(qbuckets, q, r) for s in segments])
 
     def _route(self, route: RouteEstimate, nq: int, force: Optional[str]):
         with span("hlsh.route"):

@@ -164,9 +164,9 @@ class HybridLSHIndex:
         with span("hlsh.query"):
             q = as_rows(queries, self.family.metric, self.device)
             with span("hlsh.hash"):
-                qb = self._engine.hash_batch(
-                    self.family, lambda: self.bucket_ids(q),
-                    calls=-(-max(q.shape[0], 1) // 65536))  # bucket_ids' chunks
+                qb = self.bucket_ids(q)
+            self._engine.count_hash(self.family, q, self.impl,
+                                    calls=-(-max(q.shape[0], 1) // 65536))
             return self._engine.query([self._segment()], q, qb, float(r),
                                       force=force)
 

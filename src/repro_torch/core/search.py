@@ -17,10 +17,14 @@ Reporting semantics: every function returns ``(ids, dists, mask)`` where
 ``mask[q, i]`` marks a reported r-near neighbor of query q.  Buffers are
 sentinel-padded; ``mask`` already excludes padding.
 
-Query batches are processed in fixed ``q_chunk`` slices so the per-chunk
-working set stays bounded; a batch that is not a chunk multiple is
-padded up and the results sliced back (a 33-query batch runs as two
-32-query chunks).
+Query batches are processed in fixed ``q_chunk`` slices
+(``ops.chunked``) so the per-chunk working set stays bounded; a batch
+that is not a chunk multiple is padded up and the results sliced back
+(a 33-query batch runs as two 32-query chunks).
+
+``linear_search`` is the counterpart of ``repro.core.search.
+linear_search``; the indexes' linear route is ``ops.grouped_linear_scan``
+(``QueryEngine.search_group``), which slices its queries the same way.
 """
 from __future__ import annotations
 
@@ -58,21 +62,6 @@ def dedupe_sorted(cands: torch.Tensor,
     return s, first & (s < sentinel)
 
 
-def _chunked(chunk_fn, args, nq: int, q_chunk: int, pad_values):
-    """Run ``chunk_fn`` over fixed q_chunk slices of per-query arrays.
-
-    Pads every array in ``args`` up to the next chunk multiple (with its
-    entry in ``pad_values``), runs the chunks in order and concatenates
-    the (nq, ...) results.
-    """
-    padded = tuple(ops.pad_to(a, q_chunk, 0, value=v)
-                   for a, v in zip(args, pad_values))
-    outs = [chunk_fn(tuple(a[lo:lo + q_chunk] for a in padded))
-            for lo in range(0, padded[0].shape[0], q_chunk)]
-    return tuple(torch.cat([o[i] for o in outs], dim=0)[:nq]
-                 for i in range(3))
-
-
 def linear_search(x: torch.Tensor, q: torch.Tensor, r: float, metric: str,
                   impl: str | None = None, q_chunk: int = 32,
                   x_unit: torch.Tensor | None = None):
@@ -84,14 +73,8 @@ def linear_search(x: torch.Tensor, q: torch.Tensor, r: float, metric: str,
     unit rows, made once per corpus) spares the kernel route from
     normalising the corpus for every chunk.
     """
-    def chunk_fn(args):
-        return ops.fused_linear_scan(args[0], x, r, metric, impl=impl,
-                                     x_unit=x_unit)
-
-    nq = q.shape[0]
-    if q_chunk and nq > q_chunk:
-        return _chunked(chunk_fn, (q,), nq, q_chunk, (0,))
-    return chunk_fn((q,))
+    return ops.chunked(lambda a: ops.fused_linear_scan(
+        a[0], x, r, metric, impl=impl, x_unit=x_unit), (q,), (0,), q_chunk)
 
 
 def lsh_candidate_counts(tables: LSHTables, qbuckets: torch.Tensor, cap: int,
@@ -125,13 +108,6 @@ def lsh_search(x: torch.Tensor, tables: LSHTables, qbuckets: torch.Tensor,
     sentinel = x.shape[0]
     cands = gather_candidates(tables, qbuckets, cap, sentinel,
                               tidx=tidx)                        # (Q, C)
-
-    def chunk_fn(args):
-        c, qq = args                                   # (qc, C), (qc, d)
-        return ops.fused_lsh_scan_unsorted(x, c, qq, r, metric, impl=impl,
-                                           x_unit=x_unit)
-
-    nq = q.shape[0]
-    if q_chunk and nq > q_chunk:
-        return _chunked(chunk_fn, (cands, q), nq, q_chunk, (sentinel, 0))
-    return chunk_fn((cands, q))
+    return ops.chunked(lambda a: ops.fused_lsh_scan_unsorted(
+        x, a[0], a[1], r, metric, impl=impl, x_unit=x_unit),
+        (cands, q), (sentinel, 0), q_chunk)

@@ -27,7 +27,8 @@ from repro_torch.kernels.ref import ScanPart, TableTerms
 from repro_torch.u32 import as_i32, as_u32
 
 __all__ = ["pairwise_dist", "hamming_dist", "simhash_fingerprint",
-           "hll_merge_estimate", "pad_to", "metric_radius_transform",
+           "hll_merge_estimate", "pad_to", "chunked",
+           "metric_radius_transform",
            "fused_linear_scan", "fused_lsh_scan", "fused_lsh_scan_unsorted",
            "grouped_linear_scan", "route_estimate", "route_terms",
            "delta_collide", "ScanPart",
@@ -60,6 +61,27 @@ def pad_to(x: torch.Tensor, mult: int, axis: int, value=0) -> torch.Tensor:
     shape[axis] = pad
     fill = torch.full(shape, value, dtype=x.dtype, device=x.device)
     return torch.cat([x, fill], dim=axis)
+
+
+def chunked(fn, args, pad_values, q_chunk: int = 32):
+    """``fn(args)`` -> (ids, dists, mask) over fixed ``q_chunk``-row
+    slices of the per-query tensors ``args``.
+
+    A batch of at most ``q_chunk`` rows (or any batch, for ``q_chunk``
+    0) is one call on ``args`` as they are.  A longer one is padded up to
+    a whole number of slices (each array with its entry in
+    ``pad_values``), run slice by slice, and the (Q, ...) results are
+    concatenated and sliced back: a 33-query batch runs as two slices.
+    """
+    nq = args[0].shape[0]
+    if not q_chunk or nq <= q_chunk:
+        return fn(args)
+    padded = tuple(pad_to(a, q_chunk, 0, value=v)
+                   for a, v in zip(args, pad_values))
+    outs = [fn(tuple(a[lo:lo + q_chunk] for a in padded))
+            for lo in range(0, padded[0].shape[0], q_chunk)]
+    return tuple(torch.cat([o[i] for o in outs], dim=0)[:nq]
+                 for i in range(3))
 
 
 def metric_radius_transform(metric: str, r: float) -> float:
@@ -249,30 +271,37 @@ def grouped_linear_scan(q: torch.Tensor, parts: Sequence[ScanPart], r,
     index: (ids, dists, mask), each (Q, sum n), part s in its own
     columns, in order.
 
-    ``parts``: ``ScanPart``s (x, live, ext).  Each part reports what
-    ``fused_linear_scan`` reports over its rows, with ``live[n]`` in the
-    mask and, where it has ``ext``, ``ext[n]`` as the id where masked in
-    and ``ref.EXT_SENTINEL`` elsewhere.  What runs:
+    ``parts``: ``ScanPart``s (x, live, ext, x_unit).  Each part reports
+    what ``fused_linear_scan`` reports over its rows, with ``live[n]`` in
+    the mask and, where it has ``ext``, ``ext[n]`` as the id where masked
+    in and ``ref.EXT_SENTINEL`` elsewhere.  What runs:
 
       * CUDA, hamming — one kernel launch over all the parts and queries
         (``fused_scan.linear_scan_hamming``);
+      * CUDA, l2 / cosine / l1 — on each part that holds rows, K1 or K4
+        (``fused_linear_scan``, reading the part's ``x_unit`` for cosine)
+        once a slice of 32 queries (``chunked``), then ``ref.scan_epilogue``;
+        a part of no rows launches nothing and adds no column;
       * CPU, or ``impl="ref"`` — the plain version,
         ``ref.grouped_linear_scan``, any metric.
-
-    CUDA l2 / cosine / l1 raise: their segments are searched one by one
-    (``engine.TableSegment.search``, K1 or K4 per 32-query chunk).
     """
     impl = resolve_impl(impl, q.device)
+    thresh = metric_radius_transform(metric, r)
     if impl == "ref":
-        return _ref.grouped_linear_scan(q, parts, metric_radius_transform(
-            metric, r), metric)
-    if metric != "hamming":
-        raise ValueError(f"grouped_linear_scan on CUDA is Hamming only, "
-                         f"not {metric!r}: search the segments one by one")
-    dists, mask, ids = _fs.linear_scan_hamming(
-        metric_radius_transform(metric, r), as_i32(q).contiguous(),
-        [p._replace(x=as_i32(p.x).contiguous()) for p in parts])
-    return ids, dists, mask
+        return _ref.grouped_linear_scan(q, parts, thresh, metric)
+    if metric == "hamming":
+        dists, mask, ids = _fs.linear_scan_hamming(
+            thresh, as_i32(q).contiguous(),
+            [p._replace(x=as_i32(p.x).contiguous()) for p in parts])
+        return ids, dists, mask
+
+    def scan(p):
+        return _ref.scan_epilogue(*chunked(
+            lambda a: fused_linear_scan(a[0], p.x, r, metric, impl=impl,
+                                        x_unit=p.x_unit), (q,), (0,)),
+            p.live, p.ext)
+    return _ref.concat_columns([scan(p) for p in parts if p.x.shape[0]]
+                               or [_ref.no_columns(q)])
 
 
 def route_estimate(qbuckets: torch.Tensor, tables: Sequence[TableTerms],

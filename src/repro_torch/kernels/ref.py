@@ -34,6 +34,7 @@ class ScanPart(NamedTuple):
     x: torch.Tensor                       # (n, d) rows, or (n, W) codes
     live: Optional[torch.Tensor] = None   # (>= n,) bool, or None: all live
     ext: Optional[torch.Tensor] = None    # (>= n,) int32 ids, or None: row index
+    x_unit: Optional[torch.Tensor] = None  # cosine: x's unit rows, for K1
 
 
 def popcount_u32(v: torch.Tensor) -> torch.Tensor:
@@ -292,6 +293,12 @@ def grouped_linear_scan(q: torch.Tensor, parts: Sequence[ScanPart], thresh,
     return concat_columns([scan_epilogue(
         *fused_linear_scan(q, p.x, thresh, metric), p.live, p.ext)
         for p in parts])
+
+
+def no_columns(q: torch.Tensor):
+    """(ids, dists, mask) of a segment holding no rows: (Q, 0) each."""
+    return tuple(torch.empty((q.shape[0], 0), dtype=dt, device=q.device)
+                 for dt in (torch.int32, torch.float32, torch.bool))
 
 
 def concat_columns(parts):

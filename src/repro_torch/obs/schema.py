@@ -61,10 +61,10 @@ INDEX_STATS_KEYS = frozenset({
 
 # the port's index_stats() beyond the reference's keys: the query
 # engine's counters (QueryEngine.stats), the last build's seconds and, of
-# the streaming indexes, how query batches met the delta
-# (streaming.delta.DeltaCounters); HybridLSHIndex.index_stats() has only
-# the first two, and RetrievalService.stats leaves them all out, so its
-# keys stay the reference's
+# the streaming indexes, how query batches met the delta (the last two);
+# HybridLSHIndex.index_stats() has only the first two, and
+# RetrievalService.stats leaves them all out, so its keys stay the
+# reference's
 ENGINE_STATS_KEYS = frozenset({"query", "build_seconds",
                                "delta_kernel_batches", "delta_empty_batches"})
 

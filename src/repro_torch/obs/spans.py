@@ -28,7 +28,9 @@ under its ``hlsh.query``, whose direct children are the batch's phases:
   ``hlsh.route``          the route decision to the host and the split
   ``hlsh.search.lsh``,    one routed group: its query indices to the
   ``hlsh.search.linear``  device and ``search_group``
-  ``hlsh.delta.search``   the delta's scan, inside a search group
+  ``hlsh.delta.search``   the delta's LSH route, inside ``hlsh.search
+                          .lsh`` (its linear route is its part of
+                          ``ops.grouped_linear_scan``)
   ``hlsh.build``          Algorithm 1 (both indexes' ``build``)
 """
 from __future__ import annotations

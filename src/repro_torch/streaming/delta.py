@@ -30,13 +30,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.engine import SegmentEstimate
-from repro_torch.kernels import delta_collide as _dc
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import scan_epilogue
+from repro_torch.kernels.ref import no_columns, scan_epilogue
 from repro_torch.obs.spans import span
 
-__all__ = ["DeltaSegment", "DeltaView", "DeltaCounters", "make_delta",
-           "insert", "kill", "collision_stats", "search"]
+__all__ = ["DeltaSegment", "DeltaView", "make_delta", "insert", "kill",
+           "collision_stats", "search"]
 
 
 @dataclasses.dataclass
@@ -101,8 +100,9 @@ class DeltaView:
     Counts are exact (no HLL, no dead-count correction), so its
     ``SegmentEstimate`` carries ``cand_exact`` only.  ``n_live``/
     ``n_scan`` are host ints supplied by the owner.  Its exact counts
-    run in the profiler span ``hlsh.delta.counts`` and its scan in
-    ``hlsh.delta.search`` (``repro_torch.obs.spans``).
+    run in the profiler span ``hlsh.delta.counts`` and its LSH route in
+    ``hlsh.delta.search`` (``repro_torch.obs.spans``); its linear route is
+    its ``scan_part`` in the group's ``ops.grouped_linear_scan``.
     """
 
     delta: DeltaSegment
@@ -119,13 +119,11 @@ class DeltaView:
         return SegmentEstimate(collisions=coll, cand_exact=dist,
                                n_live=self.n_live, n_scan=self.n_scan)
 
-    def search(self, qbuckets: torch.Tensor, q: torch.Tensor, r, *,
-               lsh_route: bool):
+    def search(self, qbuckets: torch.Tensor, q: torch.Tensor, r):
         with span("hlsh.delta.search"):
             return scan_epilogue(*search(self.delta, qbuckets, q, r,
-                                         self.metric,
-                                         require_collision=lsh_route,
-                                         impl=self.impl, tidx=self.tidx),
+                                         self.metric, impl=self.impl,
+                                         tidx=self.tidx),
                                  None, self.delta.ids)
 
     def scan_part(self) -> ops.ScanPart:
@@ -144,30 +142,6 @@ class DeltaView:
                                    impl=self.impl)[1]
 
 
-@dataclasses.dataclass
-class DeltaCounters:
-    """How a streaming index's query batches met their deltas, in host
-    ints (``index_stats()``): ``delta_kernel_batches``, the batches whose
-    delta counts launched the collision test kernel (its wrapper's
-    ``launches`` moved); ``delta_empty_batches``, the batches that met a
-    delta holding no row (a sharded index: on some shard)."""
-
-    kernel_batches: int = 0
-    empty_batches: int = 0
-
-    def batch(self, empty: bool, fn):
-        """``fn()``, one query batch, counted."""
-        before = _dc.delta_collide.launches
-        out = fn()
-        self.kernel_batches += _dc.delta_collide.launches != before
-        self.empty_batches += bool(empty)
-        return out
-
-    def as_dict(self) -> dict:
-        return {"delta_kernel_batches": self.kernel_batches,
-                "delta_empty_batches": self.empty_batches}
-
-
 def collision_stats(delta: DeltaSegment, qbuckets: torch.Tensor,
                     tidx: Optional[torch.Tensor] = None,
                     impl: Optional[str] = None):
@@ -183,34 +157,24 @@ def collision_stats(delta: DeltaSegment, qbuckets: torch.Tensor,
 
 
 def search(delta: DeltaSegment, qbuckets: torch.Tensor, q: torch.Tensor,
-           r: float, metric: str, require_collision: bool = True,
-           impl: Optional[str] = None,
+           r: float, metric: str, impl: Optional[str] = None,
            tidx: Optional[torch.Tensor] = None):
-    """Exact scan of the delta segment -> (ext_ids, dists, mask), (Q,
-    count): the rows written, the only slots that can be live.
+    """The delta's LSH route -> (ext_ids, dists, mask), (Q, count): the
+    rows written, the only slots that can be live.
 
-    ``require_collision=True`` mirrors LSH-route semantics (a delta row
-    is a candidate only if it collides in >= 1 probed bucket); ``False``
-    mirrors the linear route (every live row is checked).  The distance
-    + threshold pass is the fused linear-route kernel
-    (``ops.fused_linear_scan``: K1, K4 or K5 by metric) over those rows,
-    whatever the route; the live mask, or the collision test's mask of
-    live colliding rows (``ops.delta_collide``), composes on top.  An
-    empty delta gives zero-width tensors and launches nothing.
+    A delta row is a candidate only if it collides in >= 1 probed bucket.
+    The distance + threshold pass is the fused linear-route kernel
+    (``ops.fused_linear_scan``: K1, K4 or K5 by metric) over those rows;
+    the collision test's mask of live colliding rows
+    (``ops.delta_collide``) composes on top.  An empty delta gives
+    zero-width tensors and launches nothing.
     """
     n = delta.count
     if n == 0:
-        nq, dev = q.shape[0], q.device
-        return (torch.empty((nq, 0), dtype=torch.int32, device=dev),
-                torch.empty((nq, 0), dtype=torch.float32, device=dev),
-                torch.empty((nq, 0), dtype=torch.bool, device=dev))
+        return no_columns(q)
     _, dists, mask = ops.fused_linear_scan(q, delta.x[:n], r, metric,
                                            impl=impl)
-    live = delta.live[:n]
-    if require_collision:
-        mask = mask & ops.delta_collide(qbuckets, delta.bucket_ids[:n], live,
-                                        tidx, "mask", impl=impl)
-    else:
-        mask = mask & live[None, :]
+    mask = mask & ops.delta_collide(qbuckets, delta.bucket_ids[:n],
+                                    delta.live[:n], tidx, "mask", impl=impl)
     ids = delta.ids[None, :n].expand(dists.shape)
     return ids, dists, mask

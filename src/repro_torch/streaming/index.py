@@ -147,7 +147,7 @@ class DynamicHybridIndex:
         self._inserts = 0
         self._deletes = 0
         self.build_seconds = 0.0   # the last build's wall seconds
-        self._delta_counters = delta_lib.DeltaCounters()
+        self._delta_kernel_batches = self._delta_empty_batches = 0
 
     def _new_stack(self) -> SegmentStack:
         return SegmentStack(phases=self.phases, unit_rows=self._unit_rows)
@@ -581,12 +581,15 @@ class DynamicHybridIndex:
         self._check_ready()
         with span("hlsh.query"):
             q = self._rows(queries)
-            qb, tidx = self._engine.hash_batch(
-                self.family, lambda: self._qbuckets(q, num_probes))
-            return self._delta_counters.batch(
-                self.delta.count == 0,
-                lambda: self._engine.query(self._segments(tidx), q, qb,
-                                           float(r), force=force))
+            qb, tidx = self._qbuckets(q, num_probes)
+            self._engine.count_hash(self.family, q, self.impl)
+            out = self._engine.query(self._segments(tidx), q, qb, float(r),
+                                     force=force)
+        n = self.delta.count
+        self._delta_empty_batches += n == 0
+        self._delta_kernel_batches += bool(n and q.shape[0]) and (
+            ops.resolve_impl(self.impl, q.device) == "cuda")
+        return out
 
     # ------------------------------------------------------ observability
     @property
@@ -599,7 +602,9 @@ class DynamicHybridIndex:
         with the query engine's counters under ``query``
         (``QueryEngine.stats``; an engine shared between indexes counts
         for all of them), the last build's ``build_seconds`` and how query
-        batches met the delta (``delta.DeltaCounters``)."""
+        batches met the delta: ``delta_kernel_batches``, those whose delta
+        held rows on the collision test kernel's route, and
+        ``delta_empty_batches``, those whose delta held none."""
         out = {
             "n_live": self.n,
             "n_main": self.stack.n_rows,
@@ -615,8 +620,9 @@ class DynamicHybridIndex:
             "work_seconds": self.compaction_work_seconds,
             "query": self._engine.stats(),
             "build_seconds": self.build_seconds,
+            "delta_kernel_batches": self._delta_kernel_batches,
+            "delta_empty_batches": self._delta_empty_batches,
         }
-        out.update(self._delta_counters.as_dict())
         out.update(self.stats.as_dict())
         return out
 

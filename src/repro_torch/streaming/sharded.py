@@ -316,7 +316,7 @@ class ShardedDynamicHybridIndex:
         self._delta_live_s = np.zeros(self.shards, np.int64)
         self._inserts = 0
         self._deletes = 0
-        self._delta_counters = delta_lib.DeltaCounters()
+        self._delta_kernel_batches = self._delta_empty_batches = 0
 
     def _set_params(self, params: Dict[str, torch.Tensor]) -> None:
         """The family parameters, one copy per distinct shard device."""
@@ -889,9 +889,12 @@ class ShardedDynamicHybridIndex:
         routing diagnostics."""
         if self._delta is None:
             raise RuntimeError("index is empty: build/insert first")
-        return self._delta_counters.batch(
-            bool((self._delta_count_s == 0).any()),
-            lambda: self._query(queries, r, force))
+        out = self._query(queries, r, force)
+        self._delta_empty_batches += bool((self._delta_count_s == 0).any())
+        self._delta_kernel_batches += out.n_queries > 0 and any(
+            n and ops.resolve_impl(self.impl, dev) == "cuda"
+            for n, dev in zip(self._delta_count_s, self.devices))
+        return out
 
     def _query(self, queries, r: float,
                force: Optional[str]) -> ShardedQueryResult:
@@ -1000,7 +1003,10 @@ class ShardedDynamicHybridIndex:
         ``placement``, ``rows_moved`` (cumulative rows rebalanced at
         merges), ``shard_skew`` = max / mean live load (1.0 is
         balanced; keep_local under a skewed stream grows it toward S) and
-        how query batches met the deltas (``delta.DeltaCounters``)."""
+        how query batches met the deltas: ``delta_kernel_batches``, those
+        in which some shard's delta held rows on the collision test
+        kernel's route, and ``delta_empty_batches``, those in which some
+        shard's delta held none."""
         live_per_shard = np.zeros(self.shards, np.int64)
         for l in self._levels:
             live_per_shard += l.live_s
@@ -1029,8 +1035,9 @@ class ShardedDynamicHybridIndex:
             "inserts": self._inserts,
             "deletes": self._deletes,
             "work_seconds": self.compaction_work_seconds,
+            "delta_kernel_batches": self._delta_kernel_batches,
+            "delta_empty_batches": self._delta_empty_batches,
         }
-        out.update(self._delta_counters.as_dict())
         out.update(self.stats.as_dict())
         return out
 

@@ -1,8 +1,9 @@
 """The streaming delta over the rows it holds, on the CPU (plain path).
 
-The delta's collision counts (``collision_stats``), its scan (``search``)
-and its grouped-scan part read only the ``count`` rows written, the only
-slots that can be live.  Each is held to the full-capacity chain the port
+The delta's collision counts (``collision_stats``), its LSH route
+(``search``) and its linear route (its ``scan_part`` in the engine's
+``search_group``) read only the ``count`` rows written, the only slots
+that can be live.  Each is held to the full-capacity chain the port
 ran before (``torch_cases.delta_full_chain``: every slot of C + 1, trash
 row included): counts equal, the same (id, distance) pairs reported.  A
 freshly built ``DynamicHybridIndex`` (an empty delta) reports no delta
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import CostModel, QueryEngine
 from repro_torch.core.engine import TableSegment
 from repro_torch.core.lsh import make_family
 from repro_torch.kernels import ops
@@ -85,7 +87,8 @@ def test_search_over_count_rows_reports_full_capacity_pairs(count, metric,
                                     metric=metric, buckets=3)
     r = DELTA_RADII[metric]
     view = delta_lib.DeltaView(delta, metric, tidx=tidx)
-    got = view.search(qb, q, r, lsh_route=lsh_route)
+    got = QueryEngine(CostModel()).search_group([view], qb, q, r,
+                                                lsh_route=lsh_route)
     assert all(t.shape == (q.shape[0], count) for t in got)
     want = _full_capacity_search(delta, qb, q, r, metric, lsh_route, tidx)
     assert want[0].shape[1] == delta.capacity + 1
@@ -93,19 +96,14 @@ def test_search_over_count_rows_reports_full_capacity_pairs(count, metric,
     assert bool((got[0][~got[2]] == EXT_SENTINEL).all())
     if count >= 32:
         assert bool(got[2].any())
-    part = view.scan_part()
-    assert part.x.shape[0] == count
-    if not lsh_route:
-        lin = ops.grouped_linear_scan(q, [part], r, metric)
-        _assert_same_pairs(lin, want, metric, r)
+    assert view.scan_part().x.shape[0] == count
 
 
 def _full_capacity_delta(mp):
     """Patch the delta back to the full-capacity chain (every slot)."""
-    def full_search(delta, qbuckets, q, r, metric, require_collision=True,
-                    impl=None, tidx=None):
-        out = _full_capacity_search(delta, qbuckets, q, r, metric,
-                                    require_collision, tidx)
+    def full_search(delta, qbuckets, q, r, metric, impl=None, tidx=None):
+        out = _full_capacity_search(delta, qbuckets, q, r, metric, True,
+                                    tidx)
         return delta.ids[None, :].expand(out[1].shape), out[1], out[2]
     mp.setattr(delta_lib, "collision_stats",
                lambda delta, qbuckets, tidx=None, impl=None:

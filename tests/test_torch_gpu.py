@@ -277,15 +277,43 @@ def test_cuda_grouped_hamming_scan_matches_plain(cuda, q, w, sizes, kind):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["l2", "cosine", "l1"])
-def test_cuda_grouped_linear_scan_is_hamming_only(cuda, metric):
-    """On CUDA the grouped scan is the Hamming kernel: other metrics raise
-    (the engine searches their segments one by one) and launch nothing."""
-    x = torch.from_numpy(RNG.normal(size=(40, 8)).astype(np.float32)).to(cuda)
-    before = fused_scan.linear_scan_hamming.launches
-    with pytest.raises(ValueError, match="Hamming only"):
-        ops.grouped_linear_scan(x[:3], [ops.ScanPart(x)], 1.0, metric,
-                                impl="cuda")
-    assert fused_scan.linear_scan_hamming.launches == before
+def test_cuda_grouped_linear_scan_matches_plain(cuda, metric):
+    """The grouped scan of l2 / cosine / l1 on CUDA: K1 or K4 on each part
+    that holds rows, once a 32-query slice, then the live / external-id
+    epilogue.  Over a static part (with its unit rows for cosine), a part
+    of no rows and a streaming part (live, external ids): ids, distances
+    and masks as the plain grouped scan's (masks off the threshold
+    band); the part of no rows launches nothing and adds no column."""
+    nq, d, sizes = 70, 37, (300, 0, 129)
+    qa = RNG.normal(size=(nq, d)).astype(np.float32)
+    xs = [RNG.normal(size=(n, d)).astype(np.float32) for n in sizes]
+    t = float(np.median(dist64(metric, qa[:1], xs[0])))
+    r = float(np.sqrt(t)) if metric == "l2" else t
+    live = RNG.random(sizes[2] + 1) < 0.8
+    ext = (1000 + RNG.permutation(sizes[2])).astype(np.int32)
+    x0 = torch.from_numpy(xs[0]).to(cuda)
+    parts = [ops.ScanPart(x0, x_unit=unit_rows(x0).contiguous()
+                          if metric == "cosine" else None),
+             ops.ScanPart(torch.from_numpy(xs[1]).to(cuda)),
+             ops.ScanPart(torch.from_numpy(xs[2]).to(cuda), _on(live, cuda),
+                          _on(ext, cuda))]
+    qt = torch.from_numpy(qa).to(cuda)
+    kernel = getattr(fused_scan, LINEAR_KERNEL[metric])
+    before = kernel.launches
+    a = ops.grouped_linear_scan(qt, parts, r, metric, impl="cuda")
+    assert kernel.launches == before + 2 * -(-nq // 32)
+    b = ops.grouped_linear_scan(qt, parts, r, metric, impl="ref")
+    assert tuple(a[0].shape) == tuple(b[0].shape) == (nq, sum(sizes))
+    ids, dists, mask = (u.cpu().numpy() for u in a)
+    pids, pdists, pmask = (v.cpu().numpy() for v in b)
+    np.testing.assert_allclose(dists, pdists, **TOL)
+    alive = np.concatenate([np.ones(sizes[0], bool), live[:sizes[2]]])
+    d64 = np.concatenate([dist64(metric, qa, x) for x in xs], axis=1)
+    masks_outside_band_agree(mask, pmask, np.where(alive, d64, np.inf), t)
+    both = mask & pmask
+    np.testing.assert_array_equal(ids[both], pids[both])
+    assert (ids[:, sizes[0]:][~mask[:, sizes[0]:]] == EXT_SENTINEL).all()
+    assert mask.any() and not mask.all()
 
 
 @pytest.mark.gpu

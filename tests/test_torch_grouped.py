@@ -13,9 +13,11 @@ the same segments bit for bit.  Then:
       for integer arguments >= 13), routes equal except where the LSH cost
       lies within 1e-5 (relative) of the linear cost;
   (b) ``ops.grouped_linear_scan``'s plain version and the engine's linear
-      group against the reference's ``search_group(lsh_route=False)``:
-      ids, masks and distances exactly equal (Hamming, static and
-      streaming);
+      group against the reference's ``search_group(lsh_route=False)``,
+      static and streaming, every metric: Hamming ids, masks and
+      distances exactly equal; l2, cosine and L1 masks equal but within
+      1e-5 (relative) of the threshold, ids equal and distances at 1e-5
+      where both report;
   (c) the whole slice: ``query`` with force None, "lsh" and "linear" on
       both packages: buffers equal (Hamming exactly; L1 ids and masks
       exactly and distances at 1e-5) and neighbour sets equal.
@@ -25,8 +27,9 @@ reference reports all C + 1, whose last columns (never live) it masks.  So
 the port's buffers are the reference's first columns, and the rest of the
 reference's are masked, with sentinel ids.
 
-The p-stable L1 family uses radius 1 (w = 4, a power of two), so the
-reference's jitted ``/ w`` and the port's division agree exactly.
+The p-stable families use radius 1 (w = 4 for L1, 2 for l2: powers of
+two), so the reference's jitted ``/ w`` and the port's division agree
+exactly.
 """
 import numpy as np
 import pytest
@@ -54,9 +57,9 @@ from repro_torch.kernels.ref import EXT_SENTINEL  # noqa: E402
 from repro_torch.streaming import CompactionPolicy  # noqa: E402
 
 L, B, M, CAP, DCAP = 6, 128, 32, 2048, 128
-RADII = {"l1": 2.5, "cosine": 0.05, "hamming": 20.0}
+RADII = {"l2": 0.5, "l1": 2.5, "cosine": 0.05, "hamming": 20.0}
 # alpha per metric, beta = 1: the hybrid routes queries both ways
-ALPHA = {"l1": 3.0, "cosine": 1.0, "hamming": 1.5}
+ALPHA = {"l2": 1.0, "l1": 3.0, "cosine": 1.0, "hamming": 1.5}
 FANOUT = 16                           # level-0 segments accumulate
 COST_TIE = 1e-5
 
@@ -70,7 +73,8 @@ def _data(metric, n=1200):
 
 def _fam(make, metric):
     d = 64 if metric == "hamming" else 16
-    return make(metric, d=d, L=L, r=1.0 if metric == "l1" else RADII[metric])
+    return make(metric, d=d, L=L,
+                r=1.0 if metric in ("l1", "l2") else RADII[metric])
 
 
 def _queries(x):
@@ -210,37 +214,49 @@ def _static_pair(metric):
     return x, ref, port
 
 
+@pytest.mark.parametrize("metric", ["hamming", "l2", "cosine", "l1"])
 @pytest.mark.parametrize("kind", ["static", "streaming"])
-def test_grouped_linear_scan_matches_reference_search_group(kind):
+def test_grouped_linear_scan_matches_reference_search_group(kind, metric):
     """(b) The linear route of a whole group over every segment: the plain
     grouped scan and the engine's ``search_group`` against the
-    reference's ``search_group(lsh_route=False)``, Hamming, exactly."""
+    reference's ``search_group(lsh_route=False)``, Hamming exactly, the
+    float metrics' reported pairs up to the threshold's rounding."""
     if kind == "static":
-        x, ref, port = _static_pair("hamming")
+        x, ref, port = _static_pair(metric)
         jsegs, segs = [ref._segment()], [port._segment()]
         jqb = ref._bucket_fn(ref.params, jnp.asarray(_queries(x)))
-        qb = port.bucket_ids(as_rows(_queries(x), "hamming", "cpu"))
+        qb = port.bucket_ids(as_rows(_queries(x), metric, "cpu"))
     else:
-        x, ref, port = _churned("hamming")
+        x, ref, port = _churned(metric)
         jqb, _ = ref._qbuckets(jnp.asarray(_queries(x)), 1)
         jsegs = ref._segments(None)
         qb, _ = port._qbuckets(port._rows(_queries(x)), 1)
         segs = port._segments(None)
     q = _queries(x)
-    r = RADII["hamming"]
+    r = RADII[metric]
     want = ref._engine.search_group(jsegs, jqb, jnp.asarray(q), r,
                                     lsh_route=False)
-    tq = torch.from_numpy(q.view(np.int32))
+    tq = as_rows(q, metric, "cpu")
     plain = ops.grouped_linear_scan(tq, [s.scan_part() for s in segs], r,
-                                    "hamming")
+                                    metric)
     got = port._engine.search_group(segs, qb, tq, r, lsh_route=False)
-    for out in (plain, got):
-        assert out[0].shape == (len(q), sum(p.x.shape[0] for p in
-                                            (s.scan_part() for s in segs)))
-        for u, v in zip(out, want):
-            np.testing.assert_array_equal(u.numpy(),
-                                          np.asarray(v)[:, :u.shape[1]])
-    _assert_masked_past(want, plain[0].shape[1],
+    assert all(torch.equal(u, v) for u, v in zip(plain, got))
+    width = sum(s.scan_part().x.shape[0] for s in segs)
+    assert plain[0].shape == (len(q), width)
+    ids, dists, mask = (np.asarray(v)[:, :width] for v in want)
+    got_ids, got_d, got_mask = (t.numpy() for t in plain)
+    if metric == "hamming":
+        for u, v in ((got_ids, ids), (got_d, dists), (got_mask, mask)):
+            np.testing.assert_array_equal(u, v)
+    else:
+        t = ops.metric_radius_transform(metric, r)
+        near = np.abs(got_d - t) <= 1e-5 * max(1.0, t)
+        assert not ((got_mask != mask) & ~near).any()
+        both = got_mask & mask
+        np.testing.assert_array_equal(got_ids[both], ids[both])
+        np.testing.assert_allclose(got_d[both], dists[both], rtol=1e-5,
+                                   atol=1e-5)
+    _assert_masked_past(want, width,
                         DCAP + 1 - port.delta.count if kind == "streaming"
                         else 0)
     assert bool(plain[2].any()) and not bool(plain[2].all())
