@@ -179,14 +179,16 @@ Phases (each raises on failure, so any failure exits non-zero):
      the bytes and three TF32 passes on the tensor cores, both terms and
      the CUDA-core term beside it, and the launch layout; for K4 and K7 two
      FP32 instructions a term; K2 from the unsorted candidates, its
-     library time ``torch.sort`` of them alone; for K2, K4 and K7 also the
+     library time ``torch.sort`` of them alone, and over the whole batch
+     in one launch beside its 32-query slices; for K2, K4 and K7 also the
      device time of a CUDA graph replay, ``device_ms``); then the last
      line ``{"ok": true, "device": {...}}``.
 
 Each query path's kernel launches are asserted exactly where the path
 fixes them: K3 once a batch on every path of every index (over all
-frozen segments), K5 once a linear group and once for the delta of an
-LSH group on a Hamming index, no kernel off its path.  Each hybrid
+frozen segments), K2 once a frozen segment of an LSH group (a shard's
+segment on the sharded paths), K5 once a linear group and once for the
+delta of an LSH group on a Hamming index, no kernel off its path.  Each hybrid
 query's ``torch.profiler`` trace also logs its sort kernels per batch
 (the LSH route sorts its candidates inside K2, so none is
 ``lsh_search``'s) and its kernels per batch (all, ``cat``, index /
@@ -1052,11 +1054,12 @@ LINEAR_KERNEL = {"l2": "linear_scan_dot", "cosine": "linear_scan_dot",
 
 
 def check_path_launches(launches, n_lsh, n_linear, metric, what,
-                        delta_rows=0, traced=0):
+                        delta_rows=0, traced=0, segments=1):
     """Each kernel launches on a path exactly when that path has work for
     it: K3 (``route_estimate``, over all segments) and the bucket hash
-    (the query batch's ids) exactly once a batch; K2 when queries go to
-    LSH; the metric's linear scan when queries go to the linear scan or,
+    (the query batch's ids) exactly once a batch; K2 once for each of the
+    index's ``segments`` frozen segments when queries go to LSH (the whole
+    LSH group in one launch); the metric's linear scan when queries go to the linear scan or,
     on a streaming index whose delta holds rows (``delta_rows``), on
     every path (the delta scan) -- for Hamming (K5, over all segments)
     exactly once a linear group and once for the delta of an LSH group;
@@ -1068,7 +1071,7 @@ def check_path_launches(launches, n_lsh, n_linear, metric, what,
     held = delta_rows > 0
     want = {k: 0 for k in launches}       # None: at least one launch
     want.update({"route_estimate": 1, "bucket_hash": 1,
-                 "lsh_scan": None if n_lsh else 0,
+                 "lsh_scan": segments if n_lsh else 0,
                  "delta_collide": int(held) * (1 + int(n_lsh > 0) + traced)})
     if metric == "hamming":
         want[lin] = int(n_linear > 0) + int(held and n_lsh > 0)
@@ -1099,6 +1102,7 @@ def query_paths(s: Smoke, idx, q_np, r, metric, tag, delta=False):
     torch = s.torch
     nq = len(q_np)
     rows = idx.delta.count if delta else 0
+    segments = idx.index_stats()["segments"] if delta else 1
     res, launches, traced = {}, {}, {}
     for f, path in PATHS.items():
         t0 = traced_batches(idx)
@@ -1109,11 +1113,11 @@ def query_paths(s: Smoke, idx, q_np, r, metric, tag, delta=False):
         traced[path] = traced_batches(idx) - t0
     n_lsh = len(res[None].lsh_idx)
     check_path_launches(launches["hybrid"], n_lsh, nq - n_lsh, metric,
-                        f"{tag} hybrid", rows, traced["hybrid"])
+                        f"{tag} hybrid", rows, traced["hybrid"], segments)
     check_path_launches(launches["lsh"], nq, 0, metric, f"{tag} lsh", rows,
-                        traced["lsh"])
+                        traced["lsh"], segments)
     check_path_launches(launches["linear"], 0, nq, metric, f"{tag} linear",
-                        rows, traced["linear"])
+                        rows, traced["linear"], segments)
     for path, n in traced.items():       # as an untraced batch launches
         launches[path]["delta_collide"] -= n * int(rows > 0)
     return res, launches
@@ -1279,7 +1283,8 @@ def drive(s: Smoke, x_np, q_np, metric, fam, idx_kw, r, tag):
 
 def kernel_times(s: Smoke, idx, q_np, r, metric):
     """Per-kernel ms, plain ms, library ms and bound at the main path's
-    shapes: one 32-query chunk for the scans, the whole batch for K3."""
+    shapes: one 32-query chunk for the scans (K2 also over the whole
+    batch, as the LSH route launches it), the whole batch for K3."""
     np, torch = s.np, s.torch
     from repro_torch.core.lsh.tables import gather_candidates, gather_registers
     from repro_torch.core.search import dedupe_sorted
@@ -1360,6 +1365,22 @@ def kernel_times(s: Smoke, idx, q_np, r, metric):
         plan=fused_scan.lsh_scan_plan(xk, 32, c),
         shape=f"Q=32 C={c} distinct={distinct} rows={rows_read} d={d} "
               f"{metric}")
+    # the whole batch as the LSH route verifies it (one launch), beside the
+    # 32-query slices it took before: the same outputs bit for bit
+    nq = len(q_all)
+    cands_all = gather_candidates(idx.tables, idx.bucket_ids(q_all), idx.cap,
+                                  n).contiguous()
+    x_unit = xk if metric == "cosine" else None
+    verify = lambda a_: ops.fused_lsh_scan_unsorted(  # noqa: E731
+        x, a_[0], a_[1], r, metric, impl="cuda", x_unit=x_unit)
+    group = lambda: verify((cands_all, q_all))  # noqa: E731
+    sliced = lambda: ops.chunked(verify, (cands_all, q_all), (n, 0))  # noqa: E731
+    assert all(torch.equal(u, v) for u, v in zip(group(), sliced())), \
+        "lsh_scan: the whole group differs from its 32-query slices"
+    out["lsh_scan"].update(
+        group_q=nq, group_ms=s.cuda_ms(group), group_device_ms=s.graph_ms(group),
+        sliced_ms=s.cuda_ms(sliced), sliced_device_ms=s.graph_ms(sliced),
+        group_plan=fused_scan.lsh_scan_plan(xk, nq, c))
 
     # K3: HLL merge + estimate over the whole batch's registers
     regs = gather_registers(idx.tables, idx.bucket_ids(q_all)).contiguous()
@@ -2294,11 +2315,12 @@ def drive_tenants(s: Smoke, x_np, q_np, fam, r, kw, tag, seed=3):
 SHARDS = 4
 
 
-def check_sharded_launches(launches, used, metric, what, delta_rows):
+def check_sharded_launches(launches, used, metric, what, delta_rows,
+                           segments=1):
     """A sharded path's launches, summed over the shards: K3's terms mode
     (``route_terms``) once a shard (one launch covers a shard's levels),
-    K3's estimate mode never; K2 at least once for each shard routed LSH
-    and never without one; the metric's linear scan (K1 or K4) at least
+    K3's estimate mode never; K2 once for each of a shard's ``segments``
+    frozen segments (levels) for each shard routed LSH; the metric's linear scan (K1 or K4) at least
     once for each shard routed linear and, on a streaming index, once
     more for each shard whose delta holds rows (``delta_rows``, a shard's
     rows, or None); the delta's collision test once for each such delta's
@@ -2316,7 +2338,7 @@ def check_sharded_launches(launches, used, metric, what, delta_rows):
         elif k == "bucket_hash":
             ok = 1 <= got <= S
         elif k == "lsh_scan":
-            ok = got >= n_lsh and (got > 0) == (n_lsh > 0)
+            ok = got == n_lsh * segments
         elif k == lin:
             need = (S - n_lsh) + sum(held)
             ok = got >= need and (got > 0) == (need > 0)
@@ -2333,11 +2355,12 @@ def sharded_paths(s: Smoke, idx, q, r, metric, tag, delta):
     (``check_sharded_launches``; ``delta``: a streaming index, whose
     deltas' rows count).  Returns results and launches."""
     rows = idx.index_stats()["delta_per_shard"] if delta else None
+    segments = idx.index_stats()["segments"] if delta else 1
     res, launches = {}, {}
     for f, path in PATHS.items():
         res[f], launches[path] = s.path(lambda: idx.query(q, r, force=f))
         check_sharded_launches(launches[path], res[f].used_lsh, metric,
-                               f"{tag} {path}", rows)
+                               f"{tag} {path}", rows, segments)
     return res, launches
 
 
@@ -3248,7 +3271,8 @@ def drive_retrieval(s: Smoke, by_path):
         traced = traced_batches(svc.index) - t0
         check_path_launches(lg, n_lsh, len(e) - n_lsh, "cosine",
                             f"retrieval drain batch {g}",
-                            svc.index.delta.count, traced)
+                            svc.index.delta.count, traced,
+                            svc.index.index_stats()["segments"])
         lg["delta_collide"] -= held * traced
         summed = {k: v + lg[k] for k, v in summed.items()}
         k_sets.append(res.neighbor_sets())
@@ -4941,6 +4965,12 @@ def log_kernel_times(tag, kt):
                 f"between launches): {v['device_ms']:.4f}"
                 + (f", library {v['library_device_ms']:.4f}"
                    if "library_device_ms" in v else ""))
+        if "group_device_ms" in v:
+            log(f"[{tag}] {k} over the whole {v['group_q']}-query group in "
+                f"one launch: {v['group_ms']:.4f} ms (device "
+                f"{v['group_device_ms']:.4f}), in 32-query slices "
+                f"{v['sliced_ms']:.4f} ms (device {v['sliced_device_ms']:.4f}); "
+                f"group launch layout {v['group_plan']}")
         if "ops_ms" in v:
             log(f"[{tag}] {k} through ops (the wrapper's own preparation "
                 f"and the kernel): {v['ops_ms']:.4f} ms")

@@ -347,18 +347,22 @@ class QueryEngine:
         self.batches = 0   # query batches answered
         self.syncs = 0     # blocking host<->device copies on the query path
         self.hash_kernel_batches = 0   # query batches the kernel hashed
+        self.lsh_kernel_groups = 0     # LSH groups K2 verified, a launch a segment
 
     def stats(self) -> dict:
         """``batches`` answered; ``syncs``: the blocking copies between
         host and device on the query path, one for the route decision
         (hybrid routing only), one for each routed group's indices, and
         the query hash's own (``count_hash``); ``hash_kernel_batches``:
-        the query batches whose hash launched the bucket hash kernel.  The
+        the query batches whose hash launched the bucket hash kernel;
+        ``lsh_kernel_groups``: the LSH-route groups whose frozen segments
+        K2 verified, one launch a segment (``ops.lsh_group_scan``).  The
         engine's own sites count on any device, so a CPU index counts what
-        a CUDA index would wait for; the hash's counts follow the path it
-        took."""
+        a CUDA index would wait for; the kernels' counts follow the path
+        taken."""
         return {"batches": self.batches, "syncs": self.syncs,
-                "hash_kernel_batches": self.hash_kernel_batches}
+                "hash_kernel_batches": self.hash_kernel_batches,
+                "lsh_kernel_groups": self.lsh_kernel_groups}
 
     def count_hash(self, family, q: torch.Tensor, impl: Optional[str],
                    calls: int = 1) -> None:
@@ -430,11 +434,16 @@ class QueryEngine:
         ``(ids, dists, mask)``, the segments' columns in order.  The
         linear route is one ``ops.grouped_linear_scan`` over every
         segment's ``scan_part()`` (which kernel runs is its choice); the
-        LSH route concatenates each segment's ``search``."""
+        LSH route concatenates each segment's ``search``, and counts in
+        ``lsh_kernel_groups`` where the ``TableSegment``s' verification
+        takes K2 (``ops.resolve_impl``)."""
         if not lsh_route:
             return ops.grouped_linear_scan(
                 q, [s.scan_part() for s in segments], r, segments[0].metric,
                 impl=self.impl)
+        self.lsh_kernel_groups += bool(q.shape[0]) and any(
+            ops.resolve_impl(s.impl, q.device) == "cuda" for s in segments
+            if isinstance(s, TableSegment))
         return concat_columns([s.search(qbuckets, q, r) for s in segments])
 
     def _route(self, route: RouteEstimate, nq: int, force: Optional[str]):

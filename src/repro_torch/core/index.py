@@ -172,9 +172,9 @@ class HybridLSHIndex:
 
     # ------------------------------------------------------------------
     def index_stats(self) -> Dict[str, Any]:
-        """``query``: the engine's ``batches``, ``syncs`` and
-        ``hash_kernel_batches`` (``QueryEngine.stats``); ``build_seconds``:
-        the last build's."""
+        """``query``: the engine's ``batches``, ``syncs``,
+        ``hash_kernel_batches`` and ``lsh_kernel_groups``
+        (``QueryEngine.stats``); ``build_seconds``: the last build's."""
         return {"query": self._engine.stats(),
                 "build_seconds": self.build_seconds}
 

@@ -8,19 +8,21 @@ Both run through the fused scan kernels behind the ``ops`` dispatch:
   * ``lsh_search``    — fixed-capacity bucket gather, then one fused
                         kernel over the (Q, C) unsorted candidates: their
                         sort, run dedup, row gather, rowwise distance and
-                        threshold (Eq. 1 cost).  The reference sorts the
-                        candidates with ``jnp.sort`` and then runs its
-                        verification kernel; the plain version here does
-                        the same with ``torch.sort``.
+                        threshold (Eq. 1 cost), one launch for the whole
+                        group.  The reference sorts the candidates with
+                        ``jnp.sort`` and then runs its verification
+                        kernel; the plain version here does the same with
+                        ``torch.sort``.
 
 Reporting semantics: every function returns ``(ids, dists, mask)`` where
 ``mask[q, i]`` marks a reported r-near neighbor of query q.  Buffers are
 sentinel-padded; ``mask`` already excludes padding.
 
-Query batches are processed in fixed ``q_chunk`` slices
+The plain versions process a query batch in fixed ``q_chunk`` slices
 (``ops.chunked``) so the per-chunk working set stays bounded; a batch
 that is not a chunk multiple is padded up and the results sliced back
-(a 33-query batch runs as two 32-query chunks).
+(a 33-query batch runs as two 32-query chunks).  On CUDA ``lsh_search``
+does not slice (``ops.lsh_group_scan``); ``linear_search``'s K1 / K4 do.
 
 ``linear_search`` is the counterpart of ``repro.core.search.
 linear_search``; the indexes' linear route is ``ops.grouped_linear_scan``
@@ -98,16 +100,14 @@ def lsh_search(x: torch.Tensor, tables: LSHTables, qbuckets: torch.Tensor,
     qbuckets: (Q, V) bucket of each query per probed table (V = L, or
     L*T with ``tidx`` mapping probe columns to physical tables);
     q: (Q, d) queries.  Returns (ids (Q, V*cap), dists, mask) — ids
-    sorted per query, deduped, verified.  Per chunk the unsorted
-    candidate ids go to ``ops.fused_lsh_scan_unsorted`` (on CUDA one
-    kernel sorts and verifies them); pad rows of a partial chunk carry
-    all-sentinel candidates, so they mask themselves.  For cosine,
-    ``x_unit`` (x's unit rows, made once per corpus) is what the kernel
-    gathers.
+    sorted per query, deduped, verified.  The unsorted candidate ids go
+    to ``ops.lsh_group_scan``: on CUDA one kernel launch sorts and
+    verifies all Q queries' candidates; the plain version runs
+    ``q_chunk`` slices, whose pad rows carry all-sentinel candidates, so
+    they mask themselves.  For cosine, ``x_unit`` (x's unit rows, made
+    once per corpus) is what the kernel gathers.
     """
-    sentinel = x.shape[0]
-    cands = gather_candidates(tables, qbuckets, cap, sentinel,
+    cands = gather_candidates(tables, qbuckets, cap, x.shape[0],
                               tidx=tidx)                        # (Q, C)
-    return ops.chunked(lambda a: ops.fused_lsh_scan_unsorted(
-        x, a[0], a[1], r, metric, impl=impl, x_unit=x_unit),
-        (cands, q), (sentinel, 0), q_chunk)
+    return ops.lsh_group_scan(x, cands, q, r, metric, impl=impl,
+                              x_unit=x_unit, q_chunk=q_chunk)

@@ -210,8 +210,13 @@
 // Design (a sort by counting: the ids of one query span only [0, n]):
 //  * Grid (splits, Q), 512 threads, two blocks an SM.  Block s of query q
 //    owns the ids [s w, (s + 1) w): as many splits as fill the card in one
-//    wave (8 for a 32-query chunk; one block a query would use 32 of the
-//    132 SMs), w up to 2^18.
+//    wave (8 for 32 queries; one block a query would use 32 of the 132
+//    SMs), w up to 2^18.  The LSH route launches a whole group at once
+//    (the wrapper takes Q <= 65,535 a launch): at 1,024 queries that is
+//    ceil(n / 2^18) splits (2 for Webspam's 350,000 rows, 4 for a 2^20-row
+//    segment) in 8-16 waves.  At that size 4 and 8 splits were 13 and 38 %
+//    slower on Webspam, and 8 splits on the 2^20-row segment (dcap then C)
+//    7 % faster (PERF.md), so the rule stays one for every Q.
 //  * The block streams its query's C ids (16-byte loads, four in flight a
 //    thread), counts those below its range, which is its output offset,
 //    and sets a presence bit in shared memory for each id of its range

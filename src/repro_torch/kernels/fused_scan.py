@@ -36,6 +36,7 @@ LINEAR_MODES = {"l2": 0, "cosine": 1}
 # "cosine_unit": cosine on corpus rows the caller scaled to unit length (the
 # query rows are scaled in the kernel)
 LSH_METRICS = {"l2": 0, "l1": 1, "cosine_unit": 2, "hamming": 3}
+LSH_MAX_QUERIES = 65535   # lsh_scan's grid is (splits, Q): gridDim.y's limit
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -180,7 +181,9 @@ def lsh_scan(thresh: float, x: torch.Tensor, q: torch.Tensor,
     unspecified).  ``ids`` is ``torch.sort(cands)``'s values; ``mask``
     marks each run's first slot whose row lies within ``thresh``.
     Distances of duplicate and sentinel slots are +inf and not part of
-    the contract.
+    the contract.  One launch for up to ``LSH_MAX_QUERIES`` queries (the
+    grid's y extent); a larger Q takes one launch a slice of that many,
+    each writing its rows of the same outputs.
     """
     nq, c = cands.shape
     n, d = x.shape
@@ -192,15 +195,18 @@ def lsh_scan(thresh: float, x: torch.Tensor, q: torch.Tensor,
     ids = torch.empty((nq, c), dtype=torch.int32, device=dev)
     dist = torch.empty((nq, c), dtype=torch.float32, device=dev)
     mask = torch.empty((nq, c), dtype=torch.bool, device=dev)
-    if nq == 0 or c == 0:
+    if c == 0:
         return ids, dist, mask
-    _build.launch("fused_scan", "lsh_scan",
-                  [_I, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
-                  LSH_METRICS[metric], x.data_ptr(), q.data_ptr(),
-                  cands.data_ptr(), float(thresh), ids.data_ptr(),
-                  dist.data_ptr(), mask.data_ptr(), nq, c, n, d,
-                  _build.stream(x))
-    lsh_scan.launches += 1
+    for lo in range(0, nq, LSH_MAX_QUERIES):
+        s = slice(lo, lo + LSH_MAX_QUERIES)
+        _build.launch("fused_scan", "lsh_scan",
+                      [_I, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
+                      LSH_METRICS[metric], x.data_ptr(), q[s].data_ptr(),
+                      cands[s].data_ptr(), float(thresh), ids[s].data_ptr(),
+                      dist[s].data_ptr(), mask[s].data_ptr(),
+                      min(LSH_MAX_QUERIES, nq - lo), c, n, d,
+                      _build.stream(x))
+        lsh_scan.launches += 1
     return ids, dist, mask
 
 

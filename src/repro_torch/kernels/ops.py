@@ -30,8 +30,8 @@ __all__ = ["pairwise_dist", "hamming_dist", "simhash_fingerprint",
            "hll_merge_estimate", "pad_to", "chunked",
            "metric_radius_transform",
            "fused_linear_scan", "fused_lsh_scan", "fused_lsh_scan_unsorted",
-           "grouped_linear_scan", "route_estimate", "route_terms",
-           "delta_collide", "ScanPart",
+           "lsh_group_scan", "grouped_linear_scan", "route_estimate",
+           "route_terms", "delta_collide", "ScanPart",
            "TableTerms",
            "resolve_impl"]
 
@@ -72,6 +72,9 @@ def chunked(fn, args, pad_values, q_chunk: int = 32):
     a whole number of slices (each array with its entry in
     ``pad_values``), run slice by slice, and the (Q, ...) results are
     concatenated and sliced back: a 33-query batch runs as two slices.
+    On the LSH route only the plain version slices (``lsh_group_scan``):
+    K2 verifies a whole group in one launch.  The linear route's K1 / K4
+    slice on CUDA too (``grouped_linear_scan``).
     """
     nq = args[0].shape[0]
     if not q_chunk or nq <= q_chunk:
@@ -228,6 +231,28 @@ def fused_lsh_scan_unsorted(x: torch.Tensor, cands: torch.Tensor,
         x, q = x.to(torch.float32), q.to(torch.float32)
     return _fs.lsh_scan(thresh, x.contiguous(), q.contiguous(),
                         cands.to(torch.int32).contiguous(), metric=metric)
+
+
+def lsh_group_scan(x: torch.Tensor, cands: torch.Tensor, q: torch.Tensor,
+                   r, metric: str, impl: Optional[str] = None,
+                   x_unit: Optional[torch.Tensor] = None, q_chunk: int = 32):
+    """The LSH route's verification of one routed group on one segment:
+    what ``fused_lsh_scan_unsorted`` reports for the (Q, C) unsorted
+    candidates ``cands`` of the queries ``q``.  What runs:
+
+      * CUDA — K2 over all Q queries in one launch
+        (``fused_scan.lsh_scan``; past 65,535 queries one a slice of that
+        many), writing its outputs in place;
+      * CPU, or ``impl="ref"`` — the plain version once a ``q_chunk``
+        slice (``chunked``; a partial slice padded with sentinel
+        candidates): its gather holds (slice, C, d) floats.
+    """
+    if resolve_impl(impl, x.device) == "cuda":
+        return fused_lsh_scan_unsorted(x, cands, q, r, metric, impl=impl,
+                                       x_unit=x_unit)
+    return chunked(lambda a: fused_lsh_scan_unsorted(
+        x, a[0], a[1], r, metric, impl=impl, x_unit=x_unit),
+        (cands, q), (x.shape[0], 0), q_chunk)
 
 
 def _run_prev(ids: torch.Tensor) -> torch.Tensor:

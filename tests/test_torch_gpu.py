@@ -168,6 +168,77 @@ def test_cuda_lsh_scan_unsorted_matches_plain(cuda, metric, d, n, q, c, kind):
             assert not mk[-1].any()
 
 
+# search.lsh_search over one segment, C = L cap: Webspam's width (cosine on
+# the unit rows the index keeps, 350,000 x 254) and CoverType's (l1, a
+# frozen segment of 2^20 rows x 54) at C = 5,120 and 1, 32, 33 and 1,024
+# queries; 65,537 queries at C = 32 (two launches: the grid holds 65,535
+# queries); 1,024 queries whose candidates all lie in the first of 2^20
+# rows' four splits, more distinct ids than a block holds at once.
+LSH_GROUP_CASES = (
+    [("cosine", 254, 350_000, nq, 20, 256, "random") for nq in (1, 32, 33, 1024)]
+    + [("l1", 54, 1 << 20, nq, 20, 256, "random") for nq in (1, 32, 33, 1024)]
+    + [("l1", 54, 4096, 65537, 4, 8, "random"),
+       ("l1", 54, 1 << 20, 1024, 20, 256, "one_split")])
+
+
+def _group_tables(n, L, kind, gen, dev):
+    """CSR tables over n rows and the buckets a query may probe: random
+    buckets of about 300 rows, or ("one_split") buckets of 256 rows of
+    [0, n / 4), grouped at random in each table, the other rows in buckets
+    no query probes."""
+    from repro_torch.core.lsh.tables import build_tables
+    if kind == "one_split":
+        probed = n // 4 // 256
+        bids = torch.cat([
+            torch.stack([torch.randperm(n // 4, generator=gen, device=dev) // 256
+                         for _ in range(L)], 1),
+            torch.randint(probed, 2 * probed, (n - n // 4, L), generator=gen,
+                          device=dev)])
+        buckets = 2 * probed
+    else:
+        buckets = probed = max(1, n // 300)
+        bids = torch.randint(0, buckets, (n, L), generator=gen, device=dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    return build_tables(ids, bids, buckets, 16), probed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,d,n,nq,L,cap,kind", LSH_GROUP_CASES)
+def test_cuda_lsh_search_verifies_a_group_in_one_launch(cuda, metric, d, n,
+                                                        nq, L, cap, kind):
+    """``search.lsh_search`` launches K2 once for the whole group (once a
+    65,535 queries past the grid's limit), and its ids, mask and distances
+    equal, bit for bit, the 32-query slices of
+    ``ops.fused_lsh_scan_unsorted`` that the LSH route ran before."""
+    from repro_torch.core import search
+    from repro_torch.core.lsh.tables import gather_candidates
+    gen = torch.Generator(device=cuda).manual_seed(nq)
+    x = torch.randn((n, d), generator=gen, device=cuda)
+    q = torch.randn((nq, d), generator=gen, device=cuda)
+    tables, probed = _group_tables(n, L, kind, gen, cuda)
+    qb = torch.randint(0, probed, (nq, L), generator=gen, device=cuda)
+    x_unit = unit_rows(x).contiguous() if metric == "cosine" else None
+    r = 1.0 if metric == "cosine" else 61.0       # about half reported
+    before = fused_scan.lsh_scan.launches
+    got = search.lsh_search(x, tables, qb, q, r, metric, cap, x_unit=x_unit)
+    assert fused_scan.lsh_scan.launches - before == \
+        -(-nq // fused_scan.LSH_MAX_QUERIES)
+    cands = gather_candidates(tables, qb, cap, n)
+    want = ops.chunked(lambda a: ops.fused_lsh_scan_unsorted(
+        x, a[0], a[1], r, metric, impl="cuda", x_unit=x_unit), (cands, q),
+        (n, 0))
+    for u, v in zip(got, want):
+        assert tuple(u.shape) == (nq, L * cap)
+        assert torch.equal(u, v)
+    first = search.dedupe_sorted(got[0], n)[1]
+    assert 0 < int(got[2].sum()) < int(first.sum())
+    if kind == "one_split":
+        plan = fused_scan.lsh_scan_plan(x, nq, L * cap)
+        held = (first & (got[0] < plan["width"])).sum(1)
+        assert plan["splits"] == 4
+        assert int(held.min()) > plan["distinct_at_once"], plan
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["linear_scan_l1", "pairwise_l1"])
 @pytest.mark.parametrize("q,n,d,view", L1_CASES)
@@ -647,8 +718,10 @@ def test_cuda_streaming_pstable_hash_makes_no_sync(cuda):
         assert torch.equal(a.route.collisions, b.route.collisions)
     assert bucket_hash.bucket_hash.launches == before + 3
     got, want = (i.index_stats()["query"] for i in (fast, plain))
-    assert got == {"batches": 3, "syncs": 6, "hash_kernel_batches": 3}
-    assert want == {"batches": 3, "syncs": 9, "hash_kernel_batches": 0}
+    assert got == {"batches": 3, "syncs": 6, "hash_kernel_batches": 3,
+                   "lsh_kernel_groups": 3}
+    assert want == {"batches": 3, "syncs": 9, "hash_kernel_batches": 0,
+                    "lsh_kernel_groups": 0}
 
 
 @pytest.mark.gpu

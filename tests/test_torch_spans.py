@@ -162,7 +162,8 @@ def test_engine_counts_batches_and_blocking_copies(data, kind, metric):
     first = idx.query(q, r)
     assert len(first.lsh_idx) and len(first.lin_idx)   # both groups
     one = q[first.lsh_idx]                             # one group
-    expect = {"batches": 1, "syncs": h + 3, "hash_kernel_batches": 0}
+    expect = {"batches": 1, "syncs": h + 3, "hash_kernel_batches": 0,
+              "lsh_kernel_groups": 0}
     assert idx.index_stats()["query"] == expect
     for qs, force, syncs in ((q, None, 3), (one, None, 2), (q, "lsh", 1),
                              (q, "linear", 1)):
@@ -172,7 +173,7 @@ def test_engine_counts_batches_and_blocking_copies(data, kind, metric):
                 len(res.lin_idx))
         expect = {"batches": expect["batches"] + 1,
                   "syncs": expect["syncs"] + h + syncs,
-                  "hash_kernel_batches": 0}
+                  "hash_kernel_batches": 0, "lsh_kernel_groups": 0}
         assert idx.index_stats()["query"] == expect, (force, syncs)
 
 
@@ -186,3 +187,66 @@ def test_static_index_takes_the_tracer(data):
     assert len(obs.tracer.spans()) == 3 * len(q)
     assert obs.tracer.summary()["batches_traced"] == 3
     assert traced.index_stats()["query"] == plain.index_stats()["query"]
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+@pytest.mark.parametrize("nq,q_chunk,metric", [(33, 16, "l2"), (33, 32, "l1"),
+                                               (65, 32, "l2"), (7, 0, "l1")])
+def test_lsh_group_slices_only_on_the_plain_route(monkeypatch, route, nq,
+                                                  q_chunk, metric):
+    """``search.lsh_search`` verifies a group through
+    ``ops.lsh_group_scan``: the plain version once a ``q_chunk`` slice, K2
+    (here stood in by the plain chain over its whole input, behind
+    ``ops.resolve_impl``) once for the group, with the same ids, mask and
+    distances as the plain version unsliced.  The engine counts the LSH
+    group in ``lsh_kernel_groups`` on K2's route only; ``batches`` counts
+    on both."""
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import search
+    from repro_torch.core.lsh.tables import build_tables
+    from repro_torch.kernels import fused_scan, ops
+    from repro_torch.kernels import ref as kref
+    rng = np.random.default_rng(nq)
+    n, L, B, cap = 150, 4, 8, 3
+    x = torch.from_numpy(rng.normal(size=(n, 6)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(nq, 6)).astype(np.float32))
+    tables = build_tables(torch.arange(n, dtype=torch.int32),
+                          torch.from_numpy(rng.integers(0, B, (n, L))), B, 16)
+    qb = torch.from_numpy(rng.integers(0, B, (nq, L)))
+    r = 3.0 if metric == "l2" else 5.0
+    want = search.lsh_search(x, tables, qb, q, r, metric, cap, q_chunk=0)
+    calls = {"verify": 0, "kernel": 0}
+    verify = ops.fused_lsh_scan_unsorted
+
+    def counted(*a, **k):
+        calls["verify"] += 1
+        return verify(*a, **k)
+
+    def stand_in(thresh, xk, qk, cands, *, metric):
+        calls["kernel"] += 1
+        ids = torch.sort(cands, dim=-1).values
+        return kref.fused_lsh_scan(xk, ids, ops._run_prev(ids), qk, thresh,
+                                   metric)
+
+    monkeypatch.setattr(ops, "fused_lsh_scan_unsorted", counted)
+    if route == "kernel":
+        monkeypatch.setattr(ops, "resolve_impl", lambda impl, dev: "cuda")
+        monkeypatch.setattr(fused_scan, "lsh_scan", stand_in)
+        monkeypatch.setattr(ops, "route_estimate",
+                            lambda qbk, t, tidx=None, impl=None:
+                            kref.route_estimate(qbk, t, tidx))
+    got = search.lsh_search(x, tables, qb, q, r, metric, cap, q_chunk=q_chunk)
+    for a, b in zip(got, want):
+        assert tuple(a.shape) == (nq, L * cap)
+        assert torch.equal(a, b)
+    sliced = -(-nq // q_chunk) if q_chunk else 1
+    assert calls == ({"verify": sliced, "kernel": 0} if route == "plain"
+                     else {"verify": 1, "kernel": 1})
+
+    eng = engine_lib.QueryEngine(CostModel(alpha=1.0, beta=1.0))
+    seg = engine_lib.TableSegment(tables=tables, x=x, metric=metric, cap=cap)
+    for _ in range(2):
+        eng.query([seg], q, qb, r, force="lsh")
+    st = eng.stats()
+    assert (st["batches"], st["lsh_kernel_groups"]) == (
+        2, 2 * (route == "kernel"))

@@ -9,8 +9,9 @@ short window) and then its traced stretch (``harness.TRACE_ROUNDS``
 rounds under ``torch.profiler``), keeps the stretch's events and prints
 one JSON line: the readings of ``bench/lib/spans.py`` (idle by phase,
 host and device time by ``hlsh.*`` span, the index's ``index_stats()``,
-the batches the bucket hash kernel hashed, and those whose delta counts
-launched the collision test kernel or met an empty delta, beside them)
+the batches the bucket hash kernel hashed, the LSH groups K2 verified in
+one launch a segment, and the batches whose delta counts launched the
+collision test kernel or met an empty delta, beside them)
 beside the benchmark's own trace metrics (``device_idle_pct``,
 ``launches_per_batch``, ``syncs_per_batch``), the traced rounds' mean
 batch time, and each host wait of the index call with the span and the
@@ -133,6 +134,10 @@ def cell(workload: str, seed: int, seconds: float) -> dict:
         # those that met an empty delta (None on a tree without them)
         "hash_kernel_batches": (stats.get("query") or {}).get(
             "hash_kernel_batches"),
+        # beside ``hlsh.search.lsh``: the LSH groups whose segments K2
+        # verified in one launch each (None on a tree without the count)
+        "lsh_kernel_groups": (stats.get("query") or {}).get(
+            "lsh_kernel_groups"),
         "delta_kernel_batches": stats.get("delta_kernel_batches"),
         "delta_empty_batches": stats.get("delta_empty_batches"),
         "spans": red,
